@@ -1,29 +1,42 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-H100: builds the crop/mirror/normalize kernel, holds it against its plain
-PyTorch version, drives the image lane end to end through ``build_stack``
-and times the kernel.
+H100: builds the port's three CUDA kernels, holds each against its plain
+PyTorch version, drives the image lane and the dense Qwen3-4B serving path
+end to end, and times the kernels.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the kernel from ``src/repro_torch/kernels/csrc/crop_norm.cu``;
-  3. kernel == plain version on the card: edge values, clamped offsets,
-     mirror, ragged sizes, a full-frame crop and the main-path shape
-     (max|diff| == 0 in f32, <= 1 ulp in bf16);
-  4. the main path: store -> cluster -> pool -> OOO prefetcher -> arena ->
+  2. build the three kernels from ``src/repro_torch/kernels/csrc/*.cu``,
+     one ``nvcc`` each, all started together;
+  3. crop kernel == plain version on the card: edge values, clamped
+     offsets, mirror, ragged sizes, a full-frame crop and the main-path
+     shape (max|diff| == 0 in f32, <= 1 ulp in bf16);
+  4. the image lane: store -> cluster -> pool -> OOO prefetcher -> arena ->
      ImageFeed -> kernel at B=512, 256x256x3 -> 224x224, checked against
      the same run on the materialize path and for the kernel's launches;
-  5. the kernel's time per launch (CUDA events around back-to-back
+  5. the crop kernel's time per launch (CUDA events around back-to-back
      launches), the host's time per call, the plain version's time and the
      bound;
-  6. one JSON line per run of kernels, then the result line.
+  6. flash attention and flash decode == their plain versions on the card
+     (the reference's kernel sweeps and the serving path's shapes; 2e-5 in
+     f32, 2e-2 in bf16);
+  7. the serving path at full width: Qwen3-4B (36 layers, bf16, seeded
+     random weights), prompts fetched over the simulated WAN by
+     ``build_stack``, a 4 x 2048 prefill and continuous-batching decode of
+     16 prompts, with the kernels' launches counted;
+  8. the same path in f32 at 2 layers on the card and on the CPU (the
+     kernels' plain versions): prefill and decode logits within 1e-3;
+  9. the attention kernels' times against their bounds, plain versions and
+     ``scaled_dot_product_attention``;
+ 10. one JSON line of kernels, then the result line.
 
 Needs a CUDA card; without one it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import statistics
 import subprocess
@@ -33,12 +46,20 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.core import KVStore, LoaderConfig, build_stack  # noqa: E402
-from repro_torch.data.datasets import SyntheticPixelDataset, ingest  # noqa: E402
-from repro_torch.kernels import crop_norm, ops, ref  # noqa: E402
+from repro_torch.data.datasets import (SyntheticPixelDataset,  # noqa: E402
+                                       SyntheticTokenDataset, ingest)
+from repro_torch.kernels import (crop_norm, decode_attention,  # noqa: E402
+                                 flash_attention, ops, ref)
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.params import tree_map  # noqa: E402
+from repro_torch.serve import ServeConfig, ServingEngine  # noqa: E402
+from repro_torch.train.step import make_prefill_step  # noqa: E402
 
 # The main path: LoaderConfig's default batch, 256x256x3 uint8 frames,
 # 224x224 crops.
@@ -47,12 +68,49 @@ N_SAMPLES = 4096
 N_BATCHES = 6
 MEAN = (123.675, 116.28, 103.53)
 STD = (58.395, 57.12, 57.375)
-# Device-memory rate and non-tensor-core f32 rate from NVIDIA's H100 SXM
-# data sheet; any other card's bound is reported as unknown.
+# Device-memory rate, non-tensor-core f32 rate and dense bf16 tensor-core
+# rate from NVIDIA's H100 SXM data sheet; any other card's bound is
+# reported as unknown.
 PEAKS = {"NVIDIA H100 80GB HBM3": {"bytes_per_s": 3.35e12,
-                                   "f32_flops": 67e12}}
+                                   "f32_flops": 67e12,
+                                   "bf16_flops": 989.4e12}}
 SOURCE = "src/repro_torch/kernels/csrc/crop_norm.cu"
 REPLACES = "src/repro/kernels/crop_norm.py:38"
+KERNELS = {  # name -> (module, source, the TPU kernel it replaces)
+    "crop_mirror_normalize": (crop_norm, SOURCE, REPLACES),
+    "flash_attention": (flash_attention,
+                        "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:79"),
+    "flash_decode": (decode_attention,
+                     "src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/decode_attention.py:60"),
+}
+
+# The serving path: Qwen3-4B at full width, prompts of 128 tokens, a
+# 4 x 2048 prefill, 8 slots over a 4096-token cache, 32 new tokens each.
+ARCH = "qwen3_4b"
+N_PROMPTS, PROMPT_LEN = 16, 128
+PREFILL_B, PREFILL_S = 4, 2048
+SLOTS, MAX_SEQ, NEW_TOKENS = 8, 4096, 32
+N_PREFILL = 3
+# The f32 check against the CPU: 2 layers, a 1 x 256 prefill, 8 steps.
+CHECK_LAYERS, CHECK_PREFILL, CHECK_STEPS, CHECK_MAX_SEQ = 2, 256, 8, 256
+CHECK_TOL = 1e-3
+# Kernel sweeps: the reference's (tests/test_kernels.py:17-62) and the
+# serving path's own shapes.  Attention (B,H,K,S,D); decode (B,K,G,T,D).
+FLASH_CASES = [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 2, 96, 32),
+               (1, 2, 1, 128, 128), (2, 4, 2, 100, 16)]
+FLASH_WINDOWS = (0, 16, 100)
+FLASH_PATH_CASES = [((PREFILL_B, 32, 8, PREFILL_S, 128), torch.bfloat16),
+                    ((1, 32, 8, CHECK_PREFILL, 128), torch.float32)]
+DECODE_CASES = [(2, 2, 2, 256, 64), (1, 4, 1, 100, 32), (3, 1, 8, 512, 128),
+                (2, 2, 2, 40, 16)]
+DECODE_PATH_CASES = [((SLOTS, 8, 4, MAX_SEQ, 128), torch.bfloat16),
+                     ((SLOTS, 8, 4, CHECK_MAX_SEQ, 128), torch.float32)]
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# Timed shapes: the prefill above, and decode at decode_32k's context.
+TIME_PREFILL = (PREFILL_B, 32, 8, PREFILL_S, 128)
+TIME_DECODE = (16, 8, 4, 32768, 128)
 
 
 def make_inputs(seed: int, b: int, h: int, w: int, c: int, oh: int, ow: int,
@@ -267,6 +325,358 @@ def time_kernel(device, kind: str) -> dict:
     return out
 
 
+def build_kernels() -> dict:
+    """Phase 2: one ``nvcc`` per kernel source, all started together;
+    returns the seconds each build took."""
+    def one(name):
+        t0 = time.perf_counter()
+        KERNELS[name][0].build()
+        return name, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(pool.map(one, KERNELS))
+
+
+def reset_launches() -> None:
+    for module, _, _ in KERNELS.values():
+        module.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: module.launches for name, (module, _, _) in KERNELS.items()}
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def compare(name: str, got: torch.Tensor, want: torch.Tensor,
+            dtype) -> float:
+    """max|got - want|; raises unless |got - want| <= tol + tol*|want|
+    everywhere (the reference tests' allclose, tol from ``TOL``)."""
+    sync(got.device)
+    if got.shape != want.shape or got.dtype != dtype \
+            or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: bad output {tuple(got.shape)} "
+                             f"{got.dtype}")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    tol = TOL[dtype]
+    ok = bool((diff <= tol + tol * want.float().abs()).all())
+    print(f"check {name}: max|diff| {err!r} (tol {tol})")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version: max|diff| {err!r}")
+    return err
+
+
+def check_attention(device) -> dict:
+    """Phase 6: flash attention and flash decode against their plain
+    versions on the same inputs.  The sweeps use contiguous tensors; the
+    serving path's shapes use the model's layouts ((B,S,H,D) activations
+    and the (B,T,K,D) cache), which the kernels read through strides.
+    Returns the largest max|diff| of each kernel at the path's shapes."""
+    gen = torch.Generator(device).manual_seed(6)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+    path = {"flash_attention": 0.0, "flash_decode": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, K, S, D in FLASH_CASES:
+            q, k, v = (randn(s, dtype) for s in ((B, H, S, D), (B, K, S, D),
+                                                  (B, K, S, D)))
+            for window in FLASH_WINDOWS:
+                compare(f"flash {dtype} {(B, H, K, S, D)} window {window}",
+                        ops.flash_attention(q, k, v, window=window),
+                        ref.mha_reference(q, k, v, window=window), dtype)
+            compare(f"flash {dtype} {(B, H, K, S, D)} not causal",
+                    ops.flash_attention(q, k, v, causal=False),
+                    ref.mha_reference(q, k, v, causal=False), dtype)
+        for B, K, G, T, D in DECODE_CASES:
+            q, k, v = (randn(s, dtype) for s in ((B, K, G, D), (B, K, T, D),
+                                                  (B, K, T, D)))
+            lengths = torch.randint(1, T + 1, (B,), generator=gen,
+                                    device=device)
+            compare(f"decode {dtype} {(B, K, G, T, D)}",
+                    ops.flash_decode(q, k, v, lengths),
+                    ref.decode_reference(q.reshape(B, K * G, D), k, v,
+                                         lengths).reshape(B, K, G, D), dtype)
+    for (B, H, K, S, D), dtype in FLASH_PATH_CASES:
+        q = randn((B, S, H, D), dtype).transpose(1, 2)
+        k, v = (randn((B, S, K, D), dtype).transpose(1, 2) for _ in "kv")
+        err = compare(f"flash path {dtype} {(B, H, K, S, D)}",
+                      ops.flash_attention(q, k, v),
+                      ref.mha_reference(q, k, v), dtype)
+        if dtype == torch.bfloat16:
+            path["flash_attention"] = max(path["flash_attention"], err)
+    for (B, K, G, T, D), dtype in DECODE_PATH_CASES:
+        q = randn((B, K, G, D), dtype)
+        k, v = (randn((B, T, K, D), dtype).transpose(1, 2) for _ in "kv")
+        for n in (1, T // 3, T):
+            lengths = torch.full((B,), n, dtype=torch.int32, device=device)
+            err = compare(f"decode path {dtype} {(B, K, G, T, D)} length {n}",
+                          ops.flash_decode(q, k, v, lengths),
+                          ref.decode_reference(q.reshape(B, K * G, D), k, v,
+                                               lengths).reshape(B, K, G, D),
+                          dtype)
+            if dtype == torch.bfloat16:
+                path["flash_decode"] = max(path["flash_decode"], err)
+    return path
+
+
+def fetch_tokens(n_records: int, seq_len: int, vocab: int, batch: int,
+                 device, seed: int):
+    """Token records over the simulated WAN: ingest ``n_records`` records
+    of ``seq_len`` tokens and pull one batch through ``build_stack``'s
+    DeviceFeed on route ``high``.  Returns the (batch, seq_len) int32
+    tokens on ``device`` and the loader's MB/s on the virtual clock."""
+    store = KVStore()
+    uuids = ingest(store, SyntheticTokenDataset(
+        n_samples=n_records, seq_len=seq_len, vocab=vocab, seed=seed))
+    stack = build_stack(store=store, uuids=uuids, config=LoaderConfig(
+        batch_size=batch, route="high", materialize=True, seed=seed),
+        feed="device", seq_len=seq_len, device=device)
+    try:
+        tokens = next(stack.feed)[0]["tokens"]
+        mbps = stack.loader.stats.throughput() / 1e6
+    finally:
+        stack.close()
+    return tokens, mbps
+
+
+def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
+                  prompt_len: int = PROMPT_LEN, prefill_b: int = PREFILL_B,
+                  prefill_s: int = PREFILL_S, slots: int = SLOTS,
+                  max_seq: int = MAX_SEQ, new_tokens: int = NEW_TOKENS,
+                  n_prefill: int = N_PREFILL) -> dict:
+    """Phase 7: the serving path through the entry points a user calls:
+    prompts fetched by the loader, ``make_prefill_step`` on a
+    (prefill_b, prefill_s) batch, then ``ServingEngine.run`` on the
+    prompts.  Returns the kernels' launches in this run, what it formed,
+    and its times.  The prompts are returned for phase 8."""
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device).manual_seed(0))
+    sync(device)
+    out = {"init_s": time.perf_counter() - t0}
+    prompt_tokens, out["prompt_loader_MBps_virtual"] = fetch_tokens(
+        4 * n_prompts, prompt_len, cfg.vocab, n_prompts, device, seed=0)
+    prompts = list(prompt_tokens.cpu().numpy())
+    prefill_tokens, out["prefill_loader_MBps_virtual"] = fetch_tokens(
+        4 * prefill_b, prefill_s, cfg.vocab, prefill_b, device, seed=1)
+    prefill = make_prefill_step(model)
+    engine = ServingEngine(model, params, ServeConfig(
+        batch_slots=slots, max_seq=max_seq, max_new_tokens=new_tokens))
+
+    reset_launches()
+    times = []
+    for _ in range(n_prefill):
+        sync(device)
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": prefill_tokens})
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    after_prefill = launch_counts()
+    if logits.shape != (prefill_b, prefill_s, cfg.vocab) \
+            or logits.dtype != torch.float32 \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill: bad logits {tuple(logits.shape)} "
+                             f"{logits.dtype}")
+    del logits
+    sync(device)
+    t0 = time.perf_counter()
+    reqs = engine.run(prompts)
+    sync(device)
+    serve_s = time.perf_counter() - t0
+    counts = launch_counts()
+
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    waves = -(-n_prompts // slots)
+    want_steps = waves * (prompt_len + new_tokens - 1)
+    if engine.steps != want_steps or n_tok != n_prompts * new_tokens or \
+            not all(r.done and all(0 <= t < cfg.vocab for t in r.out_tokens)
+                    for r in reqs):
+        raise AssertionError(f"engine: {engine.steps} steps (want "
+                             f"{want_steps}), {n_tok} tokens")
+    out.update({
+        "after_prefill": after_prefill, "launches": counts,
+        "prefill_calls": n_prefill, "engine_steps": engine.steps,
+        "tokens": n_tok, "prefill_ms_per_call": statistics.median(times) * 1e3,
+        "serve_s": serve_s, "tokens_per_s": n_tok / serve_s,
+        "ms_per_engine_step": serve_s / engine.steps * 1e3,
+        "prefill_tokens_per_s": prefill_b * prefill_s / statistics.median(
+            times),
+        "first_tokens": reqs[0].out_tokens[:8]})
+    if device.type == "cuda":
+        out["peak_GB"] = torch.cuda.max_memory_allocated(device) / 1e9
+    print("serving path:", json.dumps(out))
+    return out, prompts
+
+
+def check_serving_launches(run: dict, n_layers: int, on_card: bool) -> None:
+    """The kernels of the path ran: ``n_layers`` flash-attention launches
+    per prefill call and ``n_layers`` flash-decode launches per engine
+    step (none on the CPU), and no crop launch."""
+    per = n_layers if on_card else 0
+    want_prefill = {"crop_mirror_normalize": 0,
+                    "flash_attention": per * run["prefill_calls"],
+                    "flash_decode": 0}
+    want = dict(want_prefill, flash_decode=per * run["engine_steps"])
+    if run["after_prefill"] != want_prefill or run["launches"] != want:
+        raise AssertionError(f"launches {run['after_prefill']} after the "
+                             f"prefill and {run['launches']} after the "
+                             f"engine; want {want_prefill} and {want}")
+
+
+def check_f32_path(device, cfg, prompts, *, prefill_len: int = CHECK_PREFILL,
+                   n_steps: int = CHECK_STEPS, slots: int = SLOTS,
+                   max_seq: int = CHECK_MAX_SEQ) -> dict:
+    """Phase 8: the serving path in f32 on the same weights, once on
+    ``device`` and once through the port on the CPU (the kernels' plain
+    versions): logits of a 1 x prefill_len prefill and of the first
+    ``n_steps`` engine steps.  TF32 is off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = build_model(cfg, device=device).init(
+        torch.Generator(device).manual_seed(0))
+    tokens = torch.from_numpy(np.concatenate(prompts)[:prefill_len][None])
+    cpu = torch.device("cpu")
+    runs = []
+    for dev, p in ((device, params),
+                   (cpu, tree_map(lambda t: t.to(cpu), params))):
+        model = build_model(cfg, device=dev)
+        logits = make_prefill_step(model)(p, {"tokens": tokens.to(dev)})
+        engine = ServingEngine(model, p, ServeConfig(
+            batch_slots=slots, max_seq=max_seq, max_new_tokens=NEW_TOKENS))
+        for prompt in prompts:
+            engine.submit(prompt)
+        steps = []
+        for _ in range(n_steps):
+            engine.step()
+            steps.append(engine.last_logits.to(cpu))
+        runs.append((logits.to(cpu), torch.stack(steps)))
+    (card_prefill, card_steps), (cpu_prefill, cpu_steps) = runs
+    out = {"prefill_max_abs_diff":
+           float((card_prefill - cpu_prefill).abs().max()),
+           "decode_max_abs_diff": float((card_steps - cpu_steps).abs().max())}
+    print("f32 path, card vs CPU:", json.dumps(out))
+    if not max(out.values()) <= CHECK_TOL:
+        raise AssertionError(f"the card's f32 logits differ from the CPU "
+                             f"port's by more than {CHECK_TOL}: {out}")
+    return out
+
+
+def causal_pairs(S: int, T: int, window: int = 0) -> int:
+    """(query, key) pairs a causal (and windowed) attention keeps."""
+    i = np.arange(S)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    return int(np.maximum(0, np.minimum(T, i + 1) - lo).sum())
+
+
+def attention_bound(kind: str, B: int, H: int, K: int, S: int, T: int,
+                    D: int, elsize: int):
+    """Least time for a causal flash-attention call: q, k, v read once and
+    o written once, against 4*D flops per kept (query, key) pair per head
+    at the inputs' type's peak."""
+    nbytes = elsize * D * (2 * B * H * S + 2 * B * K * T)
+    flops = 4 * B * H * D * causal_pairs(S, T)
+    return _bound(kind, nbytes, flops, elsize)
+
+
+def decode_bound(kind: str, lengths, K: int, G: int, D: int, elsize: int):
+    """Least time for a flash-decode call: the valid K and V rows, q and o
+    and the lengths moved once, against 4*G*D flops per valid key and kv
+    head."""
+    B, L = len(lengths), int(sum(lengths))
+    nbytes = elsize * (2 * K * D * L + 2 * B * K * G * D) + 4 * B
+    flops = 4 * K * G * D * L
+    return _bound(kind, nbytes, flops, elsize)
+
+
+def _bound(kind: str, nbytes: int, flops: int, elsize: int):
+    peak = PEAKS.get(kind)
+    if peak is None:
+        return nbytes, flops, None, "bytes"
+    bytes_ms = nbytes / peak["bytes_per_s"] * 1e3
+    ops_ms = flops / peak["bf16_flops" if elsize == 2 else "f32_flops"] * 1e3
+    return nbytes, flops, max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def time_attention(device, kind: str) -> dict:
+    """Phase 9: each attention kernel's device ms per launch, the host's ms
+    per call, its plain version's ms and one PyTorch call's ms
+    (``scaled_dot_product_attention``, timed only) at the timed shapes."""
+    gen = torch.Generator(device).manual_seed(9)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+    out = {}
+    B, H, K, S, D = TIME_PREFILL
+    for dtype in (torch.bfloat16, torch.float32):
+        q = randn((B, S, H, D), dtype).transpose(1, 2)
+        k, v = (randn((B, S, K, D), dtype).transpose(1, 2) for _ in "kv")
+
+        def kernel(q=q, k=k, v=v):
+            return ops.flash_attention(q, k, v)
+
+        nbytes, flops, bound_ms, bound_by = attention_bound(
+            kind, B, H, K, S, S, D, q.element_size())
+        out[f"flash_attention {dtype}"] = {
+            "ms": median_event_ms(kernel, n=5, repeats=10),
+            "host_ms_per_call": median_host_ms(kernel, n=5, repeats=10),
+            "plain_ms": median_event_ms(
+                lambda: ref.mha_reference(q, k, v), n=2, repeats=3),
+            "library_ms": median_event_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True),
+                n=5, repeats=10),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        del q, k, v
+    B, K, G, T, D = TIME_DECODE
+    dtype = torch.bfloat16
+    for name, (b, t) in (("flash_decode", (B, T)),
+                         ("flash_decode serving", (SLOTS, MAX_SEQ))):
+        q = randn((b, K, G, D), dtype)
+        k, v = (randn((b, t, K, D), dtype).transpose(1, 2) for _ in "kv")
+        lengths = torch.full((b,), t, dtype=torch.int32, device=device)
+        mask = (torch.arange(t, device=device)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        q_h = q.reshape(b, K * G, 1, D)
+
+        def kernel(q=q, k=k, v=v, lengths=lengths):
+            return ops.flash_decode(q, k, v, lengths)
+
+        nbytes, flops, bound_ms, bound_by = decode_bound(
+            kind, [t] * b, K, G, D, q.element_size())
+        out[name] = {
+            "shape": [b, K, G, t, D],
+            "ms": median_event_ms(kernel),
+            "host_ms_per_call": median_host_ms(kernel),
+            "plain_ms": median_event_ms(
+                lambda: ref.decode_reference(q.reshape(b, K * G, D), k, v,
+                                             lengths), n=3, repeats=5),
+            "library_ms": median_event_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q_h, k, v, attn_mask=mask, enable_gqa=True)),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        del q, k, v
+    for name, t in out.items():
+        frac = (f"{t['bound_ms'] / t['ms']:.3f} of the bound"
+                if t["bound_ms"] else "bound unknown for this card")
+        print(f"time {name}: kernel {t['ms']!r} ms/launch, host "
+              f"{t['host_ms_per_call']!r} ms/call, plain {t['plain_ms']!r} "
+              f"ms, sdpa {t['library_ms']!r} ms, bound {t['bound_ms']!r} ms "
+              f"({t['bound_by']}; {t['bytes'] / 1e6:.1f} MB, "
+              f"{t['flops'] / 1e9:.1f} GFLOP), {frac}")
+    return out
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -282,9 +692,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     print(nvidia_smi())                                       # phase 1
-    t0 = time.perf_counter()
-    lib = crop_norm.build()                                   # phase 2
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    for name, secs in build_kernels().items():                # phase 2
+        print(f"built {name} in {secs:.1f} s")
     checks = check_kernel(device)                             # phase 3
     run = drive_main_path(device)                             # phase 4
     if run["launches"] < 1 or run["launches"] != run["batches_formed"]:
@@ -294,13 +703,31 @@ def main() -> int:
         raise AssertionError("arena and materialize paths disagree: "
                              f"{run['arena_vs_materialize_max_abs_diff']!r}")
     timing = time_kernel(device, kind)                        # phase 5
+    attn_err = check_attention(device)                        # phase 6
+    cfg = get_arch(ARCH)
+    serve, prompts = drive_serving(device, cfg)               # phase 7
+    check_serving_launches(serve, cfg.n_layers, on_card=True)
+    torch.cuda.empty_cache()
+    check_f32_path(device, cfg.scaled(n_layers=CHECK_LAYERS,  # phase 8
+                                      dtype="float32"), prompts)
+    attn_time = time_attention(device, kind)                  # phase 9
     f32 = timing["f32"]
-    print(json.dumps({"kernels": [{                           # phase 6
-        "name": "crop_mirror_normalize", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": run["launches"],
+    rows = {"crop_mirror_normalize": {
+        "launches": run["launches"],
         "max_abs_err": checks["main_f32_max_abs_err"], "ms": f32["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": f32["bound_ms"],
-        "bound_by": f32["bound_by"], "library_ms": None}]}))
+        "bound_by": f32["bound_by"], "library_ms": None}}
+    for name, key in (("flash_attention", "flash_attention torch.bfloat16"),
+                      ("flash_decode", "flash_decode")):
+        t = attn_time[key]
+        rows[name] = {"launches": serve["launches"][name],
+                      "max_abs_err": attn_err[name], "ms": t["ms"],
+                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                      "bound_by": t["bound_by"],
+                      "library_ms": t["library_ms"]}
+    print(json.dumps({"kernels": [                            # phase 10
+        {"name": name, "route": "cuda", "source": KERNELS[name][1],
+         "replaces": KERNELS[name][2], **row} for name, row in rows.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

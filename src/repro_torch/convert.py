@@ -5,12 +5,23 @@ The image lane has no weights: its checkpoint is what the consumer sees,
 flow control, ``loader.flow_snapshot()``.  ``repro``'s training loop stores
 the snapshot inside the position dict under ``"flow"``; both spellings are
 taken.
+
+Model weights cross as numpy, leaf by leaf under the same key paths:
+``params_from_reference`` takes a tree of numpy arrays (the reference's
+parameter tree after ``np.asarray`` on each leaf) and ``params_to_numpy``
+gives one back.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Mapping, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.data.pipeline import resolve_device
+from repro_torch.models.params import tree_map
 
 _POSITION_KEYS = ("epoch", "cursor")
 _OPTIONAL_KEYS = ("consumed", "flow")
@@ -46,4 +57,36 @@ def feed_state_from_reference(state: Mapping, flow: Optional[Mapping] = None
             copy.deepcopy(dict(flow)) if flow is not None else None)
 
 
-__all__ = ["feed_state_from_reference"]
+def _to_tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":        # ml_dtypes' bfloat16, as JAX gives
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device)
+
+
+def params_from_reference(tree: Any, device="cuda") -> Any:
+    """A tree (nested dicts) of numpy arrays -> the same tree of tensors on
+    ``device`` (``"cuda"`` by default; raises without a card), dtypes
+    kept."""
+    device = resolve_device(device)
+    if not isinstance(tree, dict):
+        raise TypeError(f"params must be a nested dict, got "
+                        f"{type(tree).__name__}")
+    return tree_map(lambda a: _to_tensor(a, device), tree)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The inverse of :func:`params_from_reference`: tensors -> numpy
+    arrays under the same key paths.  numpy has no bfloat16, so bf16 leaves
+    come back widened to float32, exactly."""
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(leaf, tree)
+
+
+__all__ = ["feed_state_from_reference", "params_from_reference",
+           "params_to_numpy"]

@@ -18,24 +18,17 @@ note), so the writes, 80% of the bytes, are coalesced.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "crop_norm.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+from . import build as _build
+
+SOURCE = _build.CSRC / "crop_norm.cu"
 MAX_BATCH = 65535               # the kernel puts the batch on grid.y
 
 # Launches of the CUDA kernel in this process; plain-version calls do not
 # count.  A run sets it to 0 and reads it to show which path it took.
 launches = 0
-_lib = None
 
 
 def check_args(img, oy, ox, mirror, mean, std, out_h: int, out_w: int,
@@ -74,35 +67,16 @@ def check_args(img, oy, ox, mirror, mean, std, out_h: int, out_w: int,
                          f"B={B} C={C}")
 
 
-def build() -> Path:
-    """Compile ``csrc/crop_norm.cu`` unless this source and these flags were
-    built already; return the shared library's path."""
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"crop_norm-{key}.so"
-    if lib.exists():
-        return lib
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                   check=True)
-    os.replace(tmp, lib)
-    return lib
+def build():
+    """Compile ``csrc/crop_norm.cu`` if needed; return the library's path."""
+    return _build.build(SOURCE)
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.crop_mirror_normalize_u8
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def _bind(lib) -> None:
+    fn = lib.crop_mirror_normalize_u8
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
 def crop_mirror_normalize(img: torch.Tensor, oy: torch.Tensor,
@@ -118,16 +92,8 @@ def crop_mirror_normalize(img: torch.Tensor, oy: torch.Tensor,
     """
     global launches
     check_args(img, oy, ox, mirror, mean, std, out_h, out_w, dtype)
-    if img.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
-                         f"{img.device}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("a CUDA tensor was given but no CUDA device is "
-                           "available")
-    if torch.cuda.get_device_capability(img.device) != (9, 0):
-        raise RuntimeError(f"the kernel is built for sm_90a; "
-                           f"{torch.cuda.get_device_name(img.device)} is not")
-    lib = _load()
+    _build.require_card(img.device)
+    lib = _build.load(SOURCE, _bind)
     B, H, W, C = img.shape
     out = torch.empty((B, C, out_h, out_w), dtype=dtype, device=img.device)
     with torch.cuda.device(img.device):
@@ -136,9 +102,7 @@ def crop_mirror_normalize(img: torch.Tensor, oy: torch.Tensor,
             img.data_ptr(), oy.data_ptr(), ox.data_ptr(), mirror.data_ptr(),
             mean.data_ptr(), std.data_ptr(), out.data_ptr(),
             B, H, W, C, out_h, out_w, int(dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"crop_mirror_normalize launch failed: CUDA error "
-                           f"{err} ({lib.cuda_error_string(err).decode()})")
+    _build.check(lib, err, "crop_mirror_normalize")
     launches += 1
     return out
 

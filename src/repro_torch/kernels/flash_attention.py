@@ -1,0 +1,130 @@
+"""Flash attention forward (prefill) on Hopper: GQA, causal and/or sliding
+window, f32 or bf16.
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
+(``flash_attention`` -> ``_flash_kernel``).  The kernel is CUDA C++ in
+``csrc/flash_attention.cu``, built for ``sm_90a`` at first use and bound
+with ``ctypes`` (``build.py``).  Its plain version is
+``ref.mha_reference``.
+
+Bound: operations.  At the prefill shape the model drives (B=4, H=32,
+K=8, S=T=2048, D=128, causal) the work is 137.4 GFLOP against 167.8 MB;
+this first version runs on the CUDA cores in f32, so it is held to the
+f32 rate rather than the tensor cores' (see the ``.cu`` note).
+
+The wrapper takes strides: q, k and v may be (B,H,S,D) / (B,K,T,D) views
+of the model's (B,S,H,D) / (B,T,K,D) tensors, read in place, and the
+output is allocated with q's memory layout, so the model's transpose back
+is free.  A tensor whose last dimension is not contiguous or whose rows
+are not 16-byte aligned is copied to a contiguous one first.  There is
+no backward kernel: a call that would need a gradient raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build as _build
+
+SOURCE = _build.CSRC / "flash_attention.cu"
+HEAD_DIMS = (16, 32, 64, 128)   # 16: the configs' smoke_config()
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_GRID_Y = 65535              # the kernel puts B*H on grid.y
+
+# Launches of the CUDA kernel in this process; plain-version calls do not
+# count.  A run sets it to 0 and reads it to show which path it took.
+launches = 0
+
+
+def check_args(q, k, v, causal: bool, window: int) -> None:
+    """Raise on anything the kernel (and so its plain version) does not
+    take."""
+    for name, t in dict(q=q, k=k, v=v).items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got "
+                            f"{type(t).__name__}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-d, got {tuple(t.shape)}")
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; q is "
+                             f"{q.dtype} on {q.device}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"dtype must be float32 or bfloat16, got {q.dtype}")
+    B, H, S, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
+                         f"({B}, K, T, {D})")
+    K, T = k.shape[1], k.shape[2]
+    if K < 1 or H % K:
+        raise ValueError(f"H={H} not a multiple of K={K}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if min(B, S, T) < 1 or B * H > MAX_GRID_Y:
+        raise ValueError(f"need B, S, T >= 1 and B*H <= {MAX_GRID_Y}, got "
+                         f"B={B} H={H} S={S} T={T}")
+    if not isinstance(causal, bool):
+        raise TypeError(f"causal must be a bool, got {causal!r}")
+    if isinstance(window, bool) or not isinstance(window, int) or window < 0:
+        raise ValueError(f"window must be an int >= 0, got {window!r}")
+
+
+def build():
+    """Compile ``csrc/flash_attention.cu`` if needed; return its path."""
+    return _build.build(SOURCE)
+
+
+def _bind(lib) -> None:
+    fn = lib.flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+def kernel_layout(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if the kernels can read it in place (contiguous last dimension,
+    16-byte aligned rows), else a contiguous copy."""
+    per16 = 16 // x.element_size()
+    ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+          and all(s % per16 == 0 for s in x.stride()[:-1]))
+    return x if ok else x.contiguous()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """The kernel's wrapper: q (B,H,S,D), k/v (B,K,T,D) CUDA tensors ->
+    (B,H,S,D) in q's dtype and memory layout.
+
+    Launches on the current stream and does not synchronise.  Raises on a
+    tensor that is not on a CUDA sm_90 device, on bad inputs, on inputs
+    that need a gradient and on a failed launch; it never falls back to the
+    plain version.
+    """
+    global launches
+    check_args(q, k, v, causal, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention has no backward kernel: training "
+                           "attention comes with the trainer slice of the "
+                           "port (ROADMAP D1); call it under torch.no_grad()")
+    _build.require_card(q.device)
+    lib = _build.load(SOURCE, _bind)
+    q, k, v = (kernel_layout(t) for t in (q, k, v))
+    o = torch.empty_like(q)
+    B, H, S, D = q.shape
+    K, T = k.shape[1], k.shape[2]
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o)
+                                         for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, K,
+            S, T, D, strides, int(causal), window, D ** -0.5,
+            int(q.dtype == torch.bfloat16), stream)
+    _build.check(lib, err, "flash_attention")
+    launches += 1
+    return o
+
+
+__all__ = ["flash_attention", "check_args", "build", "kernel_layout"]

@@ -10,8 +10,10 @@ from __future__ import annotations
 
 import torch
 
-from . import crop_norm
-from .ref import crop_mirror_normalize_reference
+from . import crop_norm, decode_attention
+from . import flash_attention as _flash_attention
+from .ref import (crop_mirror_normalize_reference, decode_reference,
+                  mha_reference)
 
 
 def crop_mirror_normalize(img, oy, ox, mirror, mean, std, *, out_h: int,
@@ -27,4 +29,25 @@ def crop_mirror_normalize(img, oy, ox, mirror, mean, std, *, out_h: int,
                                            out_h, out_w, dtype)
 
 
-__all__ = ["crop_mirror_normalize"]
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q (B,H,S,D), k/v (B,K,T,D) -> (B,H,S,D); see
+    ``flash_attention.flash_attention``."""
+    if isinstance(q, torch.Tensor) and q.device.type == "cpu":
+        _flash_attention.check_args(q, k, v, causal, window)
+        return mha_reference(q, k, v, causal=causal, window=window)
+    return _flash_attention.flash_attention(q, k, v, causal=causal,
+                                            window=window)
+
+
+def flash_decode(q, k, v, lengths):
+    """q (B,K,G,D), k/v (B,K,T,D), lengths (B,) -> (B,K,G,D); see
+    ``decode_attention.flash_decode``."""
+    if isinstance(q, torch.Tensor) and q.device.type == "cpu":
+        decode_attention.check_args(q, k, v, lengths)
+        B, K, G, D = q.shape
+        return decode_reference(q.reshape(B, K * G, D), k, v,
+                                lengths).reshape(B, K, G, D)
+    return decode_attention.flash_decode(q, k, v, lengths)
+
+
+__all__ = ["crop_mirror_normalize", "flash_attention", "flash_decode"]

@@ -1,12 +1,58 @@
 """Plain versions of the port's kernels — the ground truth in tests and in
 ``chip_smoke.py`` — plus a copy of the reference's NumPy
 ``crop_mirror_normalize_np``, the host-side transform of
-``data.pipeline.ImageFeed``'s materialize path."""
+``data.pipeline.ImageFeed``'s materialize path.
+
+``mha_reference`` and ``decode_reference`` are the torch twins of
+``repro.kernels.ref``'s oracles of the same names, in the same layouts.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+NEG_INF = -1e30
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B,H,S,D); k,v (B,K,T,D) -> (B,H,S,D) in q's dtype.  GQA by head
+    folding (head h reads kv head h // G), f32 scores scaled by D**-0.5,
+    masked with the finite -1e30."""
+    B, H, S, D = q.shape
+    K, T = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, S, D)
+    s = torch.einsum("bkgsd,bktd->bkgst", qg.float(), k.float()) * (D ** -0.5)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    ok = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qpos >= kpos
+    if window > 0:
+        ok &= (qpos - kpos) < window
+    s = torch.where(ok, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,bktd->bkgsd", w, v.float())
+    return o.reshape(B, H, S, D).to(q.dtype)
+
+
+def decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """Single-token decode. q (B,H,D); k,v (B,K,T,D); lengths (B,) valid
+    prefix lengths, each >= 1 (0 is undefined, as in the reference).
+    -> (B,H,D) in q's dtype."""
+    B, H, D = q.shape
+    K, T = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, D)
+    s = torch.einsum("bkgd,bktd->bkgt", qg.float(), k.float()) * (D ** -0.5)
+    valid = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,bktd->bkgd", w, v.float())
+    return o.reshape(B, H, D).to(q.dtype)
 
 
 def crop_mirror_normalize_reference(img: torch.Tensor, oy: torch.Tensor,
@@ -60,4 +106,5 @@ def crop_mirror_normalize_np(img: np.ndarray, oy, ox, mirror,
     return out
 
 
-__all__ = ["crop_mirror_normalize_reference", "crop_mirror_normalize_np"]
+__all__ = ["mha_reference", "decode_reference",
+           "crop_mirror_normalize_reference", "crop_mirror_normalize_np"]

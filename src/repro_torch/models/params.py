@@ -1,0 +1,92 @@
+"""Parameter specs: shapes + logical axes + initializers.
+
+The port of ``repro.models.params``.  Models declare parameters as
+``P(shape, axes)`` trees (nested dicts); ``init_params`` materializes them
+as tensors and ``logical_axes`` yields the matching tree of logical-axis
+tuples.  Stacked layers prepend a ``"layers"`` axis.  Trees are plain
+dicts of tensors, keyed exactly as the reference's, so a parameter tree
+converts leaf by leaf (``repro_torch.convert``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class P:
+    """Spec of one parameter tensor."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]       # logical axis names, len == ndim
+    init: str = "normal"                  # normal | zeros | ones | embed
+    scale: float = 1.0                    # fan-in override multiplier
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def tree_map(fn: Callable, tree: Any) -> Any:
+    """Apply ``fn`` to every leaf of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _fan_in(shape: Tuple[int, ...]) -> int:
+    # convention: last axis is the output axis for weight matrices
+    return int(np.prod(shape[:-1])) if len(shape) > 1 else shape[0]
+
+
+def init_params(spec_tree: Any, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32,
+                device="cuda") -> Any:
+    """Materialize a spec tree into parameter tensors on ``device``.
+
+    The reference's rules: ``normal`` draws N(0,1) scaled by
+    ``scale / sqrt(fan_in)``, where the fan-in counts every axis but the
+    last (a stacked ``layers`` axis included); ``embed`` draws N(0, 0.02
+    * scale).  Leaves are drawn in the reference's leaf order from one
+    ``generator`` on ``device``; the numbers differ from ``jax.random``'s,
+    so parity tests convert weights instead of sharing seeds.
+    """
+    def make(spec: P) -> torch.Tensor:
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dtype, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dtype, device=device)
+        x = torch.randn(spec.shape, generator=generator, dtype=dtype,
+                        device=device)
+        if spec.init == "embed":
+            return x.mul_(0.02 * spec.scale)
+        return x.mul_(spec.scale / math.sqrt(max(_fan_in(spec.shape), 1)))
+
+    def build(tree: Any) -> Any:
+        if not isinstance(tree, dict):
+            return make(tree)
+        made = {k: build(tree[k]) for k in sorted(tree)}
+        return {k: made[k] for k in tree}
+
+    return build(spec_tree)
+
+
+def logical_axes(spec_tree: Any) -> Any:
+    """Tree of logical-axis tuples matching the param tree."""
+    return tree_map(lambda s: s.axes, spec_tree)
+
+
+def stack_layer_specs(spec_tree: Any, n_layers: int) -> Any:
+    """Prepend a stacked 'layers' axis to every spec in the tree."""
+    return tree_map(
+        lambda s: P((n_layers,) + s.shape, ("layers",) + s.axes,
+                    init=s.init, scale=s.scale), spec_tree)
+
+
+__all__ = ["P", "init_params", "logical_axes", "stack_layer_specs",
+           "tree_map"]

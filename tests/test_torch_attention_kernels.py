@@ -1,0 +1,263 @@
+"""The port's attention kernels against ``repro``'s on the CPU.
+
+``repro_torch.kernels.ops.flash_attention`` and ``ops.flash_decode`` take a
+CPU tensor to their plain versions; each is held against the reference's
+Pallas kernel, run in interpret mode as ``tests/test_kernels.py`` runs it,
+on the same numpy-seeded inputs, with that file's tolerances: 2e-5 in f32,
+2e-2 in bf16.  The CUDA kernels themselves run only on the card
+(``chip_smoke.py``); here their sources, wrappers and dispatch are
+checked."""
+
+import ast
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
+from repro.models import attention as jax_attn
+from repro_torch.kernels import (build, decode_attention, flash_attention,
+                                 ops, ref)
+from repro_torch.models import attention as port_attn
+
+KERNELS = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels"
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(name):
+    return dict(rtol=2e-2, atol=2e-2) if name == "bf16" \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+def _pair(rng, shape, dtype):
+    """The same values as a JAX array and a torch tensor (bf16 rounds the
+    same f32 numbers to nearest-even on both sides)."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    jdt, tdt = DTYPES[dtype]
+    return jnp.asarray(x).astype(jdt), torch.from_numpy(x).to(tdt)
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,H,K,S,D,bq,bk", [
+    (1, 4, 4, 128, 64, 64, 64),      # MHA
+    (2, 8, 2, 256, 64, 128, 128),    # GQA
+    (1, 4, 2, 96, 32, 64, 64),       # padded (non-multiple) seq
+])
+def test_flash_attention_matches_pallas(dtype, B, H, K, S, D, bq, bk):
+    rng = np.random.default_rng(0)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, s, dtype) for s in
+                                    ((B, H, S, D), (B, K, S, D),
+                                     (B, K, S, D)))
+    want = jax_ops.flash_attention(jq, jk, jv, causal=True, block_q=bq,
+                                   block_k=bk)
+    got = ops.flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (B, H, S, D)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("window", [16, 100])
+def test_flash_attention_sliding_window_matches_pallas(window):
+    rng = np.random.default_rng(1)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, s, "f32") for s in
+                                    ((1, 4, 256, 32), (1, 2, 256, 32),
+                                     (1, 2, 256, 32)))
+    want = jax_ops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                   block_q=64, block_k=64)
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol("f32"))
+
+
+def test_flash_attention_padded_kv_matches_oracle():
+    """T not a multiple of any block, and T != S, not causal: the key mask
+    k < T is all that applies."""
+    rng = np.random.default_rng(2)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, s, "f32") for s in
+                                    ((1, 4, 40, 32), (1, 2, 70, 32),
+                                     (1, 2, 70, 32)))
+    want = jax_ref.mha_reference(jq, jk, jv, causal=False)
+    got = ops.flash_attention(tq, tk, tv, causal=False)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol("f32"))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,K,G,T,D,bk", [
+    (2, 2, 2, 256, 64, 128),
+    (1, 4, 1, 100, 32, 64),          # padded T
+])
+def test_flash_decode_matches_pallas(dtype, B, K, G, T, D, bk):
+    rng = np.random.default_rng(3)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, s, dtype) for s in
+                                    ((B, K, G, D), (B, K, T, D),
+                                     (B, K, T, D)))
+    lengths = rng.integers(1, T + 1, size=B).astype(np.int32)
+    lengths[0] = 1                   # the shortest valid prefix
+    want = jax_ops.flash_decode(jq, jk, jv, jnp.asarray(lengths), block_k=bk)
+    got = ops.flash_decode(tq, tk, tv, torch.from_numpy(lengths))
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (B, K, G, D)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
+def test_oracles_are_twins():
+    rng = np.random.default_rng(4)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, s, "f32") for s in
+                                    ((2, 4, 24, 16), (2, 2, 24, 16),
+                                     (2, 2, 24, 16)))
+    for causal, window in ((True, 0), (True, 5), (False, 0)):
+        np.testing.assert_allclose(
+            _np(ref.mha_reference(tq, tk, tv, causal=causal, window=window)),
+            _np(jax_ref.mha_reference(jq, jk, jv, causal=causal,
+                                      window=window)), rtol=1e-6, atol=1e-6)
+    lengths = np.array([3, 24], np.int32)
+    np.testing.assert_allclose(
+        _np(ref.decode_reference(tq[:, :, 0], tk, tv,
+                                 torch.from_numpy(lengths))),
+        _np(jax_ref.decode_reference(jq[:, :, 0], jk, jv,
+                                     jnp.asarray(lengths))),
+        rtol=1e-6, atol=1e-6)
+
+
+def test_strided_views_equal_contiguous():
+    """The model hands the kernels (B,S,H,D) and (B,T,K,D) tensors as
+    (B,H,S,D) / (B,K,T,D) views; the result does not depend on it, and the
+    output keeps q's layout on the card (checked there)."""
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(2, 33, 4, 16, generator=g)
+    k = torch.randn(2, 33, 2, 16, generator=g)
+    v = torch.randn(2, 33, 2, 16, generator=g)
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    assert torch.equal(ops.flash_attention(*views),
+                       ops.flash_attention(*(t.contiguous() for t in views)))
+    lengths = torch.tensor([5, 33])
+    qg = q[:, 0].reshape(2, 2, 2, 16)
+    assert torch.equal(ops.flash_decode(qg, views[1], views[2], lengths),
+                       ops.flash_decode(qg, views[1].contiguous(),
+                                        views[2].contiguous(), lengths))
+
+
+def test_kernel_layout_keeps_views_and_copies_the_rest():
+    x = torch.zeros(2, 8, 4, 16).transpose(1, 2)
+    assert flash_attention.kernel_layout(x) is x
+    y = torch.zeros(2, 4, 16, 8).transpose(2, 3)          # last dim strided
+    z = flash_attention.kernel_layout(y)
+    assert z.is_contiguous() and torch.equal(z, y)
+    w = torch.zeros(2, 4, 8, 18)[..., :16]                # rows not 16-byte
+    assert flash_attention.kernel_layout(w).is_contiguous()
+
+
+@pytest.mark.parametrize("expand_heads", [True, False])
+def test_dense_attention_matches_reference(expand_heads):
+    rng = np.random.default_rng(6)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, s, "f32") for s in
+                                    ((2, 12, 4, 16), (2, 12, 2, 16),
+                                     (2, 12, 2, 16)))
+    pos = np.arange(12, dtype=np.int32)
+    valid = np.ones((2, 12), bool)
+    valid[0, 9:] = False
+    want = jax_attn.dense_attention(
+        jq, jk, jv, jnp.asarray(pos), jnp.asarray(pos), causal=True,
+        window=5, kv_valid=jnp.asarray(valid), expand_heads=expand_heads)
+    got = port_attn.dense_attention(
+        tq, tk, tv, torch.from_numpy(pos), torch.from_numpy(pos),
+        causal=True, window=5, kv_valid=torch.from_numpy(valid),
+        expand_heads=expand_heads)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+def test_prefill_kernel_ties_to_dense_path():
+    """The kernel computes what the reference model's dense path computes
+    (the port's prefill calls it where ``repro`` calls dense_attention)."""
+    rng = np.random.default_rng(7)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, s, "f32") for s in
+                                    ((1, 64, 4, 32), (1, 64, 2, 32),
+                                     (1, 64, 2, 32)))
+    pos = jnp.arange(64)
+    want = jax_attn.dense_attention(jq, jk, jv, pos, pos, causal=True)
+    got = ops.flash_attention(tq.transpose(1, 2), tk.transpose(1, 2),
+                              tv.transpose(1, 2)).transpose(1, 2)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("n_rows,T", [(1, 1), (64, 4096), (128, 32768),
+                                      (3, 100), (2048, 300), (8, 129)])
+def test_decode_split_covers_the_cache(n_rows, T):
+    chunk, n_chunks = decode_attention.split(n_rows, T)
+    assert chunk % decode_attention.TILE == 0
+    assert (n_chunks - 1) * chunk < T <= n_chunks * chunk
+    assert n_rows * n_chunks <= max(
+        n_rows, 2 * decode_attention.CTAS_PER_SM * decode_attention.SMS)
+
+
+def _qkv(shape_q=(1, 4, 8, 16), shape_kv=(1, 2, 8, 16)):
+    return torch.zeros(shape_q), torch.zeros(shape_kv), torch.zeros(shape_kv)
+
+
+FLASH_BAD = {
+    "rank3": lambda q, k, v: (q[0], k, v),
+    "float16": lambda q, k, v: (q.half(), k.half(), v.half()),
+    "mixed_dtype": lambda q, k, v: (q, k.bfloat16(), v),
+    "heads_not_multiple": lambda q, k, v: (q[:, :3], k, v),
+    "head_dim_48": lambda q, k, v: (torch.zeros(1, 4, 8, 48),
+                                    torch.zeros(1, 2, 8, 48),
+                                    torch.zeros(1, 2, 8, 48)),
+    "kv_shapes_differ": lambda q, k, v: (q, k, v[:, :, :4]),
+    "numpy_q": lambda q, k, v: (q.numpy(), k, v),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_BAD))
+def test_flash_attention_inputs_are_checked(case):
+    with pytest.raises((ValueError, TypeError)):
+        ops.flash_attention(*FLASH_BAD[case](*_qkv()))
+
+
+@pytest.mark.parametrize("window", [-1, 2.5, True])
+def test_flash_attention_window_is_checked(window):
+    with pytest.raises((ValueError, TypeError)):
+        ops.flash_attention(*_qkv(), window=window)
+
+
+DECODE_BAD = {
+    "group_9": lambda q, k, v, n: (torch.zeros(1, 2, 9, 16), k, v, n),
+    "lengths_float": lambda q, k, v, n: (q, k, v, n.float()),
+    "lengths_short": lambda q, k, v, n: (q, k, v, n[:0]),
+    "kv_batch": lambda q, k, v, n: (q, k[:, :1], v[:, :1], n),
+    "head_dim_24": lambda q, k, v, n: (torch.zeros(1, 2, 2, 24),
+                                       torch.zeros(1, 2, 8, 24),
+                                       torch.zeros(1, 2, 8, 24), n),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_BAD))
+def test_flash_decode_inputs_are_checked(case):
+    args = (torch.zeros(1, 2, 2, 16), torch.zeros(1, 2, 8, 16),
+            torch.zeros(1, 2, 8, 16), torch.tensor([3]))
+    with pytest.raises((ValueError, TypeError)):
+        ops.flash_decode(*DECODE_BAD[case](*args))
+
+
+@pytest.mark.parametrize("name", ["flash_attention.cu", "flash_decode.cu"])
+def test_cuda_sources(name):
+    src = (build.CSRC / name).read_text()
+    flags = " ".join(build.NVCC_FLAGS)
+    for text in (src, flags):
+        assert "use_fast_math" not in text
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-1e30f" in src                   # the reference's finite fill
+    assert 'extern "C" int' in src and "cuda_error_string" in src
+    assert "cudaGetLastError" in src
+
+
+def test_no_try_around_the_kernels():
+    for name in ("ops.py", "flash_attention.py", "decode_attention.py",
+                 "build.py"):
+        tree = ast.parse((KERNELS / name).read_text())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name

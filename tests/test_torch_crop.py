@@ -18,7 +18,7 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
-from repro_torch.kernels import crop_norm, ops, ref
+from repro_torch.kernels import build, crop_norm, ops, ref
 
 KERNELS = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / \
     "kernels"
@@ -95,7 +95,7 @@ def test_copied_numpy_transform_equals_original(seed):
 
 def test_cuda_source_keeps_ieee_rounding():
     src = (KERNELS / "csrc" / "crop_norm.cu").read_text()
-    flags = " ".join(crop_norm.NVCC_FLAGS)
+    flags = " ".join(build.NVCC_FLAGS)
     for text in (src, flags):
         assert "use_fast_math" not in text
         assert "prec-div" not in text

@@ -18,6 +18,8 @@ from repro_torch.core import KVStore, LoaderConfig, build_stack
 from repro_torch.data.datasets import SyntheticPixelDataset, ingest
 from repro_torch.data.pipeline import DeviceFeed, ImageFeed
 from repro_torch.kernels import ops
+from repro_torch.models import build_model
+from repro_torch.configs.base import get_arch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -27,7 +29,10 @@ COPIED = ["core/stats.py", "core/netsim.py", "core/kvstore.py",
           "core/cluster.py", "core/wirefmt.py", "core/flowctl.py",
           "core/arena.py", "core/connection.py", "core/batch_loader.py",
           "core/placement.py", "core/prefetcher.py", "core/loader.py",
-          "data/datasets.py"]
+          "data/datasets.py"] + sorted(
+              str(p.relative_to(REF)) for p in (REF / "configs").glob("*.py"))
+# The one string a copy may change: get_arch imports the port's configs.
+RENAMED = {"repro.configs.{arch_id}": "repro_torch.configs.{arch_id}"}
 COPIED_FUNCTIONS = [("kernels/ref.py", "crop_mirror_normalize_np"),
                     ("data/pipeline.py", "batch_to_numpy")]
 
@@ -109,6 +114,40 @@ def test_kernel_refuses_cuda_tensor_without_card():
     _refuse(lambda: ops.crop_mirror_normalize(*fake, out_h=4, out_w=4))
 
 
+def _attention_args(requires_grad=False):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 4, 8, 16, generator=g, requires_grad=requires_grad)
+    k = torch.randn(1, 2, 8, 16, generator=g)
+    return [t.as_subclass(_FakeCuda) for t in (q, k, k.clone())]
+
+
+def test_flash_attention_refuses_cuda_tensor_without_card():
+    _refuse(lambda: ops.flash_attention(*_attention_args()))
+
+
+def test_flash_decode_refuses_cuda_tensor_without_card():
+    q, k, v = _attention_args()
+    q = torch.zeros(1, 2, 2, 16).as_subclass(_FakeCuda)
+    lengths = torch.tensor([3]).as_subclass(_FakeCuda)
+    _refuse(lambda: ops.flash_decode(q, k, v, lengths))
+
+
+def test_flash_attention_refuses_gradients_on_cuda():
+    """No backward kernel yet: a CUDA call that would need a gradient
+    raises (before the card is even looked for) instead of taking the
+    plain path."""
+    args = _attention_args(requires_grad=True)
+    assert args[0].requires_grad
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        ops.flash_attention(*args)
+
+
+def test_model_and_engine_refuse_cuda_without_card():
+    cfg = get_arch("qwen3_4b").smoke_config()
+    _refuse(lambda: build_model(cfg))
+    _refuse(lambda: build_model(cfg, device="cuda:0"))
+
+
 def _strip_imports(tree: ast.AST) -> str:
     class Strip(ast.NodeTransformer):
         def visit_Import(self, node):
@@ -120,11 +159,25 @@ def _strip_imports(tree: ast.AST) -> str:
     return ast.dump(Strip().visit(tree))
 
 
+def _renamed(source: str) -> str:
+    for old, new in RENAMED.items():
+        source = source.replace(old, new)
+    return source
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_equals_original(rel):
     port = ast.parse((PORT / rel).read_text())
-    ref = ast.parse((REF / rel).read_text())
+    ref = ast.parse(_renamed((REF / rel).read_text()))
     assert _strip_imports(port) == _strip_imports(ref)
+
+
+def test_copied_configs_are_all_there_and_renamed_once():
+    assert len([r for r in COPIED if r.startswith("configs/")]) == 12
+    assert _renamed((REF / "configs/base.py").read_text()) != \
+        (REF / "configs/base.py").read_text()
+    for rel in COPIED:
+        assert "repro.configs" not in (PORT / rel).read_text()
 
 
 @pytest.mark.parametrize("rel,name", COPIED_FUNCTIONS)

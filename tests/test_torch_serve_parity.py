@@ -1,0 +1,233 @@
+"""The port's dense serving path against ``repro`` on the CPU.
+
+Both packages run ``get_arch("qwen3_4b").smoke_config()`` (f32, 2 layers,
+d=64, H=4, K=2, Dh=16, qk_norm) on the same weights: the reference's
+random tree, converted leaf by leaf with ``convert.params_from_reference``
+(the two packages' init RNGs differ, so parity never goes through seeds).
+``forward`` and ``decode_step`` logits agree within 2e-4, including decode
+steps past the end of a linear cache (the reference's write clamps to the
+last slot) and a ring cache; ``ServingEngine`` gives identical greedy
+tokens."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_arch as jax_get_arch
+from repro.models import build_model as jax_build_model
+from repro.models import layers as jax_layers
+from repro.serve import ServeConfig as JaxServeConfig
+from repro.serve import ServingEngine as JaxServingEngine
+from repro.train.step import make_serve_step as jax_make_serve_step
+from repro_torch import convert
+from repro_torch.configs.base import get_arch
+from repro_torch.models import build_model, layers
+from repro_torch.models.params import P, init_params, stack_layer_specs
+from repro_torch.serve import ServeConfig, ServingEngine
+from repro_torch.train.step import make_prefill_step, make_serve_step
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _cfgs(**kw):
+    return (jax_get_arch("qwen3_4b").smoke_config().scaled(**kw),
+            get_arch("qwen3_4b").smoke_config().scaled(**kw))
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """The reference's random parameters as a numpy tree."""
+    jcfg, _ = _cfgs()
+    params = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
+    return jax.tree.map(np.asarray, params)
+
+
+def _models(window=0):
+    jcfg, pcfg = _cfgs(window=window)
+    return jax_build_model(jcfg), build_model(pcfg, device="cpu")
+
+
+def test_smoke_config_shape():
+    _, cfg = _cfgs()
+    assert (cfg.dtype, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.resolved_head_dim, cfg.qk_norm) == \
+        ("float32", 2, 64, 4, 2, 16, True)
+
+
+def test_param_specs_match_reference():
+    jm, pm = _models()
+    flat = lambda spec: {  # noqa: E731
+        "/".join(map(str, (getattr(k, "key", k) for k in path))):
+        (leaf.shape, leaf.axes, leaf.init, leaf.scale)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(
+            spec, is_leaf=lambda x: hasattr(x, "axes"))[0]}
+    port = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, prefix + [k])
+            else:
+                port["/".join(prefix + [k])] = (v.shape, v.axes, v.init,
+                                                v.scale)
+
+    walk(pm.param_specs(), [])
+    assert port == flat(jm.param_specs())
+
+
+def test_converted_weights_keep_every_leaf(weights):
+    params = convert.params_from_reference(weights, device="cpu")
+    jax_leaves = jax.tree_util.tree_flatten_with_path(weights)[0]
+    back = convert.params_to_numpy(params)
+    back_leaves = jax.tree_util.tree_flatten_with_path(back)[0]
+    assert [p for p, _ in back_leaves] == [p for p, _ in jax_leaves]
+    for (_, a), (_, b) in zip(jax_leaves, back_leaves):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_bf16_weights_convert_exactly():
+    x = jnp.asarray(np.random.default_rng(0).standard_normal((3, 5)),
+                    jnp.bfloat16)
+    t = convert.params_from_reference({"w": np.asarray(x)}, device="cpu")["w"]
+    assert t.dtype == torch.bfloat16
+    assert np.array_equal(t.float().numpy(), np.asarray(x, np.float32))
+    assert convert.params_to_numpy({"w": t})["w"].dtype == np.float32
+
+
+def test_params_from_reference_refuses_cuda_without_card(weights):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        convert.params_from_reference(weights)
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_forward_logits_match(weights, window):
+    jm, pm = _models(window)
+    tokens = np.random.default_rng(1).integers(0, 512, (2, 24)).astype(
+        np.int32)
+    want, _ = jm.forward(weights, jnp.asarray(tokens))
+    params = convert.params_from_reference(weights, device="cpu")
+    got = make_prefill_step(pm)(params, {"tokens": torch.from_numpy(tokens)})
+    assert got.dtype == torch.float32 and got.shape == (2, 24, 512)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("window,max_seq", [(0, 12), (0, 32), (8, 32)])
+def test_decode_steps_match(weights, window, max_seq):
+    """20 one-token steps: with max_seq=12 the linear cache is full after
+    12 and later writes clamp to its last slot; window=8 makes an 8-slot
+    ring."""
+    jm, pm = _models(window)
+    tokens = np.random.default_rng(2).integers(0, 512, (3, 20)).astype(
+        np.int32)
+    step = jax.jit(jax_make_serve_step(jm))
+    jcache = jm.init_cache(3, max_seq)
+    params = convert.params_from_reference(weights, device="cpu")
+    pstep = make_serve_step(pm)
+    pcache = pm.init_cache(3, max_seq)
+    for s in range(20):
+        want, jcache = step(weights, jcache, jnp.asarray(tokens[:, s:s + 1]))
+        got, pcache = pstep(params, pcache,
+                            torch.from_numpy(tokens[:, s:s + 1]))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"step {s}")
+    assert pcache["pos"] == int(jcache["pos"][0]) == 20
+
+
+def test_engine_greedy_tokens_identical(weights):
+    """16 prompts through 4 slots of a 32-token cache: the shared pos
+    passes the cache's end, so later waves attend over a clamped cache."""
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, int(n)).astype(np.int32)
+               for n in rng.integers(4, 10, 16)]
+    jm, pm = _models()
+    jeng = JaxServingEngine(jm, weights, JaxServeConfig(
+        batch_slots=4, max_seq=32, max_new_tokens=8))
+    peng = ServingEngine(pm, convert.params_from_reference(weights,
+                                                           device="cpu"),
+                         ServeConfig(batch_slots=4, max_seq=32,
+                                     max_new_tokens=8))
+    want = jeng.run(prompts)
+    got = peng.run(prompts)
+    assert peng.steps == jeng.steps > 32
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
+    assert all(r.done and len(r.out_tokens) == 8 for r in got)
+    assert peng.last_logits.shape == (4, 1, 512)
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "apply_rope", "swiglu",
+                                  "unembed", "softmax_xent"])
+def test_layers_match_reference(name):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
+    if name == "rmsnorm":
+        p = {"scale": rng.standard_normal(16).astype(np.float32)}
+        args = (p, x)
+    elif name == "apply_rope":
+        args = (x, np.broadcast_to(np.arange(5, dtype=np.int32), (2, 5)), 1e6)
+    elif name == "swiglu":
+        p = {k: rng.standard_normal(s).astype(np.float32) for k, s in
+             (("w_gate", (16, 24)), ("w_up", (16, 24)), ("w_down", (24, 16)))}
+        args = (p, x)
+    elif name == "unembed":
+        args = ({"embedding": rng.standard_normal((40, 16)).astype(
+            np.float32)}, x)
+    else:
+        mask = (rng.random((2, 5)) > 0.3).astype(np.float32)
+        args = (x[:, :, 0], rng.integers(0, 16, (2, 5)).astype(np.int32),
+                mask)
+
+    def to(fn, a):
+        if isinstance(a, dict):
+            return {k: fn(v) for k, v in a.items()}
+        return fn(a) if isinstance(a, np.ndarray) else a
+
+    want = getattr(jax_layers, name)(*(to(jnp.asarray, a) for a in args))
+    got = getattr(layers, name)(*(to(lambda v: torch.from_numpy(
+        np.ascontiguousarray(v)), a) for a in args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_init_keeps_the_reference_fan_in_rule():
+    """std = scale / sqrt(prod(shape[:-1])), the stacked layers axis
+    included; embeddings N(0, 0.02); norms ones."""
+    spec = {"w": stack_layer_specs({"w": P((64, 8, 32), ("a", "b", "c"))},
+                                   4)["w"],
+            "e": P((256, 64), ("v", "d"), init="embed"),
+            "n": P((64,), ("d",), init="ones")}
+    t = init_params(spec, torch.Generator().manual_seed(0), device="cpu")
+    assert t["w"].shape == (4, 64, 8, 32)
+    assert float(t["w"].std()) == pytest.approx((4 * 64 * 8) ** -0.5,
+                                                rel=0.03)
+    assert float(t["e"].std()) == pytest.approx(0.02, rel=0.03)
+    assert torch.equal(t["n"], torch.ones(64))
+    again = init_params(spec, torch.Generator().manual_seed(0), device="cpu")
+    assert all(torch.equal(t[k], again[k]) for k in t)
+
+
+@pytest.mark.parametrize("arch,match", [("kimi_k2_1t_a32b", "D3"),
+                                        ("internvl2_2b", "D3"),
+                                        ("xlstm_350m", "A7")])
+def test_other_families_are_queued(arch, match):
+    with pytest.raises(NotImplementedError, match=match):
+        build_model(get_arch(arch).smoke_config(), device="cpu")
+
+
+def test_launcher_serves_on_cpu(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--device", "cpu", "--requests", "4", "--slots", "2",
+                "--max-new-tokens", "3"])
+    out = capsys.readouterr().out
+    assert "served 4 requests, 12 tokens" in out and "cpu" in out
+
+
+def test_launcher_refuses_cuda_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        serve.main(["--requests", "2"])
