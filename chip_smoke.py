@@ -1,13 +1,13 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-H100: builds the port's three CUDA kernels, holds each against its plain
-PyTorch version, drives the image lane and the dense Qwen3-4B serving path
-end to end, and times the kernels.
+H100: builds the port's four CUDA kernels, holds each against its plain
+PyTorch version, drives the image lane, the dense Qwen3-4B serving path and
+the Grok-1 MoE serving path end to end, and times the kernels.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the three kernels from ``src/repro_torch/kernels/csrc/*.cu``,
+  2. build the four kernels from ``src/repro_torch/kernels/csrc/*.cu``,
      one ``nvcc`` each, all started together;
   3. crop kernel == plain version on the card: edge values, clamped
      offsets, mirror, ragged sizes, a full-frame crop and the main-path
@@ -29,7 +29,20 @@ Phases, in order; any failure raises and exits non-zero:
      kernels' plain versions): prefill and decode logits within 1e-3;
   9. the attention kernels' times against their bounds, plain versions and
      ``scaled_dot_product_attention``;
- 10. one JSON line of kernels, then the result line.
+ 10. grouped matmul == its plain version on the card: the reference's
+     sweep, ragged and unaligned edges and strided views (f32 1e-4; bf16
+     5e-2 rtol / 5e-1 atol), and every shape of the MoE path (bf16 within
+     two ulps, 2**-6 rtol / 1e-3 atol; f32 1e-4);
+ 11. the MoE serving path at full width: Grok-1 (4 of its 64 layers, bf16,
+     seeded random weights), prompts fetched over the simulated WAN, a
+     2 x 2048 prefill and continuous-batching decode of 16 prompts, with
+     the kernels' launches counted (the Qwen3-4B phases' tensors are freed
+     first);
+ 12. the same path in f32 at 2 layers and d_ff 2048 on the card and on the
+     CPU: prefill and decode logits within 1e-3;
+ 13. the grouped matmul's times at the MoE path's decode and prefill
+     shapes against its bound, plain version and ``torch.bmm``;
+ 14. one JSON line of kernels, then the result line.
 
 Needs a CUDA card; without one it exits non-zero and prints no result.
 """
@@ -37,6 +50,7 @@ Needs a CUDA card; without one it exits non-zero and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
 import statistics
 import subprocess
@@ -55,8 +69,9 @@ from repro_torch.core import KVStore, LoaderConfig, build_stack  # noqa: E402
 from repro_torch.data.datasets import (SyntheticPixelDataset,  # noqa: E402
                                        SyntheticTokenDataset, ingest)
 from repro_torch.kernels import (crop_norm, decode_attention,  # noqa: E402
-                                 flash_attention, ops, ref)
+                                 flash_attention, grouped_matmul, ops, ref)
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.moe import n_chunks  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
 from repro_torch.serve import ServeConfig, ServingEngine  # noqa: E402
 from repro_torch.train.step import make_prefill_step  # noqa: E402
@@ -84,6 +99,9 @@ KERNELS = {  # name -> (module, source, the TPU kernel it replaces)
     "flash_decode": (decode_attention,
                      "src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/decode_attention.py:60"),
+    "grouped_matmul": (grouped_matmul,
+                       "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                       "src/repro/kernels/moe_gmm.py:36"),
 }
 
 # The serving path: Qwen3-4B at full width, prompts of 128 tokens, a
@@ -111,6 +129,49 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # Timed shapes: the prefill above, and decode at decode_32k's context.
 TIME_PREFILL = (PREFILL_B, 32, 8, PREFILL_S, 128)
 TIME_DECODE = (16, 8, 4, 32768, 128)
+
+# The MoE serving path: Grok-1 at full width (d_model 6144, 48 query heads
+# over 8 KV heads, d_ff 32768, 8 experts, top-2, vocab 131072), 4 of its 64
+# layers (41 GB of bf16 parameters; 64 would not fit the card); prompts of
+# 64 tokens, a 2 x 2048 prefill, 8 slots over a 1024-token cache, 16 new
+# tokens each.  The f32 check cuts d_ff to 2048 as well, so that the CPU
+# side holds about 7 GB.
+MOE_ARCH, MOE_LAYERS = "grok_1_314b", 4
+MOE_SERVE = dict(n_prompts=16, prompt_len=64, prefill_b=2, prefill_s=2048,
+                 slots=8, max_seq=1024, new_tokens=16, n_prefill=2)
+MOE_CHECK_D_FF = 2048
+# Grouped-matmul cases (E, C, d, f): the reference's sweep
+# (tests/test_kernels.py:131-135), edges (C = 1, d and f off the tiles, rows
+# not 16-byte aligned), and every shape the path gives the kernel: decode
+# (8 slots x C=1 rows per expert), a 512-token prefill chunk of the 2 x 2048
+# batch (C = 160 per row), and the down projection of each; decode and the
+# prefill chunk in f32 as well.
+GMM_CASES = [(4, 64, 96, 64), (2, 100, 64, 48), (8, 32, 128, 128)]
+GMM_EDGE_CASES = [(3, 1, 200, 72), (2, 1, 99, 37), (3, 13, 1000, 300),
+                  (1, 77, 24, 129)]
+GMM_DECODE = (8, 8, 6144, 32768)
+GMM_DECODE_DOWN = (8, 8, 32768, 6144)
+GMM_PREFILL = (8, 320, 6144, 32768)
+GMM_PREFILL_DOWN = (8, 320, 32768, 6144)
+GMM_PATH_CASES = [(GMM_DECODE, torch.bfloat16),
+                  (GMM_DECODE_DOWN, torch.bfloat16),
+                  (GMM_PREFILL, torch.bfloat16),
+                  (GMM_PREFILL_DOWN, torch.bfloat16),
+                  (GMM_DECODE, torch.float32), (GMM_PREFILL, torch.float32)]
+# Timed: gate/up and down projections at decode and in a prefill chunk,
+# with (back-to-back launches, repeats) sized to keep the phase in seconds.
+TIME_GMM = [("decode", GMM_DECODE, 5, 5),
+            ("decode down", GMM_DECODE_DOWN, 5, 5),
+            ("prefill", GMM_PREFILL, 2, 3),
+            ("prefill down", GMM_PREFILL_DOWN, 2, 3)]
+# (rtol, atol): the reference's tolerances for the sweep and the edges.
+# At the path's shapes (w at the model's scale, outputs of order 1) both
+# sides sum exact bf16 products in f32 and differ only in the order of the
+# sums, some 1e-5; rounded to bf16 that is at most one ulp, 2**-7 of the
+# value.  The bf16 limit there is two ulps: a kernel that skipped one
+# 16-deep slice of d would be off by some 0.05 and fail it.
+GMM_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 5e-1)}
+GMM_PATH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -6, 1e-3)}
 
 
 def make_inputs(seed: int, b: int, h: int, w: int, c: int, oh: int, ow: int,
@@ -352,9 +413,10 @@ def sync(device) -> None:
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor,
-            dtype) -> float:
-    """max|got - want|; raises unless |got - want| <= tol + tol*|want|
-    everywhere (the reference tests' allclose, tol from ``TOL``)."""
+            dtype, tol=None) -> float:
+    """max|got - want|; raises unless |got - want| <= atol + rtol*|want|
+    everywhere (the reference tests' allclose; ``tol`` is (rtol, atol),
+    by default both ``TOL[dtype]``)."""
     sync(got.device)
     if got.shape != want.shape or got.dtype != dtype \
             or not torch.isfinite(got).all():
@@ -362,9 +424,9 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
                              f"{got.dtype}")
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
-    tol = TOL[dtype]
-    ok = bool((diff <= tol + tol * want.float().abs()).all())
-    print(f"check {name}: max|diff| {err!r} (tol {tol})")
+    rtol, atol = tol or (TOL[dtype], TOL[dtype])
+    ok = bool((diff <= atol + rtol * want.float().abs()).all())
+    print(f"check {name}: max|diff| {err!r} (rtol {rtol}, atol {atol})")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version: max|diff| {err!r}")
@@ -457,6 +519,8 @@ def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
     prompts.  Returns the kernels' launches in this run, what it formed,
     and its times.  The prompts are returned for phase 8."""
     model = build_model(cfg, device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device).manual_seed(0))
     sync(device)
@@ -472,10 +536,15 @@ def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
 
     reset_launches()
     times = []
-    for _ in range(n_prefill):
+    batch = {"tokens": prefill_tokens}
+    for i in range(n_prefill):
         sync(device)
         t0 = time.perf_counter()
-        logits = prefill(params, {"tokens": prefill_tokens})
+        if i < n_prefill - 1:
+            logits = prefill(params, batch)
+        else:              # what the prefill step wraps, keeping the aux
+            with torch.no_grad():
+                logits, aux = model.forward(params, prefill_tokens, batch)
         sync(device)
         times.append(time.perf_counter() - t0)
     after_prefill = launch_counts()
@@ -491,6 +560,8 @@ def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
     sync(device)
     serve_s = time.perf_counter() - t0
     counts = launch_counts()
+    if model.is_moe:
+        out["prefill_aux"] = {k: float(v) for k, v in aux.items()}
 
     n_tok = sum(len(r.out_tokens) for r in reqs)
     waves = -(-n_prompts // slots)
@@ -501,8 +572,10 @@ def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
         raise AssertionError(f"engine: {engine.steps} steps (want "
                              f"{want_steps}), {n_tok} tokens")
     out.update({
-        "after_prefill": after_prefill, "launches": counts,
-        "prefill_calls": n_prefill, "engine_steps": engine.steps,
+        "is_moe": model.is_moe, "after_prefill": after_prefill,
+        "launches": counts,
+        "prefill_calls": n_prefill, "prefill_s": prefill_s,
+        "engine_steps": engine.steps,
         "tokens": n_tok, "prefill_ms_per_call": statistics.median(times) * 1e3,
         "serve_s": serve_s, "tokens_per_s": n_tok / serve_s,
         "ms_per_engine_step": serve_s / engine.steps * 1e3,
@@ -511,19 +584,26 @@ def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
         "first_tokens": reqs[0].out_tokens[:8]})
     if device.type == "cuda":
         out["peak_GB"] = torch.cuda.max_memory_allocated(device) / 1e9
-    print("serving path:", json.dumps(out))
+    print(f"serving path {cfg.name}:", json.dumps(out))
     return out, prompts
 
 
-def check_serving_launches(run: dict, n_layers: int, on_card: bool) -> None:
+def check_serving_launches(run: dict, n_layers: int,
+                           on_card: bool) -> None:
     """The kernels of the path ran: ``n_layers`` flash-attention launches
     per prefill call and ``n_layers`` flash-decode launches per engine
-    step (none on the CPU), and no crop launch."""
+    step (none on the CPU), and no crop launch; for an MoE model also 3
+    grouped-matmul launches per layer and MoE chunk of a prefill call and
+    per layer of an engine step."""
     per = n_layers if on_card else 0
+    gmm = 3 * per if run["is_moe"] else 0
+    calls, steps = run["prefill_calls"], run["engine_steps"]
     want_prefill = {"crop_mirror_normalize": 0,
-                    "flash_attention": per * run["prefill_calls"],
-                    "flash_decode": 0}
-    want = dict(want_prefill, flash_decode=per * run["engine_steps"])
+                    "flash_attention": per * calls, "flash_decode": 0,
+                    "grouped_matmul": gmm * n_chunks(run["prefill_s"])
+                    * calls}
+    want = dict(want_prefill, flash_decode=per * steps,
+                grouped_matmul=want_prefill["grouped_matmul"] + gmm * steps)
     if run["after_prefill"] != want_prefill or run["launches"] != want:
         raise AssertionError(f"launches {run['after_prefill']} after the "
                              f"prefill and {run['launches']} after the "
@@ -677,6 +757,100 @@ def time_attention(device, kind: str) -> dict:
     return out
 
 
+def check_gmm(device) -> dict:
+    """Phase 10: the grouped matmul against its plain version on the same
+    inputs.  The sweep and the edges draw x and w from N(0,1), as the
+    reference's test does, and meet its tolerances (``GMM_TOL``); the
+    path's shapes draw w at the model's scale, N(0,1)/sqrt(d), so that the
+    sums are of order 1 as in the model, and meet ``GMM_PATH_TOL``.
+    Returns the max|diff| at each of the path's shapes, keyed by (shape,
+    dtype)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device).manual_seed(10)
+
+    def randn(shape, dtype, scale=1.0):
+        return torch.randn(shape, generator=gen, dtype=dtype,
+                           device=device).mul_(scale)
+
+    def one(name, x, w, dtype, tol=GMM_TOL):
+        return compare(f"gmm {name} {dtype}", ops.grouped_matmul(x, w),
+                       ref.gmm_reference(x, w), dtype, tol[dtype])
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for E, C, d, f in GMM_CASES + GMM_EDGE_CASES:
+            one((E, C, d, f), randn((E, C, d), dtype), randn((E, d, f), dtype),
+                dtype)
+        # Views the wrapper reads in place: x transposed from (C,E,d), w one
+        # layer of a stacked tensor with its columns cut at 300 of 304, so
+        # that 16-byte loads meet a ragged edge.
+        x = randn((40, 3, 64), dtype).transpose(0, 1)
+        w = randn((2, 3, 64, 304), dtype)[1, :, :, :300]
+        one("strided (3, 40, 64, 300)", x, w, dtype)
+    path = {}
+    for (E, C, d, f), dtype in GMM_PATH_CASES:
+        x = randn((E, C, d), dtype)
+        w = randn((E, d, f), dtype, d ** -0.5)
+        path[(E, C, d, f), dtype] = one(f"path {(E, C, d, f)}", x, w, dtype,
+                                        GMM_PATH_TOL)
+        del x, w
+    return path
+
+
+def gmm_bound(kind: str, E: int, C: int, d: int, f: int, elsize: int):
+    """Least time for a grouped-matmul call: x and w read once and the
+    output written once, against 2*d flops per output element at the
+    inputs' type's peak."""
+    nbytes = elsize * (E * C * d + E * d * f + E * C * f)
+    return _bound(kind, nbytes, 2 * E * C * d * f, elsize)
+
+
+def time_gmm(device, kind: str) -> dict:
+    """Phase 13: the grouped matmul's device ms per launch, the host's ms
+    per call, its plain version's ms and ``torch.bmm``'s ms (timed only)
+    at the MoE path's shapes (``TIME_GMM``), in bf16, with w at the
+    model's scale."""
+    gen = torch.Generator(device).manual_seed(13)
+    out = {}
+    for name, (E, C, d, f), n, repeats in TIME_GMM:
+        x = torch.randn((E, C, d), generator=gen, dtype=torch.bfloat16,
+                        device=device)
+        w = torch.randn((E, d, f), generator=gen, dtype=torch.bfloat16,
+                        device=device).mul_(d ** -0.5)
+
+        def kernel(x=x, w=w):
+            return ops.grouped_matmul(x, w)
+
+        nbytes, flops, bound_ms, bound_by = gmm_bound(kind, E, C, d, f, 2)
+        out[name] = {
+            "shape": [E, C, d, f],
+            "ms": median_event_ms(kernel, n=n, repeats=repeats),
+            "host_ms_per_call": median_host_ms(kernel, n=n, repeats=repeats),
+            "plain_ms": median_event_ms(lambda: ref.gmm_reference(x, w),
+                                        n=2, repeats=3),
+            "library_ms": median_event_ms(lambda: torch.bmm(x, w), n=n,
+                                          repeats=repeats),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        del x, w
+    for name, t in out.items():
+        frac = (f"{t['bound_ms'] / t['ms']:.3f} of the bound"
+                if t["bound_ms"] else "bound unknown for this card")
+        print(f"time grouped_matmul {name} {t['shape']}: kernel "
+              f"{t['ms']!r} ms/launch, host {t['host_ms_per_call']!r} "
+              f"ms/call, plain {t['plain_ms']!r} ms, bmm "
+              f"{t['library_ms']!r} ms, bound {t['bound_ms']!r} ms "
+              f"({t['bound_by']}; {t['bytes'] / 1e9:.3f} GB, "
+              f"{t['flops'] / 1e12:.3f} TFLOP), {frac}")
+    return out
+
+
+def free_card() -> None:
+    """Drop what an earlier phase left cached, so that the next phase
+    starts from an empty card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -711,6 +885,19 @@ def main() -> int:
     check_f32_path(device, cfg.scaled(n_layers=CHECK_LAYERS,  # phase 8
                                       dtype="float32"), prompts)
     attn_time = time_attention(device, kind)                  # phase 9
+    free_card()
+    gmm_err = check_gmm(device)                               # phase 10
+    free_card()
+    moe_cfg = get_arch(MOE_ARCH).scaled(n_layers=MOE_LAYERS)
+    moe, moe_prompts = drive_serving(device, moe_cfg,         # phase 11
+                                     **MOE_SERVE)
+    check_serving_launches(moe, MOE_LAYERS, on_card=True)
+    free_card()
+    check_f32_path(device, moe_cfg.scaled(                    # phase 12
+        n_layers=CHECK_LAYERS, d_ff=MOE_CHECK_D_FF, dtype="float32"),
+        moe_prompts)
+    free_card()
+    gmm_time = time_gmm(device, kind)                         # phase 13
     f32 = timing["f32"]
     rows = {"crop_mirror_normalize": {
         "launches": run["launches"],
@@ -725,7 +912,13 @@ def main() -> int:
                       "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                       "bound_by": t["bound_by"],
                       "library_ms": t["library_ms"]}
-    print(json.dumps({"kernels": [                            # phase 10
+    t = gmm_time["decode"]
+    rows["grouped_matmul"] = {
+        "launches": moe["launches"]["grouped_matmul"],
+        "max_abs_err": gmm_err[GMM_DECODE, torch.bfloat16], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+    print(json.dumps({"kernels": [                            # phase 14
         {"name": name, "route": "cuda", "source": KERNELS[name][1],
          "replaces": KERNELS[name][2], **row} for name, row in rows.items()]}))
     print(json.dumps({"ok": True, "device": {

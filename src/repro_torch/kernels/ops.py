@@ -12,8 +12,9 @@ import torch
 
 from . import crop_norm, decode_attention
 from . import flash_attention as _flash_attention
+from . import grouped_matmul as _grouped_matmul
 from .ref import (crop_mirror_normalize_reference, decode_reference,
-                  mha_reference)
+                  gmm_reference, mha_reference)
 
 
 def crop_mirror_normalize(img, oy, ox, mirror, mean, std, *, out_h: int,
@@ -50,4 +51,14 @@ def flash_decode(q, k, v, lengths):
     return decode_attention.flash_decode(q, k, v, lengths)
 
 
-__all__ = ["crop_mirror_normalize", "flash_attention", "flash_decode"]
+def grouped_matmul(x, w):
+    """x (E,C,d) @ w (E,d,f) -> (E,C,f) in x's dtype; see
+    ``grouped_matmul.grouped_matmul``."""
+    if isinstance(x, torch.Tensor) and x.device.type == "cpu":
+        _grouped_matmul.check_args(x, w)
+        return gmm_reference(x, w)
+    return _grouped_matmul.grouped_matmul(x, w)
+
+
+__all__ = ["crop_mirror_normalize", "flash_attention", "flash_decode",
+           "grouped_matmul"]

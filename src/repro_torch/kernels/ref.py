@@ -3,8 +3,9 @@
 ``crop_mirror_normalize_np``, the host-side transform of
 ``data.pipeline.ImageFeed``'s materialize path.
 
-``mha_reference`` and ``decode_reference`` are the torch twins of
-``repro.kernels.ref``'s oracles of the same names, in the same layouts.
+``mha_reference``, ``decode_reference`` and ``gmm_reference`` are the torch
+twins of ``repro.kernels.ref``'s oracles of the same names, in the same
+layouts.
 """
 
 from __future__ import annotations
@@ -106,5 +107,12 @@ def crop_mirror_normalize_np(img: np.ndarray, oy, ox, mirror,
     return out
 
 
+def gmm_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped (per-expert) matmul: x (E,C,d) @ w (E,d,f) -> (E,C,f),
+    computed in f32 and returned in x's dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
 __all__ = ["mha_reference", "decode_reference",
-           "crop_mirror_normalize_reference", "crop_mirror_normalize_np"]
+           "crop_mirror_normalize_reference", "crop_mirror_normalize_np",
+           "gmm_reference"]

@@ -1,0 +1,148 @@
+"""Mixture-of-Experts with sort-based, capacity-bounded dispatch: the port
+of ``repro.models.moe``, with its names, parameter layout and semantics.
+
+Per batch row (one sequence) and per chunk of the sequence: an f32 router,
+softmax and top-k (renormalised gates); Switch aux and z losses; capacity
+``C = ceil(S*k*cf/E)``; a stable sort of the (token, choice) pairs by
+expert, rank within the expert, drop past C; one gather of the tokens into
+an expert-major ``(E, B*C, d)`` buffer; the three expert products on the
+grouped-matmul kernel (``kernels.ops.grouped_matmul``, one launch each over
+every expert); and a gate-weighted scatter-add back to the tokens.
+Routing, sort, gather, SiLU*up and combine are plain torch, as they are
+XLA in ``repro``.
+
+What differs from the reference in form, not in result:
+- the buffer is expert-major ``(E, B, C)`` rather than ``(B, E, C)``, a
+  permutation of the same slots, so one kernel launch covers all rows of
+  an expert; the combine goes through the same index;
+- ``lax.scan`` over chunks is a loop; capacity and the metrics are per
+  chunk and then averaged, as in ``repro``;
+- top-k is a stable descending sort, so equal probabilities pick the
+  lower expert index first, as ``jax.lax.top_k`` does;
+- ``constrain`` (a sharding constrainer) is not taken: sharding is not
+  ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+from .params import P
+
+SEQ_CHUNK = 512
+
+
+def moe_spec(d: int, f: int, n_experts: int) -> Dict:
+    return {
+        "router": P((d, n_experts), ("d_model", "experts"), scale=0.1),
+        "w_gate": P((n_experts, d, f), ("experts", "d_model", "d_ff")),
+        "w_up": P((n_experts, d, f), ("experts", "d_model", "d_ff")),
+        "w_down": P((n_experts, f, d), ("experts", "d_ff", "d_model")),
+    }
+
+
+def n_chunks(S: int, seq_chunk: int = SEQ_CHUNK) -> int:
+    """How many chunks ``moe_apply`` cuts a length-S sequence into."""
+    return 1 if S % seq_chunk or S <= seq_chunk else S // seq_chunk
+
+
+def moe_apply(params: Dict, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25, seq_chunk: int = SEQ_CHUNK
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, d) -> (B, S, d), aux metrics (``moe_aux_loss``,
+    ``moe_z_loss``, ``moe_dropped_frac``: 0-d f32, the mean over chunks)."""
+    outs, auxs = zip(*(_moe_chunk(params, xc, top_k=top_k,
+                                  capacity_factor=capacity_factor)
+                       for xc in x.chunk(n_chunks(x.shape[1], seq_chunk),
+                                         dim=1)))
+    metrics = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+    return torch.cat(outs, dim=1), metrics
+
+
+def route(x: torch.Tensor, router: torch.Tensor, top_k: int):
+    """f32 router logits (B,S,E), probabilities, and the top-k gates and
+    expert indices (B,S,k), highest first, ties to the lower index."""
+    logits = x.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True,
+                                       stable=True)
+    return logits, probs, gate_vals[..., :top_k], expert_idx[..., :top_k]
+
+
+def _moe_chunk(params: Dict, x: torch.Tensor, *, top_k: int,
+               capacity_factor: float
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    B, S, d = x.shape
+    E = params["router"].shape[-1]
+    k = top_k
+    Sk = S * k
+    dev = x.device
+
+    logits, probs, gate_vals, expert_idx = route(x, params["router"], k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # ---- aux losses (Switch/GShard) ---------------------------------------
+    flat_e = expert_idx.reshape(B, Sk)
+    counts = torch.zeros((B, E), dtype=torch.long, device=dev).scatter_add_(
+        1, flat_e, torch.ones_like(flat_e))
+    me = probs.mean(dim=(0, 1))                                # (E,)
+    ce = counts.sum(0).float() / (B * Sk)
+    aux_loss = E * torch.sum(me * ce)
+    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+
+    # ---- per-row sort-based dispatch, inverse-mapping form ----------------
+    C = max(int(-(-Sk * capacity_factor // E)), 1)
+    sort_idx = torch.argsort(flat_e, dim=1, stable=True)       # (B, Sk)
+    sorted_e = flat_e.gather(1, sort_idx)
+    tok = sort_idx // k                                        # source token
+    starts = counts.cumsum(1) - counts                         # (B, E)
+    rank = torch.arange(Sk, device=dev)[None, :] - starts.gather(1, sorted_e)
+    keep = rank < C
+    dest = torch.where(keep, sorted_e * C + rank, E * C)       # E*C: dropped
+
+    # slot -> source token: scatter into E*C + 1 slots and cut the last,
+    # which takes the dropped pairs.  Unfilled slots keep token 0 and are
+    # zeroed by ``filled``.
+    def slots(values, dtype):
+        buf = torch.zeros((B, E * C + 1), dtype=dtype, device=dev)
+        return buf.scatter_(1, dest, values)[:, :E * C]
+
+    src = slots(tok, torch.long)
+    filled = slots(torch.ones_like(keep), torch.bool)
+    gate_slot = slots(gate_vals.reshape(B, Sk).gather(1, sort_idx),
+                      torch.float32)
+
+    # Expert-major (E, B, C) layout of the slots: one gather from x builds
+    # the (E, B*C, d) buffer, and the combine adds back through the same
+    # flat token index.
+    def expert_major(t):
+        return t.view(B, E, C).transpose(0, 1)
+
+    token = (expert_major(src)
+             + S * torch.arange(B, device=dev)[None, :, None]).reshape(-1)
+    mask = expert_major(filled).reshape(E, B * C, 1)
+    h = x.reshape(B * S, d)[token].view(E, B * C, d) * mask.to(x.dtype)
+
+    g = ops.grouped_matmul(h, params["w_gate"])
+    u = ops.grouped_matmul(h, params["w_up"])
+    y = ops.grouped_matmul(F.silu(g) * u, params["w_down"])    # (E, B*C, d)
+
+    weight = (expert_major(gate_slot).reshape(E, B * C, 1) * mask)
+    updates = (y * weight.to(x.dtype)).reshape(E * B * C, d)
+    out = torch.zeros((B * S, d), dtype=x.dtype, device=dev).index_add_(
+        0, token, updates)
+
+    metrics = {
+        "moe_aux_loss": aux_loss,
+        "moe_z_loss": z_loss,
+        "moe_dropped_frac": 1.0 - keep.float().mean(),
+    }
+    return out.view(B, S, d), metrics
+
+
+__all__ = ["moe_spec", "moe_apply", "route", "n_chunks", "SEQ_CHUNK"]

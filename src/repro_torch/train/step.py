@@ -1,7 +1,7 @@
 """Serve-step builders: the port of ``repro.train.step``'s
 ``make_serve_step`` and ``make_prefill_step``.  The train step comes with
-the trainer slice.  Both steps run without autograd: the attention kernels
-have no backward."""
+the trainer slice.  Both steps run without autograd: the kernels have no
+backward."""
 
 from __future__ import annotations
 
@@ -22,11 +22,13 @@ def make_serve_step(model) -> Callable:
 
 
 def make_prefill_step(model) -> Callable:
-    """(params, batch) -> logits (B,S,V) for ``batch["tokens"]`` (B,S)."""
+    """(params, batch) -> logits (B,S,V) for ``batch["tokens"]`` (B,S);
+    the rest of ``batch`` (a VLM's ``patch_embeds``) goes to the model as
+    its extras."""
 
     @torch.no_grad()
     def prefill_step(params: Dict, batch: Dict):
-        logits, _ = model.forward(params, batch["tokens"])
+        logits, _ = model.forward(params, batch["tokens"], batch)
         return logits
 
     return prefill_step

@@ -3,6 +3,7 @@ or without the rest of the repo, its phases run end to end at a small size
 on the kernels' plain versions, and its bound is the one ``PERF.md``
 states."""
 
+import math
 import os
 import shutil
 import subprocess
@@ -125,18 +126,152 @@ def test_serving_path_rehearses_on_cpu():
 
 
 def test_serving_launch_check():
-    run = {"prefill_calls": 3, "engine_steps": 10,
+    run = {"is_moe": False, "prefill_calls": 3, "prefill_s": 2048,
+           "engine_steps": 10,
            "after_prefill": {"crop_mirror_normalize": 0,
-                             "flash_attention": 108, "flash_decode": 0},
+                             "flash_attention": 108, "flash_decode": 0,
+                             "grouped_matmul": 0},
            "launches": {"crop_mirror_normalize": 0, "flash_attention": 108,
-                        "flash_decode": 360}}
+                        "flash_decode": 360, "grouped_matmul": 0}}
     chip_smoke.check_serving_launches(run, 36, on_card=True)
     for bad in ({"flash_decode": 359}, {"crop_mirror_normalize": 1},
-                {"flash_attention": 109}):
+                {"flash_attention": 109}, {"grouped_matmul": 1}):
         with pytest.raises(AssertionError, match="launches"):
             chip_smoke.check_serving_launches(
                 dict(run, launches=dict(run["launches"], **bad)), 36,
                 on_card=True)
+
+
+def test_moe_serving_launch_check():
+    """Grok-1 at 4 layers: per 2 x 2048 prefill call 4 flash-attention and
+    3 * 4 * (2048 / 512) = 48 grouped-matmul launches; per engine step 4
+    flash-decode and 12 grouped-matmul launches."""
+    run = {"is_moe": True, "prefill_calls": 2, "prefill_s": 2048,
+           "engine_steps": 158,
+           "after_prefill": {"crop_mirror_normalize": 0,
+                             "flash_attention": 8, "flash_decode": 0,
+                             "grouped_matmul": 96},
+           "launches": {"crop_mirror_normalize": 0, "flash_attention": 8,
+                        "flash_decode": 632,
+                        "grouped_matmul": 96 + 12 * 158}}
+    chip_smoke.check_serving_launches(run, 4, on_card=True)
+    with pytest.raises(AssertionError, match="launches"):
+        chip_smoke.check_serving_launches(dict(run, is_moe=False), 4,
+                                          on_card=True)
+    for bad in ({"grouped_matmul": 96 + 12 * 158 - 1},
+                {"flash_decode": 633}):
+        with pytest.raises(AssertionError, match="launches"):
+            chip_smoke.check_serving_launches(
+                dict(run, launches=dict(run["launches"], **bad)), 4,
+                on_card=True)
+    one_chunk = dict(run, prefill_s=512, after_prefill=dict(
+        run["after_prefill"], grouped_matmul=24), launches=dict(
+        run["launches"], grouped_matmul=24 + 12 * 158))
+    chip_smoke.check_serving_launches(one_chunk, 4, on_card=True)
+
+
+def test_moe_serving_path_rehearses_on_cpu():
+    """Phases 11 and 12 on the CPU at Grok-1's smoke config: a prefill of
+    2 x 1024 (two MoE chunks), two waves of continuous batching, the
+    prefill's MoE metrics, no kernel launched, and the f32 check (CPU
+    against CPU) at zero with d_ff cut as on the card."""
+    cpu = torch.device("cpu")
+    cfg = chip_smoke.get_arch(chip_smoke.MOE_ARCH).smoke_config()
+    run, prompts = chip_smoke.drive_serving(
+        cpu, cfg, n_prompts=6, prompt_len=10, prefill_b=2, prefill_s=1024,
+        slots=4, max_seq=16, new_tokens=5, n_prefill=2)
+    assert run["is_moe"]
+    chip_smoke.check_serving_launches(run, cfg.n_layers, on_card=False)
+    assert run["engine_steps"] == 2 * (10 + 5 - 1) and run["tokens"] == 30
+    assert set(run["prefill_aux"]) == {"moe_aux_loss", "moe_z_loss",
+                                       "moe_dropped_frac"}
+    assert 0.0 <= run["prefill_aux"]["moe_dropped_frac"] < 1.0
+    assert chip_smoke.check_f32_path(
+        cpu, cfg.scaled(d_ff=96), prompts, prefill_len=24, n_steps=4,
+        slots=4, max_seq=16) == {"prefill_max_abs_diff": 0.0,
+                                 "decode_max_abs_diff": 0.0}
+
+
+def test_moe_path_config_is_grok_at_full_width():
+    cfg = chip_smoke.get_arch(chip_smoke.MOE_ARCH).scaled(
+        n_layers=chip_smoke.MOE_LAYERS)
+    assert (cfg.family, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.n_experts, cfg.top_k,
+            cfg.vocab, cfg.n_layers) == ("moe", 6144, 48, 8, 128, 32768, 8,
+                                         2, 131072, 4)
+    serve = chip_smoke.MOE_SERVE
+    E, C, d, f = chip_smoke.GMM_DECODE
+    assert (E, d, f) == (cfg.n_experts, cfg.d_model, cfg.d_ff)
+    assert C == serve["slots"] * 1           # S=1: C = ceil(2*1.25/8) = 1
+    E, C, d, f = chip_smoke.GMM_PREFILL
+    assert C == serve["prefill_b"] * -(-512 * 2 * 1.25 // 8)
+    # Every shape the path gives the kernel (gate/up and down, at decode
+    # and in a prefill chunk) is checked in bf16 and timed.
+    shapes = {(E, rows, a, b) for rows in (serve["slots"], C)
+              for a, b in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model))}
+    assert {s for s, dtype in chip_smoke.GMM_PATH_CASES
+            if dtype == torch.bfloat16} == shapes
+    assert {s for _, s, _, _ in chip_smoke.TIME_GMM} == shapes
+
+
+@pytest.fixture
+def small_gmm(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "GMM_DECODE", (4, 8, 64, 96))
+    monkeypatch.setattr(chip_smoke, "GMM_PREFILL", (4, 40, 64, 96))
+    monkeypatch.setattr(chip_smoke, "GMM_PATH_CASES", [
+        ((4, 8, 64, 96), torch.bfloat16), ((4, 8, 96, 64), torch.bfloat16),
+        ((4, 40, 64, 96), torch.bfloat16), ((4, 40, 96, 64), torch.bfloat16),
+        ((4, 8, 64, 96), torch.float32), ((4, 40, 64, 96), torch.float32)])
+
+
+def test_gmm_checks_rehearse_on_cpu(small_gmm):
+    """Phase 10 on the CPU: the plain version against itself, through the
+    same dispatch, the same views and the same tolerances."""
+    assert chip_smoke.check_gmm(torch.device("cpu")) == {
+        (shape, dtype): 0.0 for shape, dtype in chip_smoke.GMM_PATH_CASES}
+
+
+def test_compare_takes_the_gmm_tolerances():
+    a = torch.full((4,), 10.0)
+    rtol, atol = chip_smoke.GMM_TOL[torch.bfloat16]
+    assert chip_smoke.compare("bf16", (a + 0.9).bfloat16(), a.bfloat16(),
+                              torch.bfloat16, (rtol, atol)) > 0.5
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.compare("f32", a + 2e-3, a, torch.float32,
+                           chip_smoke.GMM_TOL[torch.float32])
+    # At the path's shapes: one bf16 ulp passes at any magnitude, an error
+    # of 0.05 at outputs below 1 (one 16-deep slice of d left out) fails.
+    path = chip_smoke.GMM_PATH_TOL[torch.bfloat16]
+    for v in (1e-5, 0.3, 1.0, 3.0, 7.5):
+        want = torch.full((4,), v).bfloat16()
+        ulp = 2.0 ** (math.floor(math.log2(v)) - 7)
+        assert chip_smoke.compare("1 ulp", (want.float() + ulp).bfloat16(),
+                                  want, torch.bfloat16, path) == ulp
+    for v in (0.1, 0.5, 0.9):
+        want = torch.full((4,), v).bfloat16()
+        with pytest.raises(AssertionError, match="disagrees"):
+            chip_smoke.compare("off", (want.float() + 0.05).bfloat16(), want,
+                               torch.bfloat16, path)
+
+
+def test_bounds_of_the_grouped_matmul():
+    """Decode: 3.226 GB of weights at 3.35 TB/s, 0.963 ms, set by bytes;
+    a prefill chunk: 1.031 TFLOP at 989.4 TFLOP/s, 1.042 ms, set by
+    operations (its 3.42 GB would take 1.02 ms)."""
+    kind = "NVIDIA H100 80GB HBM3"
+    nbytes, flops, ms, by = chip_smoke.gmm_bound(kind, *chip_smoke.GMM_DECODE,
+                                                 2)
+    assert nbytes == 3_226_206_208 and by == "bytes"
+    assert nbytes / 1e9 == pytest.approx(3.226, abs=5e-4)
+    assert ms == pytest.approx(0.963, abs=5e-4)
+    nbytes, flops, ms, by = chip_smoke.gmm_bound(kind,
+                                                 *chip_smoke.GMM_PREFILL, 2)
+    assert flops == 1_030_792_151_040 and by == "operations"
+    assert flops / 1e12 == pytest.approx(1.031, abs=5e-4)
+    assert ms == pytest.approx(1.042, abs=5e-4)
+    assert nbytes / 3.35e12 * 1e3 == pytest.approx(1.02, abs=5e-3)
+    assert chip_smoke.gmm_bound("NVIDIA A100-SXM4-80GB", 1, 8, 64, 64,
+                                2)[2] is None
 
 
 @pytest.mark.parametrize("S,T,window", [(5, 5, 0), (64, 64, 0), (40, 70, 0),
@@ -168,7 +303,8 @@ def test_bounds_of_the_attention_kernels():
 
 def test_kernels_line_names_every_kernel():
     assert set(chip_smoke.KERNELS) == {"crop_mirror_normalize",
-                                       "flash_attention", "flash_decode"}
+                                       "flash_attention", "flash_decode",
+                                       "grouped_matmul"}
     for module, source, replaces in chip_smoke.KERNELS.values():
         assert (ROOT / source).is_file()
         path, line = replaces.split(":")

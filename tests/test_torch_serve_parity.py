@@ -1,4 +1,5 @@
-"""The port's dense serving path against ``repro`` on the CPU.
+"""The port's serving path against ``repro`` on the CPU: the dense, MoE
+and VLM families.
 
 Both packages run ``get_arch("qwen3_4b").smoke_config()`` (f32, 2 layers,
 d=64, H=4, K=2, Dh=16, qk_norm) on the same weights: the reference's
@@ -7,7 +8,9 @@ random tree, converted leaf by leaf with ``convert.params_from_reference``
 ``forward`` and ``decode_step`` logits agree within 2e-4, including decode
 steps past the end of a linear cache (the reference's write clamps to the
 last slot) and a ring cache; ``ServingEngine`` gives identical greedy
-tokens."""
+tokens.  Grok-1's smoke config (4 experts, top-2) is held the same way,
+with the MoE metrics of the forward; InternVL2-2B's smoke config runs its
+forward with patch embeddings through ``make_prefill_step``."""
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +23,7 @@ from repro.models import build_model as jax_build_model
 from repro.models import layers as jax_layers
 from repro.serve import ServeConfig as JaxServeConfig
 from repro.serve import ServingEngine as JaxServingEngine
+from repro.train.step import make_prefill_step as jax_make_prefill_step
 from repro.train.step import make_serve_step as jax_make_serve_step
 from repro_torch import convert
 from repro_torch.configs.base import get_arch
@@ -209,12 +213,155 @@ def test_init_keeps_the_reference_fan_in_rule():
     assert all(torch.equal(t[k], again[k]) for k in t)
 
 
-@pytest.mark.parametrize("arch,match", [("kimi_k2_1t_a32b", "D3"),
-                                        ("internvl2_2b", "D3"),
+@pytest.mark.parametrize("arch,match", [("whisper_tiny", "A7"),
+                                        ("hymba_1_5b", "A7"),
                                         ("xlstm_350m", "A7")])
 def test_other_families_are_queued(arch, match):
     with pytest.raises(NotImplementedError, match=match):
         build_model(get_arch(arch).smoke_config(), device="cpu")
+
+
+@pytest.mark.parametrize("arch,moe,vlm", [("grok_1_314b", True, False),
+                                          ("kimi_k2_1t_a32b", True, False),
+                                          ("internvl2_2b", False, True)])
+def test_moe_and_vlm_families_build(arch, moe, vlm):
+    """Full configs build (nothing is allocated until ``init``); Kimi-K2's
+    head_dim 112 is refused by the attention kernels on the card only."""
+    for cfg in (get_arch(arch), get_arch(arch).smoke_config()):
+        model = build_model(cfg, device="cpu")
+        assert (model.is_moe, model.is_vlm) == (moe, vlm)
+        blocks = model.param_specs()["blocks"]
+        assert ("moe" in blocks) == moe and ("mlp" in blocks) != moe
+        assert ("mm_proj" in model.param_specs()) == vlm
+
+
+# ---- the MoE and VLM families ------------------------------------------
+
+FAMILY_ARCHS = ("grok_1_314b", "internvl2_2b")
+
+
+@pytest.fixture(scope="module")
+def family_weights():
+    """The reference's random smoke parameters of each family's model, as
+    numpy trees."""
+    return {arch: jax.tree.map(np.asarray, jax_build_model(
+        jax_get_arch(arch).smoke_config()).init(jax.random.PRNGKey(0)))
+        for arch in FAMILY_ARCHS}
+
+
+def _family_models(arch):
+    return (jax_build_model(jax_get_arch(arch).smoke_config()),
+            build_model(get_arch(arch).smoke_config(), device="cpu"))
+
+
+def _flat_specs(spec):
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, prefix + [k])
+            else:
+                out["/".join(prefix + [k])] = (v.shape, v.axes, v.init,
+                                               v.scale)
+
+    walk(spec, [])
+    return out
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_param_specs_match_reference(arch):
+    jm, pm = _family_models(arch)
+    assert _flat_specs(pm.param_specs()) == _flat_specs(jm.param_specs())
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_weights_convert_with_every_leaf(family_weights, arch):
+    weights = family_weights[arch]
+    params = convert.params_from_reference(weights, device="cpu")
+    want = jax.tree_util.tree_flatten_with_path(weights)[0]
+    got = jax.tree_util.tree_flatten_with_path(
+        convert.params_to_numpy(params))[0]
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (_, a), (_, b) in zip(want, got):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_moe_forward_logits_and_aux_match(family_weights):
+    weights = family_weights["grok_1_314b"]
+    jm, pm = _family_models("grok_1_314b")
+    tokens = np.random.default_rng(5).integers(0, 512, (2, 24)).astype(
+        np.int32)
+    want, want_aux = jm.forward(weights, jnp.asarray(tokens))
+    got, aux = pm.forward(convert.params_from_reference(weights,
+                                                        device="cpu"),
+                          torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert set(aux) == set(want_aux) == {"moe_aux_loss", "moe_z_loss",
+                                         "moe_dropped_frac"}
+    for k, v in aux.items():
+        np.testing.assert_allclose(float(v), float(want_aux[k]), **TOL,
+                                   err_msg=k)
+
+
+def test_moe_decode_steps_match(family_weights):
+    weights = family_weights["grok_1_314b"]
+    jm, pm = _family_models("grok_1_314b")
+    tokens = np.random.default_rng(6).integers(0, 512, (3, 20)).astype(
+        np.int32)
+    step = jax.jit(jax_make_serve_step(jm))
+    jcache = jm.init_cache(3, 32)
+    params = convert.params_from_reference(weights, device="cpu")
+    pstep = make_serve_step(pm)
+    pcache = pm.init_cache(3, 32)
+    for s in range(20):
+        want, jcache = step(weights, jcache, jnp.asarray(tokens[:, s:s + 1]))
+        got, pcache = pstep(params, pcache,
+                            torch.from_numpy(tokens[:, s:s + 1]))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"step {s}")
+
+
+def test_moe_engine_greedy_tokens_identical(family_weights):
+    weights = family_weights["grok_1_314b"]
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 512, int(n)).astype(np.int32)
+               for n in rng.integers(4, 10, 10)]
+    jm, pm = _family_models("grok_1_314b")
+    jeng = JaxServingEngine(jm, weights, JaxServeConfig(
+        batch_slots=4, max_seq=32, max_new_tokens=6))
+    peng = ServingEngine(pm, convert.params_from_reference(weights,
+                                                           device="cpu"),
+                         ServeConfig(batch_slots=4, max_seq=32,
+                                     max_new_tokens=6))
+    want = jeng.run(prompts)
+    got = peng.run(prompts)
+    assert peng.steps == jeng.steps
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
+    assert all(r.done and len(r.out_tokens) == 6 for r in got)
+
+
+def test_vlm_forward_with_patches_matches(family_weights):
+    """The projected patch embeddings replace the first n_patches
+    positions, through ``make_prefill_step``'s batch as the extras."""
+    weights = family_weights["internvl2_2b"]
+    jm, pm = _family_models("internvl2_2b")
+    rng = np.random.default_rng(8)
+    tokens = rng.integers(0, 512, (2, 24)).astype(np.int32)
+    patches = (0.02 * rng.standard_normal(
+        (2, pm.cfg.n_patches, pm.cfg.d_model))).astype(np.float32)
+    want = jax_make_prefill_step(jm)(weights, {
+        "tokens": jnp.asarray(tokens), "patch_embeds": jnp.asarray(patches)})
+    got = make_prefill_step(pm)(
+        convert.params_from_reference(weights, device="cpu"),
+        {"tokens": torch.from_numpy(tokens),
+         "patch_embeds": torch.from_numpy(patches)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    plain = make_prefill_step(pm)(
+        convert.params_from_reference(weights, device="cpu"),
+        {"tokens": torch.from_numpy(tokens),
+         "patch_embeds": torch.zeros_like(torch.from_numpy(patches))})
+    assert not torch.allclose(got, plain)
 
 
 def test_launcher_serves_on_cpu(capsys):
