@@ -1,14 +1,14 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-H100: builds the port's four CUDA kernels, holds each against its plain
-PyTorch version, drives the image lane, the dense Qwen3-4B serving path and
-the Grok-1 MoE serving path end to end, and times the kernels.
+H100: builds the port's CUDA kernels, holds each against its plain PyTorch
+version, drives the image lane, the dense Qwen3-4B serving path and the
+Grok-1 and Kimi-K2 MoE serving paths end to end, and times the kernels.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the four kernels from ``src/repro_torch/kernels/csrc/*.cu``,
-     one ``nvcc`` each, all started together;
+  2. build the kernels from ``src/repro_torch/kernels/csrc/*.cu``, one
+     ``nvcc`` per source, all started together;
   3. crop kernel == plain version on the card: edge values, clamped
      offsets, mirror, ragged sizes, a full-frame crop and the main-path
      shape (max|diff| == 0 in f32, <= 1 ulp in bf16);
@@ -19,20 +19,24 @@ Phases, in order; any failure raises and exits non-zero:
      launches), the host's time per call, the plain version's time and the
      bound;
   6. flash attention and flash decode == their plain versions on the card
-     (the reference's kernel sweeps and the serving path's shapes; 2e-5 in
-     f32, 2e-2 in bf16);
+     (the reference's kernel sweeps with head dim 112 added, 2e-5 in f32,
+     2e-2 in bf16; every serving path's shapes, Kimi-K2's at head dim 112
+     included, 2e-5 in f32, and in bf16 2**-6 rtol plus 2**-5 of each
+     output row's RMS);
   7. the serving path at full width: Qwen3-4B (36 layers, bf16, seeded
      random weights), prompts fetched over the simulated WAN by
      ``build_stack``, a 4 x 2048 prefill and continuous-batching decode of
      16 prompts, with the kernels' launches counted;
   8. the same path in f32 at 2 layers on the card and on the CPU (the
      kernels' plain versions): prefill and decode logits within 1e-3;
-  9. the attention kernels' times against their bounds, plain versions and
+  9. the attention kernels' times at every bf16 path shape (Qwen3-4B's,
+     Grok-1's and Kimi-K2's) against their bounds, plain versions and
      ``scaled_dot_product_attention``;
  10. grouped matmul == its plain version on the card: the reference's
      sweep, ragged and unaligned edges and strided views (f32 1e-4; bf16
-     5e-2 rtol / 5e-1 atol), and every shape of the MoE path (bf16 within
-     two ulps, 2**-6 rtol / 1e-3 atol; f32 1e-4);
+     5e-2 rtol / 5e-1 atol), and every shape of the Grok-1 and Kimi-K2
+     MoE paths, and two prefill chunks off them (bf16 within two ulps,
+     2**-6 rtol / 1e-3 atol; f32 1e-4);
  11. the MoE serving path at full width: Grok-1 (4 of its 64 layers, bf16,
      seeded random weights), prompts fetched over the simulated WAN, a
      2 x 2048 prefill and continuous-batching decode of 16 prompts, with
@@ -40,9 +44,15 @@ Phases, in order; any failure raises and exits non-zero:
      first);
  12. the same path in f32 at 2 layers and d_ff 2048 on the card and on the
      CPU: prefill and decode logits within 1e-3;
- 13. the grouped matmul's times at the MoE path's decode and prefill
-     shapes against its bound, plain version and ``torch.bmm``;
- 14. one JSON line of kernels, then the result line.
+ 13. Kimi-K2 serving at full width (1 of its 61 layers, head dim 112, 384
+     experts, bf16, seeded random weights; Grok-1's tensors freed first):
+     a 2 x 2048 prefill and continuous-batching decode of 8 prompts, with
+     the kernels' launches counted, then the same path in f32 at d_ff 256
+     on the card and on the CPU (logits within 1e-3);
+ 14. the grouped matmul's times at the Grok-1 and Kimi-K2 decode and
+     prefill shapes, and at the two chunks off the path, against its
+     bound, plain version and ``torch.bmm``;
+ 15. one JSON line of kernels, then the result line.
 
 Needs a CUDA card; without one it exits non-zero and prints no result.
 """
@@ -68,6 +78,7 @@ from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.core import KVStore, LoaderConfig, build_stack  # noqa: E402
 from repro_torch.data.datasets import (SyntheticPixelDataset,  # noqa: E402
                                        SyntheticTokenDataset, ingest)
+from repro_torch.kernels import build as _build  # noqa: E402
 from repro_torch.kernels import (crop_norm, decode_attention,  # noqa: E402
                                  flash_attention, grouped_matmul, ops, ref)
 from repro_torch.models import build_model  # noqa: E402
@@ -91,16 +102,18 @@ PEAKS = {"NVIDIA H100 80GB HBM3": {"bytes_per_s": 3.35e12,
                                    "bf16_flops": 989.4e12}}
 SOURCE = "src/repro_torch/kernels/csrc/crop_norm.cu"
 REPLACES = "src/repro/kernels/crop_norm.py:38"
-KERNELS = {  # name -> (module, source, the TPU kernel it replaces)
+# name -> (module, source of the kernel the main path runs (bf16 where a
+# kernel has an f32 and a bf16 variant), the TPU kernel it replaces)
+KERNELS = {
     "crop_mirror_normalize": (crop_norm, SOURCE, REPLACES),
     "flash_attention": (flash_attention,
-                        "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                         "src/repro/kernels/flash_attention.py:79"),
     "flash_decode": (decode_attention,
                      "src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/decode_attention.py:60"),
     "grouped_matmul": (grouped_matmul,
-                       "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                       "src/repro_torch/kernels/csrc/grouped_matmul_tc.cu",
                        "src/repro/kernels/moe_gmm.py:36"),
 }
 
@@ -114,21 +127,56 @@ N_PREFILL = 3
 # The f32 check against the CPU: 2 layers, a 1 x 256 prefill, 8 steps.
 CHECK_LAYERS, CHECK_PREFILL, CHECK_STEPS, CHECK_MAX_SEQ = 2, 256, 8, 256
 CHECK_TOL = 1e-3
-# Kernel sweeps: the reference's (tests/test_kernels.py:17-62) and the
-# serving path's own shapes.  Attention (B,H,K,S,D); decode (B,K,G,T,D).
+# Kimi-K2's serving path (phase 13): 1 of 61 layers at full width, 8
+# prompts of 64 tokens, a 2 x 2048 prefill, 8 slots over a 1024-token
+# cache, 16 new tokens each; its f32 check cuts d_ff to 256.
+KIMI_ARCH, KIMI_LAYERS = "kimi_k2_1t_a32b", 1
+KIMI_SERVE = dict(n_prompts=8, prompt_len=64, prefill_b=2, prefill_s=2048,
+                  slots=8, max_seq=1024, new_tokens=16, n_prefill=2)
+KIMI_CHECK_D_FF = 256
+# Kernel sweeps: the reference's (tests/test_kernels.py:17-62) with head
+# dim 112 added, and the serving paths' own shapes: Qwen3-4B's, Grok-1's
+# (48 query heads over 8 kv heads) and Kimi-K2's (64 over 8 at head dim
+# 112).  Attention (B,H,K,S,D); decode (B,K,G,T,D).
 FLASH_CASES = [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 2, 96, 32),
-               (1, 2, 1, 128, 128), (2, 4, 2, 100, 16)]
+               (1, 2, 1, 128, 128), (2, 4, 2, 100, 16), (1, 8, 2, 200, 112)]
 FLASH_WINDOWS = (0, 16, 100)
 FLASH_PATH_CASES = [((PREFILL_B, 32, 8, PREFILL_S, 128), torch.bfloat16),
-                    ((1, 32, 8, CHECK_PREFILL, 128), torch.float32)]
+                    ((1, 32, 8, CHECK_PREFILL, 128), torch.float32),
+                    ((2, 48, 8, 2048, 128), torch.bfloat16),
+                    ((2, 64, 8, 2048, 112), torch.bfloat16),
+                    ((1, 64, 8, CHECK_PREFILL, 112), torch.float32)]
 DECODE_CASES = [(2, 2, 2, 256, 64), (1, 4, 1, 100, 32), (3, 1, 8, 512, 128),
-                (2, 2, 2, 40, 16)]
+                (2, 2, 2, 40, 16), (2, 8, 8, 300, 112)]
 DECODE_PATH_CASES = [((SLOTS, 8, 4, MAX_SEQ, 128), torch.bfloat16),
-                     ((SLOTS, 8, 4, CHECK_MAX_SEQ, 128), torch.float32)]
+                     ((SLOTS, 8, 4, CHECK_MAX_SEQ, 128), torch.float32),
+                     ((8, 8, 6, 1024, 128), torch.bfloat16),
+                     ((8, 8, 8, 1024, 112), torch.bfloat16),
+                     ((8, 8, 8, CHECK_MAX_SEQ, 112), torch.float32)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# Timed shapes: the prefill above, and decode at decode_32k's context.
+# bf16 at the path shapes, for both attention kernels: |diff| <= rtol *
+# |want| + share * (RMS of want's row over D), as (rtol, share).  TOL's
+# 2e-2 is the reference's limit for its sweeps, but at S = 2048 a late
+# row's outputs spread only about sqrt(e / i) for row i, some 0.03 to 0.05,
+# so 2e-2 would pass a kernel that left one mma's 8 keys out of a late
+# row (tests/test_torch_chip_smoke.py emulates both).  The tensor-core
+# kernel rounds each softmax weight to bf16, an error of at most 2**-8 of
+# each term with random signs, so its error follows the row's spread, not
+# each element's size: 2**-5 of the row's RMS is about 1.1e-3 to 1.6e-3
+# at a late row and about 0.03 at the first rows, which average few keys.
+FLASH_PATH_TOL = (2 ** -6, 2 ** -5)
+# Timed shapes (phase 9): every bf16 path shape, (name, shape).
+# Attention (B,H,K,S,D); decode (B,K,G,T,D), at decode_32k's context and
+# at each serving path's cache.
 TIME_PREFILL = (PREFILL_B, 32, 8, PREFILL_S, 128)
 TIME_DECODE = (16, 8, 4, 32768, 128)
+TIME_ATTENTION = [("flash_attention", TIME_PREFILL),
+                  ("flash_attention grok", (2, 48, 8, 2048, 128)),
+                  ("flash_attention kimi", (2, 64, 8, 2048, 112))]
+TIME_DECODES = [("flash_decode", TIME_DECODE),
+                ("flash_decode serving", (SLOTS, 8, 4, MAX_SEQ, 128)),
+                ("flash_decode grok", (8, 8, 6, 1024, 128)),
+                ("flash_decode kimi", (8, 8, 8, 1024, 112))]
 
 # The MoE serving path: Grok-1 at full width (d_model 6144, 48 query heads
 # over 8 KV heads, d_ff 32768, 8 experts, top-2, vocab 131072), 4 of its 64
@@ -153,17 +201,39 @@ GMM_DECODE = (8, 8, 6144, 32768)
 GMM_DECODE_DOWN = (8, 8, 32768, 6144)
 GMM_PREFILL = (8, 320, 6144, 32768)
 GMM_PREFILL_DOWN = (8, 320, 32768, 6144)
+# Kimi-K2's: 384 experts, d 7168, d_ff 2048, top-8; decode gives
+# C = ceil(8 * 1.25 / 384) = 1 per slot, a prefill chunk
+# ceil(512 * 8 * 1.25 / 384) = 14 per row, times 2 rows.
+KIMI_GMM_DECODE = (384, 8, 7168, 2048)
+KIMI_GMM_DECODE_DOWN = (384, 8, 2048, 7168)
+KIMI_GMM_PREFILL = (384, 28, 7168, 2048)
+KIMI_GMM_PREFILL_DOWN = (384, 28, 2048, 7168)
 GMM_PATH_CASES = [(GMM_DECODE, torch.bfloat16),
                   (GMM_DECODE_DOWN, torch.bfloat16),
                   (GMM_PREFILL, torch.bfloat16),
                   (GMM_PREFILL_DOWN, torch.bfloat16),
+                  (KIMI_GMM_DECODE, torch.bfloat16),
+                  (KIMI_GMM_DECODE_DOWN, torch.bfloat16),
+                  (KIMI_GMM_PREFILL, torch.bfloat16),
+                  (KIMI_GMM_PREFILL_DOWN, torch.bfloat16),
                   (GMM_DECODE, torch.float32), (GMM_PREFILL, torch.float32)]
 # Timed: gate/up and down projections at decode and in a prefill chunk,
 # with (back-to-back launches, repeats) sized to keep the phase in seconds.
 TIME_GMM = [("decode", GMM_DECODE, 5, 5),
             ("decode down", GMM_DECODE_DOWN, 5, 5),
-            ("prefill", GMM_PREFILL, 2, 3),
-            ("prefill down", GMM_PREFILL_DOWN, 2, 3)]
+            ("prefill", GMM_PREFILL, 5, 5),
+            ("prefill down", GMM_PREFILL_DOWN, 5, 5),
+            ("kimi decode", KIMI_GMM_DECODE, 3, 3),
+            ("kimi decode down", KIMI_GMM_DECODE_DOWN, 3, 3),
+            ("kimi prefill", KIMI_GMM_PREFILL, 3, 3),
+            ("kimi prefill down", KIMI_GMM_PREFILL_DOWN, 3, 3)]
+# Prefill chunks of batch sizes the paths do not run, where the bf16
+# kernel takes tiles of its own (grouped_matmul.plan): Grok-1 at one row
+# of 2048 tokens (C = 160, one wgmma CTA of 160 rows) and Kimi-K2 at four
+# rows (C = 4 x 14 = 56, the 64-row mma.sync tile).  Checked in bf16
+# within GMM_PATH_TOL (phase 10) and timed (phase 14), as TIME_GMM.
+GMM_OFF_PATH = [("grok prefill b1", (8, 160, 6144, 32768), 5, 5),
+                ("kimi prefill b4", (384, 56, 7168, 2048), 3, 3)]
 # (rtol, atol): the reference's tolerances for the sweep and the edges.
 # At the path's shapes (w at the model's scale, outputs of order 1) both
 # sides sum exact bf16 products in f32 and differ only in the order of the
@@ -387,15 +457,19 @@ def time_kernel(device, kind: str) -> dict:
 
 
 def build_kernels() -> dict:
-    """Phase 2: one ``nvcc`` per kernel source, all started together;
-    returns the seconds each build took."""
-    def one(name):
-        t0 = time.perf_counter()
-        KERNELS[name][0].build()
-        return name, time.perf_counter() - t0
+    """Phase 2: one ``nvcc`` per kernel source (a kernel with an f32 and a
+    bf16 variant has two), all started together; returns the seconds each
+    build took, by source."""
+    sources = [src for module, _, _ in KERNELS.values()
+               for src in module.SOURCES]
 
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        return dict(pool.map(one, KERNELS))
+    def one(src):
+        t0 = time.perf_counter()
+        _build.build(src)
+        return src.name, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        return dict(pool.map(one, sources))
 
 
 def reset_launches() -> None:
@@ -416,7 +490,8 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
             dtype, tol=None) -> float:
     """max|got - want|; raises unless |got - want| <= atol + rtol*|want|
     everywhere (the reference tests' allclose; ``tol`` is (rtol, atol),
-    by default both ``TOL[dtype]``)."""
+    by default both ``TOL[dtype]``; atol may be a tensor that broadcasts
+    against ``want``).  Prints the largest share of the limit used."""
     sync(got.device)
     if got.shape != want.shape or got.dtype != dtype \
             or not torch.isfinite(got).all():
@@ -425,20 +500,35 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     rtol, atol = tol or (TOL[dtype], TOL[dtype])
-    ok = bool((diff <= atol + rtol * want.float().abs()).all())
-    print(f"check {name}: max|diff| {err!r} (rtol {rtol}, atol {atol})")
+    limit = atol + rtol * want.float().abs()
+    ok = bool((diff <= limit).all())
+    share = float((diff / limit.clamp_min(1e-30)).max())
+    if isinstance(atol, torch.Tensor):
+        atol = f"{float(atol.min())!r} to {float(atol.max())!r}"
+    print(f"check {name}: max|diff| {err!r} (rtol {rtol}, atol {atol}), "
+          f"{share!r} of the limit")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version: max|diff| {err!r}")
     return err
 
 
+def path_tol(want: torch.Tensor, dtype):
+    """(rtol, atol) of an attention check at a path shape: bf16 within
+    ``FLASH_PATH_TOL`` of each row's RMS, f32 within ``TOL``."""
+    if dtype != torch.bfloat16:
+        return TOL[dtype], TOL[dtype]
+    rtol, share = FLASH_PATH_TOL
+    return rtol, share * want.float().pow(2).mean(-1, keepdim=True).sqrt()
+
+
 def check_attention(device) -> dict:
     """Phase 6: flash attention and flash decode against their plain
-    versions on the same inputs.  The sweeps use contiguous tensors; the
-    serving path's shapes use the model's layouts ((B,S,H,D) activations
-    and the (B,T,K,D) cache), which the kernels read through strides.
-    Returns the largest max|diff| of each kernel at the path's shapes."""
+    versions on the same inputs.  The sweeps use contiguous tensors and
+    ``TOL``; the serving path's shapes use the model's layouts ((B,S,H,D)
+    activations and the (B,T,K,D) cache), which the kernels read through
+    strides, and ``path_tol``.  Returns the largest max|diff| of each
+    kernel at the path's shapes."""
     gen = torch.Generator(device).manual_seed(6)
 
     def randn(shape, dtype):
@@ -468,9 +558,10 @@ def check_attention(device) -> dict:
     for (B, H, K, S, D), dtype in FLASH_PATH_CASES:
         q = randn((B, S, H, D), dtype).transpose(1, 2)
         k, v = (randn((B, S, K, D), dtype).transpose(1, 2) for _ in "kv")
+        want = ref.mha_reference(q, k, v)
         err = compare(f"flash path {dtype} {(B, H, K, S, D)}",
-                      ops.flash_attention(q, k, v),
-                      ref.mha_reference(q, k, v), dtype)
+                      ops.flash_attention(q, k, v), want, dtype,
+                      path_tol(want, dtype))
         if dtype == torch.bfloat16:
             path["flash_attention"] = max(path["flash_attention"], err)
     for (B, K, G, T, D), dtype in DECODE_PATH_CASES:
@@ -478,11 +569,11 @@ def check_attention(device) -> dict:
         k, v = (randn((B, T, K, D), dtype).transpose(1, 2) for _ in "kv")
         for n in (1, T // 3, T):
             lengths = torch.full((B,), n, dtype=torch.int32, device=device)
+            want = ref.decode_reference(q.reshape(B, K * G, D), k, v,
+                                        lengths).reshape(B, K, G, D)
             err = compare(f"decode path {dtype} {(B, K, G, T, D)} length {n}",
-                          ops.flash_decode(q, k, v, lengths),
-                          ref.decode_reference(q.reshape(B, K * G, D), k, v,
-                                               lengths).reshape(B, K, G, D),
-                          dtype)
+                          ops.flash_decode(q, k, v, lengths), want, dtype,
+                          path_tol(want, dtype))
             if dtype == torch.bfloat16:
                 path["flash_decode"] = max(path["flash_decode"], err)
     return path
@@ -688,39 +779,42 @@ def _bound(kind: str, nbytes: int, flops: int, elsize: int):
 def time_attention(device, kind: str) -> dict:
     """Phase 9: each attention kernel's device ms per launch, the host's ms
     per call, its plain version's ms and one PyTorch call's ms
-    (``scaled_dot_product_attention``, timed only) at the timed shapes."""
+    (``scaled_dot_product_attention``, timed only) at the timed shapes:
+    ``TIME_ATTENTION`` in bf16 (and Qwen3-4B's in f32 as well) and
+    ``TIME_DECODES`` in bf16."""
     gen = torch.Generator(device).manual_seed(9)
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, dtype=dtype, device=device)
 
     out = {}
-    B, H, K, S, D = TIME_PREFILL
-    for dtype in (torch.bfloat16, torch.float32):
-        q = randn((B, S, H, D), dtype).transpose(1, 2)
-        k, v = (randn((B, S, K, D), dtype).transpose(1, 2) for _ in "kv")
+    for label, (B, H, K, S, D) in TIME_ATTENTION:
+        dtypes = (torch.bfloat16, torch.float32) \
+            if (B, H, K, S, D) == TIME_PREFILL else (torch.bfloat16,)
+        for dtype in dtypes:
+            q = randn((B, S, H, D), dtype).transpose(1, 2)
+            k, v = (randn((B, S, K, D), dtype).transpose(1, 2) for _ in "kv")
 
-        def kernel(q=q, k=k, v=v):
-            return ops.flash_attention(q, k, v)
+            def kernel(q=q, k=k, v=v):
+                return ops.flash_attention(q, k, v)
 
-        nbytes, flops, bound_ms, bound_by = attention_bound(
-            kind, B, H, K, S, S, D, q.element_size())
-        out[f"flash_attention {dtype}"] = {
-            "ms": median_event_ms(kernel, n=5, repeats=10),
-            "host_ms_per_call": median_host_ms(kernel, n=5, repeats=10),
-            "plain_ms": median_event_ms(
-                lambda: ref.mha_reference(q, k, v), n=2, repeats=3),
-            "library_ms": median_event_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True),
-                n=5, repeats=10),
-            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
-            "bound_by": bound_by}
-        del q, k, v
-    B, K, G, T, D = TIME_DECODE
+            nbytes, flops, bound_ms, bound_by = attention_bound(
+                kind, B, H, K, S, S, D, q.element_size())
+            out[f"{label} {dtype}"] = {
+                "shape": [B, H, K, S, D],
+                "ms": median_event_ms(kernel, n=5, repeats=10),
+                "host_ms_per_call": median_host_ms(kernel, n=5, repeats=10),
+                "plain_ms": median_event_ms(
+                    lambda: ref.mha_reference(q, k, v), n=2, repeats=3),
+                "library_ms": median_event_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True),
+                    n=5, repeats=10),
+                "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+            del q, k, v
     dtype = torch.bfloat16
-    for name, (b, t) in (("flash_decode", (B, T)),
-                         ("flash_decode serving", (SLOTS, MAX_SEQ))):
+    for name, (b, K, G, t, D) in TIME_DECODES:
         q = randn((b, K, G, D), dtype)
         k, v = (randn((b, t, K, D), dtype).transpose(1, 2) for _ in "kv")
         lengths = torch.full((b,), t, dtype=torch.int32, device=device)
@@ -749,7 +843,7 @@ def time_attention(device, kind: str) -> dict:
     for name, t in out.items():
         frac = (f"{t['bound_ms'] / t['ms']:.3f} of the bound"
                 if t["bound_ms"] else "bound unknown for this card")
-        print(f"time {name}: kernel {t['ms']!r} ms/launch, host "
+        print(f"time {name} {t['shape']}: kernel {t['ms']!r} ms/launch, host "
               f"{t['host_ms_per_call']!r} ms/call, plain {t['plain_ms']!r} "
               f"ms, sdpa {t['library_ms']!r} ms, bound {t['bound_ms']!r} ms "
               f"({t['bound_by']}; {t['bytes'] / 1e6:.1f} MB, "
@@ -763,8 +857,8 @@ def check_gmm(device) -> dict:
     reference's test does, and meet its tolerances (``GMM_TOL``); the
     path's shapes draw w at the model's scale, N(0,1)/sqrt(d), so that the
     sums are of order 1 as in the model, and meet ``GMM_PATH_TOL``.
-    Returns the max|diff| at each of the path's shapes, keyed by (shape,
-    dtype)."""
+    Returns the max|diff| at each of the path's shapes and at
+    ``GMM_OFF_PATH``'s, keyed by (shape, dtype)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device).manual_seed(10)
 
@@ -787,7 +881,8 @@ def check_gmm(device) -> dict:
         w = randn((2, 3, 64, 304), dtype)[1, :, :, :300]
         one("strided (3, 40, 64, 300)", x, w, dtype)
     path = {}
-    for (E, C, d, f), dtype in GMM_PATH_CASES:
+    for (E, C, d, f), dtype in GMM_PATH_CASES + [
+            (shape, torch.bfloat16) for _, shape, _, _ in GMM_OFF_PATH]:
         x = randn((E, C, d), dtype)
         w = randn((E, d, f), dtype, d ** -0.5)
         path[(E, C, d, f), dtype] = one(f"path {(E, C, d, f)}", x, w, dtype,
@@ -805,13 +900,13 @@ def gmm_bound(kind: str, E: int, C: int, d: int, f: int, elsize: int):
 
 
 def time_gmm(device, kind: str) -> dict:
-    """Phase 13: the grouped matmul's device ms per launch, the host's ms
+    """Phase 14: the grouped matmul's device ms per launch, the host's ms
     per call, its plain version's ms and ``torch.bmm``'s ms (timed only)
-    at the MoE path's shapes (``TIME_GMM``), in bf16, with w at the
-    model's scale."""
+    at the MoE path's shapes (``TIME_GMM``) and off it (``GMM_OFF_PATH``),
+    in bf16, with w at the model's scale."""
     gen = torch.Generator(device).manual_seed(13)
     out = {}
-    for name, (E, C, d, f), n, repeats in TIME_GMM:
+    for name, (E, C, d, f), n, repeats in TIME_GMM + GMM_OFF_PATH:
         x = torch.randn((E, C, d), generator=gen, dtype=torch.bfloat16,
                         device=device)
         w = torch.randn((E, d, f), generator=gen, dtype=torch.bfloat16,
@@ -897,7 +992,15 @@ def main() -> int:
         n_layers=CHECK_LAYERS, d_ff=MOE_CHECK_D_FF, dtype="float32"),
         moe_prompts)
     free_card()
-    gmm_time = time_gmm(device, kind)                         # phase 13
+    kimi_cfg = get_arch(KIMI_ARCH).scaled(n_layers=KIMI_LAYERS)
+    kimi, kimi_prompts = drive_serving(device, kimi_cfg,      # phase 13
+                                       **KIMI_SERVE)
+    check_serving_launches(kimi, KIMI_LAYERS, on_card=True)
+    free_card()
+    check_f32_path(device, kimi_cfg.scaled(
+        d_ff=KIMI_CHECK_D_FF, dtype="float32"), kimi_prompts)
+    free_card()
+    gmm_time = time_gmm(device, kind)                         # phase 14
     f32 = timing["f32"]
     rows = {"crop_mirror_normalize": {
         "launches": run["launches"],
@@ -918,7 +1021,7 @@ def main() -> int:
         "max_abs_err": gmm_err[GMM_DECODE, torch.bfloat16], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
-    print(json.dumps({"kernels": [                            # phase 14
+    print(json.dumps({"kernels": [                            # phase 15
         {"name": name, "route": "cuda", "source": KERNELS[name][1],
          "replaces": KERNELS[name][2], **row} for name, row in rows.items()]}))
     print(json.dumps({"ok": True, "device": {

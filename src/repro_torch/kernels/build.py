@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface.  It is
-compiled for ``sm_90a`` with ``nvcc`` at first use (never at import) into
-``build/repro_torch/``, keyed by a hash of the source and the flags, and
-loaded with ``ctypes``.  There is no fast math: the kernels keep IEEE
-rounding.  Every C entry point returns ``cudaGetLastError()`` after its
+Each kernel source is one ``csrc/*.cu`` file with a plain C interface
+(the bf16 tensor-core sources share ``csrc/mma_sm90.cuh``).  It is compiled
+for ``sm_90a`` with ``nvcc`` at first use (never at import) into
+``build/repro_torch/``, keyed by a hash of the source, the headers and the
+flags, and loaded with ``ctypes``.  There is no fast math: the kernels keep
+IEEE rounding.  Every C entry point returns ``cudaGetLastError()`` after its
 launch, and :func:`check` turns a non-zero code into an exception.
 """
 
@@ -31,7 +32,8 @@ _libs: Dict[Path, ctypes.CDLL] = {}
 def build(source: Path) -> Path:
     """Compile ``source`` unless this source and these flags were built
     already; return the shared library's path."""
-    key = hashlib.sha256(source.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(source.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{source.stem}-{key}.so"
     if lib.exists():

@@ -24,6 +24,7 @@ import torch
 from . import build as _build
 
 SOURCE = _build.CSRC / "crop_norm.cu"
+SOURCES = (SOURCE,)
 MAX_BATCH = 65535               # the kernel puts the batch on grid.y
 
 # Launches of the CUDA kernel in this process; plain-version calls do not
@@ -67,11 +68,6 @@ def check_args(img, oy, ox, mirror, mean, std, out_h: int, out_w: int,
                          f"B={B} C={C}")
 
 
-def build():
-    """Compile ``csrc/crop_norm.cu`` if needed; return the library's path."""
-    return _build.build(SOURCE)
-
-
 def _bind(lib) -> None:
     fn = lib.crop_mirror_normalize_u8
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
@@ -107,4 +103,4 @@ def crop_mirror_normalize(img: torch.Tensor, oy: torch.Tensor,
     return out
 
 
-__all__ = ["crop_mirror_normalize", "check_args", "build"]
+__all__ = ["crop_mirror_normalize", "check_args"]

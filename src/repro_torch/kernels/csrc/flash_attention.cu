@@ -1,22 +1,21 @@
-// Flash attention forward (prefill) for Hopper (sm_90a): GQA, causal and/or
-// sliding window, f32 or bf16 inputs.
+// Flash attention forward (prefill) for Hopper (sm_90a), f32, on the CUDA
+// cores: GQA, causal and/or sliding window.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
-// (flash_attention -> _flash_kernel): q (B,H,S,D), k/v (B,K,T,D) with head h
-// reading kv head h / G (G = H/K) -> o (B,H,S,D) in q's dtype, computed as
+// (flash_attention -> _flash_kernel) for f32: q (B,H,S,D), k/v (B,K,T,D) with
+// head h reading kv head h / G (G = H/K) -> o (B,H,S,D), computed as
 // softmax(q k^T * D^-0.5 + mask) v with an online softmax.  The mask keeps
 // key j for query i when j < T, i >= j (causal) and i - j < window
 // (window > 0); masked scores take the finite -1e30, as in the reference, so
 // a tile that masks a row whole is corrected by the row's next tile instead
 // of giving NaN.  Rows with no valid key at all (possible only without
-// causality or with S > T) are undefined, as in the reference.
+// causality or with S > T) are undefined, as in the reference.  bf16 inputs
+// go to the tensor-core kernel, flash_attention_tc.cu.
 //
-// Bound: operations.  At the prefill shape (B=4, H=32, K=8, S=T=2048,
-// D=128, causal) the work is 4*B*H*S*S*D/2 = 137.4 GFLOP against 167.8 MB
-// moved.  This first version runs on the CUDA cores in f32 (IEEE products
-// and sums, no TF32, so f32 inputs meet 2e-5 against the plain version),
-// which caps it at the 67 TFLOP/s f32 rate, not the tensor cores' 989;
-// wgmma and TMA are later work.
+// Bound: operations.  This kernel keeps IEEE f32 products and sums (no TF32,
+// so f32 inputs meet 2e-5 against the plain version), which holds it to the
+// 67 TFLOP/s f32 rate: at the prefill shape (B=4, H=32, K=8, S=T=2048,
+// D=128, causal) 137.5 GFLOP take at least 2.05 ms.
 //
 // Design: one CTA of 256 threads per (b*h, 64-row query block), heaviest
 // causal blocks first.  The Q block, each 32-key K and V tile and the tile's
@@ -38,7 +37,6 @@
 // the launch goes on the caller's stream, nothing is allocated, and the
 // return value is the CUDA error of the launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,21 +56,7 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // Rows r0 .. r0+rows-1 of a (n, D) matrix with row stride `stride` into
 // shared memory as f32 with row stride `ld`; rows at or past n become 0.
@@ -128,8 +112,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float scale) {
   constexpr int kLdQK = D + 4;          // pads rows: conflict-free float4
   constexpr int kLdP = kBK + 4;
-  constexpr int kVec = D >= 64 ? 4 : D / 16;  // output columns per load
   constexpr int kNC = D / 16;           // output columns per thread and row
+  // Output columns per shared load: 4 where they split evenly, else 2 or
+  // 1 (D=112 gives 7 columns, read one at a time).
+  constexpr int kVec = kNC % 4 == 0 ? 4 : kNC % 2 == 0 ? 2 : 1;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + kBQ * kLdQK;
@@ -302,23 +288,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
                int H, int K, int S, int T_len, int D, const long long* st,
                int causal, int window, float scale, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, H, K, S, T_len, st, causal, window,
-                           scale, stream);
+      return launch<float, 16>(q, k, v, o, B, H, K, S, T_len, st, causal,
+                               window, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, K, S, T_len, st, causal, window,
-                           scale, stream);
+      return launch<float, 32>(q, k, v, o, B, H, K, S, T_len, st, causal,
+                               window, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, K, S, T_len, st, causal, window,
-                           scale, stream);
+      return launch<float, 64>(q, k, v, o, B, H, K, S, T_len, st, causal,
+                               window, scale, stream);
+    case 112:
+      return launch<float, 112>(q, k, v, o, B, H, K, S, T_len, st, causal,
+                                window, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, K, S, T_len, st, causal,
-                            window, scale, stream);
+      return launch<float, 128>(q, k, v, o, B, H, K, S, T_len, st, causal,
+                                window, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -332,14 +320,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
                                    int K, int S, int T, int D,
                                    const long long* strides, int causal,
-                                   int window, float scale, int bf16,
-                                   void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, H, K, S, T, D, strides,
-                                     causal, window, scale, s);
-  return dispatch_d<float>(q, k, v, o, B, H, K, S, T, D, strides, causal,
-                           window, scale, s);
+                                   int window, float scale, void* stream) {
+  return dispatch_d(q, k, v, o, B, H, K, S, T, D, strides, causal, window,
+                    scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -18,12 +18,13 @@
 // of 128 threads per (chunk, b*K + kv head), so the card fills even when
 // B*K alone is below its 132 SMs.  Chunks that start at or past lengths[b]
 // return at once and load nothing.  Inside a chunk the CTA streams 128-key
-// tiles: a group of D/8 threads owns one key at a time and loads 8 elements
-// of it (16 bytes in bf16), so a group reads a whole K row with coalesced
-// 16-byte loads; the group's partial dot products with the G query heads,
-// which stay in registers, are summed with warp shuffles.  One warp per
-// head then updates that head's running max m and sum l (f32) in shared
-// memory, and every group accumulates p*v for its keys into f32 registers.
+// tiles: a group of D/8 threads (padded to a power of two: 16 at D=112)
+// owns one key at a time and loads 8 elements of it (16 bytes in bf16),
+// so a group reads a whole K row with coalesced 16-byte loads; the group's
+// partial dot products with the G query heads, which stay in registers, are
+// summed with warp shuffles.  One warp per head then updates that head's
+// running max m and sum l (f32) in shared memory, and every group
+// accumulates p*v for its keys into f32 registers.
 // The groups' accumulators are summed in a fixed order (deterministic), and
 // the chunk writes its (m, l, acc) to f32 scratch.  Pass 2 combines the
 // chunks of each (b, kv head): o = sum_c e^(m_c - M) acc_c / sum_c e^(m_c - M) l_c.
@@ -83,9 +84,16 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       long long skb, long long skh, long long skt,
                       long long svb, long long svh, long long svt,
                       float scale) {
-  constexpr int kLanes = D / 8;                 // threads per key
+  // A key's D/8 16-byte chunks go to kLanes threads, padded to a power of
+  // two so that a group divides the warp and the xor shuffles stay inside
+  // it: at D=112, 14 chunks on 16 lanes, the last two idle (they load
+  // nothing, add 0 to the dot products and store no accumulator).
+  constexpr int kChunks = D / 8;
+  constexpr int kLanes = kChunks <= 1 ? 1 : kChunks <= 2 ? 2
+                       : kChunks <= 4 ? 4 : kChunks <= 8 ? 8 : 16;
   constexpr int kGroups = kThreads / kLanes;    // keys in flight per CTA
   constexpr int kPerGroup = kTile / kGroups;    // keys per group and tile
+  static_assert(kChunks <= kLanes && kLanes <= 16, "bad head dim");
   __shared__ float s_p[GMAX][kTile];
   __shared__ float s_m[GMAX], s_l[GMAX], s_corr[GMAX];
   __shared__ __align__(16) float s_red[kGroups][GMAX][D];
@@ -100,13 +108,14 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_end = min(t_begin + chunk, len);
   const int grp = threadIdx.x / kLanes;
   const int d0 = (threadIdx.x % kLanes) * 8;
+  const bool active = d0 < D;                   // false on padding lanes
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
   float qf[GMAX][8], acc[GMAX][8];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
-    if (g < G) {
+    if (g < G && active) {
       load8(q + b * sqb + kvh * sqk + g * sqg + d0, qf[g]);
     } else {
 #pragma unroll
@@ -130,7 +139,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = grp + kGroups * u;
       const int t = t0 + j;
       float kf[8];
-      if (t < t_end) {
+      if (t < t_end && active) {
         load8(kp + t * skt + d0, kf);
       } else {
 #pragma unroll
@@ -195,7 +204,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < kPerGroup; ++u) {
       const int j = grp + kGroups * u;
       const int t = t0 + j;
-      if (t >= t_end) break;
+      if (t >= t_end || !active) break;
       float vf[8];
       load8(vp + t * svt + d0, vf);
 #pragma unroll
@@ -209,11 +218,13 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // Sum the groups' accumulators in a fixed order; write the chunk's part.
+  if (active) {
 #pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    float4* dst = reinterpret_cast<float4*>(&s_red[grp][g][d0]);
-    dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-    dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+    for (int g = 0; g < GMAX; ++g) {
+      float4* dst = reinterpret_cast<float4*>(&s_red[grp][g][d0]);
+      dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+      dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+    }
   }
   __syncthreads();
   const long long base = (static_cast<long long>(bk) * gridDim.x + c) * G;
@@ -317,6 +328,9 @@ int dispatch_d(const void* q, const void* k, const void* v,
     case 64:
       return dispatch_g<T, 64>(q, k, v, lengths, o, pm, pl, pa, B, K, G,
                                T_len, chunk, n_chunks, st, scale, s);
+    case 112:
+      return dispatch_g<T, 112>(q, k, v, lengths, o, pm, pl, pa, B, K, G,
+                                T_len, chunk, n_chunks, st, scale, s);
     case 128:
       return dispatch_g<T, 128>(q, k, v, lengths, o, pm, pl, pa, B, K, G,
                                 T_len, chunk, n_chunks, st, scale, s);

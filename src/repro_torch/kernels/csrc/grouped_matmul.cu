@@ -1,21 +1,18 @@
-// Grouped (per-expert) matrix product for Hopper (sm_90a), f32 or bf16.
+// Grouped (per-expert) matrix product for Hopper (sm_90a), f32, on the
+// CUDA cores.
 //
 // Replaces the Pallas TPU kernel repro/kernels/moe_gmm.py (grouped_matmul ->
-// _gmm_kernel): out[e] = x[e] @ w[e] for x (E,C,d) and w (E,d,f), summed in
-// f32 and written in x's dtype (E,C,f).  The TPU kernel pads C, d and f to
-// whole blocks and carries an f32 VMEM accumulator across a sequential d
-// grid axis; here the d loop runs inside the CTA, the accumulators stay in
-// registers, and the ragged edges are masked in the loads and the stores, so
-// nothing is padded or copied.
+// _gmm_kernel) for f32: out[e] = x[e] @ w[e] for x (E,C,d) and w (E,d,f),
+// summed in f32 (E,C,f).  The TPU kernel pads C, d and f to whole blocks and
+// carries an f32 VMEM accumulator across a sequential d grid axis; here the d
+// loop runs inside the CTA, the accumulators stay in registers, and the
+// ragged edges are masked in the loads and the stores, so nothing is padded
+// or copied.  bf16 inputs go to the tensor-core kernel,
+// grouped_matmul_tc.cu.
 //
-// Bound, at the MoE serving path's shapes (Grok-1: d=6144, f=32768, E=8):
-// decode (8 rows per expert) moves 3.23 GB of weights for 25.8 GFLOP, so it
-// is bound by bytes, 0.963 ms at 3.35 TB/s; a prefill chunk (320 rows per
-// expert) does 1.03 TFLOP on 3.42 GB, bound narrowly by operations, 1.04 ms
-// on the bf16 tensor cores.  This first version computes on the CUDA cores
-// in f32 (IEEE products and sums, no TF32: bf16 products are exact in f32),
-// which caps the prefill at the 67 TFLOP/s f32 rate, 15.4 ms at best;
-// mma.sync or wgmma on bf16 is later work.
+// Bound: this kernel computes with IEEE f32 products and sums (no TF32, which
+// misses the f32 tolerance), so it is held to the 67 TFLOP/s f32 rate of the
+// CUDA cores; at the f32 check's shapes it is bound by operations.
 //
 // Design: one CTA per (tile of rows, tile of 128 output columns, expert),
 // with the row tiles of one column tile next to each other in the grid, so
@@ -38,7 +35,6 @@
 // the launch goes on the caller's stream, nothing is allocated, and the
 // return value is the CUDA error of the launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,30 +44,13 @@ constexpr int kBN = 128;                // output columns per CTA
 constexpr int kBK = 16;                 // depth of one shared-memory stage
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // 16 bytes at p (16-byte aligned) as f32.
 __device__ __forceinline__ void load16(const float* p, float* f) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
 }
 
 // The 16-byte chunk of `row` at columns [col, col + V) as f32; columns at or
@@ -255,14 +234,6 @@ int dispatch_tile(const void* x, const void* w, void* o, int E, int C, int d,
   }
 }
 
-template <typename T>
-int dispatch(const void* x, const void* w, void* o, int E, int C, int d,
-             int f, const long long* st, int tile, int vec,
-             cudaStream_t stream) {
-  if (vec) return dispatch_tile<T, true>(x, w, o, E, C, d, f, st, tile, stream);
-  return dispatch_tile<T, false>(x, w, o, E, C, d, f, st, tile, stream);
-}
-
 }  // namespace
 
 // strides: 6 element strides, (expert, row) for x, w and o in turn; the last
@@ -271,11 +242,11 @@ int dispatch(const void* x, const void* w, void* o, int E, int C, int d,
 extern "C" int grouped_matmul_fwd(const void* x, const void* w, void* o,
                                   int E, int C, int d, int f,
                                   const long long* strides, int tile, int vec,
-                                  int bf16, void* stream) {
+                                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return dispatch<__nv_bfloat16>(x, w, o, E, C, d, f, strides, tile, vec, s);
-  return dispatch<float>(x, w, o, E, C, d, f, strides, tile, vec, s);
+  if (vec)
+    return dispatch_tile<float, true>(x, w, o, E, C, d, f, strides, tile, s);
+  return dispatch_tile<float, false>(x, w, o, E, C, d, f, strides, tile, s);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -1,0 +1,156 @@
+// Tensor-core and copy primitives for sm_90a, shared by the port's bf16
+// kernels (grouped_matmul_tc.cu, flash_attention_tc.cu): cp.async with zero
+// fill, ldmatrix (plain and transposed), mma.sync.m16n8k16 with bf16 inputs
+// and f32 accumulators, and the warpgroup's wgmma with its descriptors and
+// fences.
+//
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), for lane
+// l of a warp: A (16x16, row-major) a0 = row l/4, columns 2(l%4) and +1;
+// a1 = row + 8; a2 = columns + 8; a3 = both.  B (16x8, column-major) b0 =
+// rows 2(l%4) and +1 of column l/4; b1 = rows + 8.  C/D (16x8) c0, c1 = row
+// l/4, columns 2(l%4) and +1; c2, c3 = row + 8.  ldmatrix.x4 gives lane l
+// row l/4, elements 2(l%4) and +1 of the four 8x8 matrices whose rows lanes
+// 0-7, 8-15, 16-23 and 24-31 address; .trans gives the transpose.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+static __device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global src to shared dst; bytes past src_bytes read as 0.
+static __device__ __forceinline__ void cp_async16(void* dst,
+                                                  const void* src,
+                                                  int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+static __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+static __device__ __forceinline__ void ldmatrix_x4(uint32_t* r,
+                                                   const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+static __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                         const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a b for one m16n8k16 tile: a 16x16 bf16 (row), b 16x8 bf16 (col).
+static __device__ __forceinline__ void mma_bf16_16816(float* c,
+                                                      const uint32_t* a,
+                                                      const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Warpgroup matrix multiply (wgmma, sm_90a only).  A shared-memory matrix
+// descriptor in the 128-byte swizzled layout: start address and the byte
+// offsets between core matrices (8 rows of 16 bytes) along the leading and
+// the stride dimension.  The matrix's 1024-byte swizzle atoms must be
+// 1024-byte aligned.
+static __device__ __forceinline__ uint64_t smem_desc(const void* p,
+                                                    uint32_t lbo,
+                                                    uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFFu) >> 4)
+         | (static_cast<uint64_t>(lbo >> 4) << 16)
+         | (static_cast<uint64_t>(sbo >> 4) << 32)
+         | (1ull << 62);                 // layout type 1: 128-byte swizzle
+}
+
+static __device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+static __device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+static __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory writes of the generic proxy (st.shared, cp.async) made
+// visible to the async proxy that wgmma reads through.
+static __device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of r across a wgmma that
+// is still in flight.
+static __device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// d += a b for one m64n160k16 tile of the warpgroup: a 64x16 bf16, M-major
+// (transposed by wgmma), and b 16x160 bf16, K-major, both in shared memory
+// and given by descriptors.  d is 80 f32 per thread: warp v of the
+// warpgroup holds rows 16 v + l/4 and + 8, and in each of the 20 n8 blocks
+// the mma.m16n8 C layout (columns 2 (l % 4) and + 1).
+static __device__ __forceinline__ void wgmma_m64n160k16_ta(float* d,
+                                                           uint64_t desc_a,
+                                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79}, "
+      "%80, %81, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}

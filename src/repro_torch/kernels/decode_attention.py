@@ -29,6 +29,7 @@ from . import build as _build
 from .flash_attention import DTYPES, HEAD_DIMS, kernel_layout
 
 SOURCE = _build.CSRC / "flash_decode.cu"
+SOURCES = (SOURCE,)
 MAX_GROUP = 8                   # query heads per kv head the kernel holds
 TILE = 128                      # keys per tile inside a chunk
 SMS = 132                       # streaming multiprocessors of an H100
@@ -83,11 +84,6 @@ def split(n_rows: int, T: int):
     return chunk, -(-T // chunk)
 
 
-def build():
-    """Compile ``csrc/flash_decode.cu`` if needed; return its path."""
-    return _build.build(SOURCE)
-
-
 def _bind(lib) -> None:
     fn = lib.flash_decode_fwd
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
@@ -134,4 +130,4 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
-__all__ = ["flash_decode", "check_args", "split", "build"]
+__all__ = ["flash_decode", "check_args", "split"]

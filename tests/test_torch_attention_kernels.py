@@ -51,6 +51,7 @@ def _np(x):
     (1, 4, 4, 128, 64, 64, 64),      # MHA
     (2, 8, 2, 256, 64, 128, 128),    # GQA
     (1, 4, 2, 96, 32, 64, 64),       # padded (non-multiple) seq
+    (1, 8, 2, 96, 112, 64, 64),      # Kimi-K2's head dim, GQA, padded
 ])
 def test_flash_attention_matches_pallas(dtype, B, H, K, S, D, bq, bk):
     rng = np.random.default_rng(0)
@@ -92,6 +93,7 @@ def test_flash_attention_padded_kv_matches_oracle():
 @pytest.mark.parametrize("B,K,G,T,D,bk", [
     (2, 2, 2, 256, 64, 128),
     (1, 4, 1, 100, 32, 64),          # padded T
+    (2, 8, 8, 130, 112, 64),         # Kimi-K2's head dim and group of 8
 ])
 def test_flash_decode_matches_pallas(dtype, B, K, G, T, D, bk):
     rng = np.random.default_rng(3)
@@ -244,16 +246,91 @@ def test_flash_decode_inputs_are_checked(case):
         ops.flash_decode(*DECODE_BAD[case](*args))
 
 
-@pytest.mark.parametrize("name", ["flash_attention.cu", "flash_decode.cu"])
+@pytest.mark.parametrize("name", ["flash_attention.cu",
+                                  "flash_attention_tc.cu", "flash_decode.cu"])
 def test_cuda_sources(name):
     src = (build.CSRC / name).read_text()
     flags = " ".join(build.NVCC_FLAGS)
-    for text in (src, flags):
-        assert "use_fast_math" not in text
+    for text in (_code(src), flags):         # no fast math, no TF32
+        assert "use_fast_math" not in text and "tf32" not in text.lower()
+        assert "ftz=true" not in text
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-1e30f" in src                   # the reference's finite fill
     assert 'extern "C" int' in src and "cuda_error_string" in src
     assert "cudaGetLastError" in src
+    for d in flash_attention.HEAD_DIMS:      # every head dim has a kernel
+        assert f"case {d}:" in src, d
+
+
+def _code(src: str) -> str:
+    """A CUDA source without its // comments (which may name TF32 to say
+    why it is not used)."""
+    return "\n".join(line.split("//")[0] for line in src.splitlines())
+
+
+def test_bf16_attention_runs_on_the_tensor_cores():
+    """The bf16 kernel multiplies with mma.sync on bf16 operands (loaded
+    with ldmatrix, V transposed, from a cp.async ring) through the shared
+    header; the f32 kernel stays on the CUDA cores (no tensor-core
+    instruction, so no TF32)."""
+    tc = (build.CSRC / "flash_attention_tc.cu").read_text()
+    header = (build.CSRC / "mma_sm90.cuh").read_text()
+    assert '#include "mma_sm90.cuh"' in tc
+    for call in ("mma_bf16_16816(", "ldmatrix_x4(", "ldmatrix_x4_trans(",
+                 "cp_async16("):
+        assert call in tc, call
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in header
+    assert "cp.async.cg.shared.global" in header
+    assert "tf32" not in _code(header).lower()
+    f32 = _code((build.CSRC / "flash_attention.cu").read_text())
+    assert "mma" not in f32 and "bfloat16" not in f32
+
+
+@pytest.mark.parametrize("B,H,S,D", [
+    (4, 32, 2048, 128),              # Qwen3-4B's prefill
+    (2, 48, 2048, 128),              # Grok-1's
+    (2, 64, 2048, 112),              # Kimi-K2's
+    (1, 4, 24, 16),                  # a smoke config's
+])
+def test_flash_plan_picks_the_kernel_by_dtype(B, H, S, D):
+    bf = flash_attention.plan(B, H, S, D, torch.bfloat16)
+    assert bf.kernel == "tensor_core" and bf.block_q % (16 * bf.warps) == 0
+    assert bf.grid == (-(-S // bf.block_q), B * H) and bf.stages >= 2
+    f32 = flash_attention.plan(B, H, S, D, torch.float32)
+    assert f32.kernel == "cuda_core"
+    assert f32.grid[0] * f32.block_q >= S > (f32.grid[0] - 1) * f32.block_q
+    with pytest.raises(ValueError):
+        flash_attention.plan(B, H, S, 48, torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention.plan(B, H, S, D, torch.float16)
+
+
+def _constants(src: str) -> dict:
+    """The file-scope ``constexpr int name = value;`` of a CUDA source,
+    evaluated in order (a value may name an earlier constant)."""
+    out = {}
+    for line in _code(src).splitlines():
+        line = line.rstrip()
+        if line.startswith("constexpr int ") and line.endswith(";"):
+            name, value = line[len("constexpr int "):-1].split(" = ")
+            out[name] = eval(value, {}, dict(out))
+    return out
+
+
+def test_flash_plan_matches_the_sources():
+    """The plan's blocks, warps and grid are those the kernels launch."""
+    f32 = flash_attention.plan(2, 4, 200, 64, torch.float32)
+    bf = flash_attention.plan(2, 4, 200, 64, torch.bfloat16)
+    for p, name, bk in ((f32, "flash_attention.cu", "kBK"),
+                        (bf, "flash_attention_tc.cu", "kBKV")):
+        src = (build.CSRC / name).read_text()
+        c = _constants(src)
+        assert (c["kBQ"], c[bk], c["kThreads"] // 32) == \
+            (p.block_q, p.block_k, p.warps), name
+        assert "const dim3 grid((S + kBQ - 1) / kBQ, B * H);" in src
+        assert p.grid == (-(-200 // c["kBQ"]), 8)
+    assert "return static_cast<size_t>(kBQ + 4 * kBKV)" in \
+        (build.CSRC / "flash_attention_tc.cu").read_text() and bf.stages == 2
 
 
 def test_no_try_around_the_kernels():

@@ -206,12 +206,98 @@ def test_moe_path_config_is_grok_at_full_width():
     E, C, d, f = chip_smoke.GMM_PREFILL
     assert C == serve["prefill_b"] * -(-512 * 2 * 1.25 // 8)
     # Every shape the path gives the kernel (gate/up and down, at decode
-    # and in a prefill chunk) is checked in bf16 and timed.
+    # and in a prefill chunk) is checked in bf16 and timed, beside
+    # Kimi-K2's (test_kimi_path_config_at_full_width).
     shapes = {(E, rows, a, b) for rows in (serve["slots"], C)
               for a, b in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model))}
     assert {s for s, dtype in chip_smoke.GMM_PATH_CASES
-            if dtype == torch.bfloat16} == shapes
-    assert {s for _, s, _, _ in chip_smoke.TIME_GMM} == shapes
+            if dtype == torch.bfloat16} == shapes | _kimi_gmm_shapes()
+    assert {s for _, s, _, _ in chip_smoke.TIME_GMM} == \
+        shapes | _kimi_gmm_shapes()
+    # Its attention shapes (G = 6) are checked and timed in bf16 too.
+    prefill = (serve["prefill_b"], cfg.n_heads, cfg.n_kv_heads,
+               serve["prefill_s"], cfg.resolved_head_dim)
+    decode = (serve["slots"], cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+              serve["max_seq"], cfg.resolved_head_dim)
+    assert (prefill, torch.bfloat16) in chip_smoke.FLASH_PATH_CASES
+    assert (decode, torch.bfloat16) in chip_smoke.DECODE_PATH_CASES
+    assert prefill in dict(chip_smoke.TIME_ATTENTION).values()
+    assert decode in dict(chip_smoke.TIME_DECODES).values()
+
+
+def _kimi_gmm_shapes():
+    """Kimi-K2's four grouped-matmul shapes on its serving path, from its
+    config and the phase's sizes: C = ceil(S * top_k * 1.25 / E) per row
+    (1 at decode, 14 in a 512-token chunk) times the rows."""
+    cfg = chip_smoke.get_arch(chip_smoke.KIMI_ARCH)
+    serve = chip_smoke.KIMI_SERVE
+    E = cfg.n_experts
+    decode = serve["slots"] * -(-cfg.top_k * 1.25 // E)
+    chunk = serve["prefill_b"] * -(-512 * cfg.top_k * 1.25 // E)
+    return {(E, int(rows), a, b) for rows in (decode, chunk)
+            for a, b in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model))}
+
+
+def test_kimi_path_config_at_full_width():
+    """Kimi-K2 at its published widths, cut to 1 of 61 layers: 64 query
+    heads over 8 kv heads at head dim 112, 384 experts top-8 with d_ff
+    2048, vocab 163,840 (one embedding, which the unembedding reuses, as in
+    the reference): 18.2 B parameters, 36.4 GB in bf16.  The
+    attention kernels are checked and timed at its prefill and decode
+    shapes, the grouped matmul at its four."""
+    cfg = chip_smoke.get_arch(chip_smoke.KIMI_ARCH).scaled(
+        n_layers=chip_smoke.KIMI_LAYERS)
+    assert (cfg.family, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.n_experts, cfg.top_k,
+            cfg.vocab, cfg.n_layers, cfg.dtype) == (
+        "moe", 7168, 64, 8, 112, 2048, 384, 8, 163840, 1, "bfloat16")
+    n = sum(math.prod(shape) for shape in _leaf_shapes(
+        chip_smoke.build_model(cfg, device="cpu").param_specs()))
+    assert n == 18_204_218_368
+    serve = chip_smoke.KIMI_SERVE
+    assert ((serve["prefill_b"], 64, 8, serve["prefill_s"], 112),
+            torch.bfloat16) in chip_smoke.FLASH_PATH_CASES
+    assert ((serve["slots"], 8, 8, serve["max_seq"], 112),
+            torch.bfloat16) in chip_smoke.DECODE_PATH_CASES
+    assert (serve["prefill_b"], 64, 8, serve["prefill_s"], 112) in \
+        dict(chip_smoke.TIME_ATTENTION).values()
+    assert (serve["slots"], 8, 8, serve["max_seq"], 112) in \
+        dict(chip_smoke.TIME_DECODES).values()
+    assert _kimi_gmm_shapes() == {
+        chip_smoke.KIMI_GMM_DECODE, chip_smoke.KIMI_GMM_DECODE_DOWN,
+        chip_smoke.KIMI_GMM_PREFILL, chip_smoke.KIMI_GMM_PREFILL_DOWN}
+    # f32 phases stay on f32 shapes of their own; D=112 is in the sweeps.
+    assert {D for *_, D in chip_smoke.FLASH_CASES} >= {112}
+    assert {D for *_, D in chip_smoke.DECODE_CASES} >= {112}
+
+
+def _leaf_shapes(spec):
+    for v in spec.values():
+        if isinstance(v, dict):
+            yield from _leaf_shapes(v)
+        else:
+            yield v.shape
+
+
+def test_kimi_serving_path_rehearses_on_cpu():
+    """Phase 13 on the CPU at Kimi-K2's smoke config with its head dim 112:
+    a prefill of 2 x 1024 (two MoE chunks), one wave of continuous
+    batching, the prefill's MoE metrics, no kernel launched, and the f32
+    check (CPU against CPU) at zero with d_ff cut as on the card."""
+    cpu = torch.device("cpu")
+    cfg = chip_smoke.get_arch(chip_smoke.KIMI_ARCH).smoke_config().scaled(
+        head_dim=112, n_layers=chip_smoke.KIMI_LAYERS)
+    run, prompts = chip_smoke.drive_serving(
+        cpu, cfg, n_prompts=4, prompt_len=10, prefill_b=2, prefill_s=1024,
+        slots=4, max_seq=16, new_tokens=5, n_prefill=2)
+    assert run["is_moe"]
+    chip_smoke.check_serving_launches(run, cfg.n_layers, on_card=False)
+    assert run["engine_steps"] == 10 + 5 - 1 and run["tokens"] == 20
+    assert 0.0 <= run["prefill_aux"]["moe_dropped_frac"] < 1.0
+    assert chip_smoke.check_f32_path(
+        cpu, cfg.scaled(d_ff=chip_smoke.KIMI_CHECK_D_FF // 4), prompts,
+        prefill_len=24, n_steps=4, slots=4, max_seq=16) == {
+            "prefill_max_abs_diff": 0.0, "decode_max_abs_diff": 0.0}
 
 
 @pytest.fixture
@@ -222,13 +308,35 @@ def small_gmm(monkeypatch):
         ((4, 8, 64, 96), torch.bfloat16), ((4, 8, 96, 64), torch.bfloat16),
         ((4, 40, 64, 96), torch.bfloat16), ((4, 40, 96, 64), torch.bfloat16),
         ((4, 8, 64, 96), torch.float32), ((4, 40, 64, 96), torch.float32)])
+    monkeypatch.setattr(chip_smoke, "GMM_OFF_PATH", [
+        ("off", (4, 20, 64, 96), 1, 1)])
 
 
 def test_gmm_checks_rehearse_on_cpu(small_gmm):
     """Phase 10 on the CPU: the plain version against itself, through the
     same dispatch, the same views and the same tolerances."""
     assert chip_smoke.check_gmm(torch.device("cpu")) == {
-        (shape, dtype): 0.0 for shape, dtype in chip_smoke.GMM_PATH_CASES}
+        (shape, dtype): 0.0 for shape, dtype in chip_smoke.GMM_PATH_CASES
+        + [((4, 20, 64, 96), torch.bfloat16)]}
+
+
+def test_every_bf16_gmm_tile_is_checked_on_the_card():
+    """Phase 10's bf16 shapes reach every tile of the tensor-core kernel,
+    and the path's and off-path prefill chunks reach the 64-, 160- and
+    320-row ones (the sweep reaches some by chance)."""
+    def variant(shape):
+        return chip_smoke.grouped_matmul.plan(*shape, torch.bfloat16).variant
+
+    sweep = {variant(s) for s in chip_smoke.GMM_CASES
+             + chip_smoke.GMM_EDGE_CASES}
+    path = {variant(s) for s, dtype in chip_smoke.GMM_PATH_CASES
+            if dtype == torch.bfloat16}
+    off = {variant(s) for _, s, _, _ in chip_smoke.GMM_OFF_PATH}
+    assert sweep | path | off == set(
+        range(len(chip_smoke.grouped_matmul.TC_VARIANTS)))
+    assert path | off == set(range(len(
+        chip_smoke.grouped_matmul.TC_VARIANTS)))
+    assert not off & path                    # off the path: other tiles
 
 
 def test_compare_takes_the_gmm_tolerances():
@@ -252,6 +360,57 @@ def test_compare_takes_the_gmm_tolerances():
         with pytest.raises(AssertionError, match="disagrees"):
             chip_smoke.compare("off", (want.float() + 0.05).bfloat16(), want,
                                torch.bfloat16, path)
+
+
+def _tc_attention(q, k, v, *, skip=None):
+    """The bf16 tensor-core flash kernel's arithmetic, emulated on the CPU
+    (causal, K = 1): 64-key tiles, an f32 online softmax, each weight P
+    rounded to bf16 before P V, l summed from the rounded P.  ``skip``
+    (head, row, key, n) leaves keys key .. key + n - 1 (within one tile)
+    out of that row's P V but not out of its l."""
+    B, H, S, D = q.shape
+    s = torch.einsum("bhsd,btd->bhst", q.float(), k[:, 0].float())
+    s = s * (D ** -0.5) * math.log2(math.e)
+    causal = torch.ones(S, S, dtype=torch.bool).tril()
+    s = torch.where(causal, s, torch.tensor(-1e30))
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros(B, H, S, 1)
+    acc = torch.zeros(B, H, S, D)
+    for t in range(S // 64):
+        st = s[..., t * 64:(t + 1) * 64]
+        new = torch.maximum(m, st.amax(-1, keepdim=True))
+        corr, m = torch.exp2(m - new), new
+        p = torch.exp2(st - m).bfloat16().float()
+        l = l * corr + p.sum(-1, keepdim=True)
+        if skip is not None and t == skip[2] // 64:
+            head, row, key, n = skip
+            p[:, head, row, key % 64:key % 64 + n] = 0
+        acc = acc * corr + p @ v[:, 0, t * 64:(t + 1) * 64].float()
+    return (acc / l).bfloat16()
+
+
+def test_flash_path_tolerance_admits_bf16_weights_and_catches_a_lost_tile():
+    """The attention path limit (2**-6 rtol plus 2**-5 of the row's RMS)
+    passes the tensor-core kernel's rounding of P to bf16 at under half
+    of the limit, and fails a kernel that leaves one mma's 8 keys out of
+    one late row's P V, an error that the reference's 2e-2 passes."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               .bfloat16() for s in ((1, 4, 1024, 64), (1, 1, 1024, 64),
+                                     (1, 1, 1024, 64)))
+    want = chip_smoke.ref.mha_reference(q, k, v)
+    tol = chip_smoke.path_tol(want, torch.bfloat16)
+    rtol, atol = tol
+    got = _tc_attention(q, k, v)
+    diff = (got.float() - want.float()).abs()
+    assert float((diff / (atol + rtol * want.float().abs())).max()) < 0.5
+    chip_smoke.compare("emulated", got, want, torch.bfloat16, tol)
+    lost = _tc_attention(q, k, v, skip=(0, 1000, 192, 8))
+    chip_smoke.compare("lost, reference limit", lost, want, torch.bfloat16)
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.compare("lost", lost, want, torch.bfloat16, tol)
+    # f32 keeps TOL.
+    assert chip_smoke.path_tol(want.float(), torch.float32) == (2e-5, 2e-5)
 
 
 def test_bounds_of_the_grouped_matmul():

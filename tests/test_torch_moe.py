@@ -257,22 +257,149 @@ def test_grouped_matmul_refuses_cuda_tensor_without_card():
 
 
 @pytest.mark.parametrize("C,tile", [(1, 0), (8, 0), (9, 1), (32, 1),
-                                    (33, 2), (320, 2)])
+                                    (33, 2), (320, 2), (16, 1), (28, 1),
+                                    (64, 2), (1000, 2)])
 def test_row_tile_follows_the_rows(C, tile):
-    """Decode's 8 rows per expert take the 8-row tile, so a CTA computes no
-    padded rows there."""
+    """f32: decode's 8 rows per expert take the CUDA-core kernel's 8-row
+    tile, so a CTA computes no padded rows there.  bf16: the tensor-core
+    kernel takes the smallest ``TC_VARIANTS`` tile that holds C (the last
+    when none does): 32 rows on mma.sync for decode and Kimi-K2's 28-row
+    prefill chunk, 64 on mma.sync, then one wgmma CTA over 160 or 320 rows
+    (Grok-1's 320-row chunk is one tile, so w is read once)."""
     assert grouped_matmul.row_tile(C) == tile
     assert grouped_matmul.ROW_TILES[tile] >= min(C, 64)
+    f32 = grouped_matmul.plan(2, C, 64, 96, torch.float32)
+    assert (f32.kernel, f32.regime, f32.variant, f32.bm, f32.split) == \
+        ("cuda_core", "f32", tile, grouped_matmul.ROW_TILES[tile], 1)
+    bf = grouped_matmul.plan(2, C, 64, 96, torch.bfloat16)
+    rows = [v[0] for v in grouped_matmul.TC_VARIANTS]
+    assert bf.kernel == "tensor_core"
+    assert bf.variant == next((i for i, bm in enumerate(rows) if C <= bm),
+                              len(rows) - 1)
+    assert bf.regime == ("decode" if C <= 32 else "prefill")
+    assert bf.bm == rows[bf.variant] and bf.bm % 16 == 0
+    assert bf.bm >= C or bf.bm == max(rows)
+    assert bf.variant == 0 or rows[bf.variant - 1] < C
+    assert (bf.bm, bf.bn, bf.bk, bf.stages) == tuple(
+        grouped_matmul.TC_VARIANTS[bf.variant][i] for i in (0, 1, 2, 4))
+
+
+# (E, C, d, f) of every grouped matmul on the serving paths: Grok-1's and
+# Kimi-K2's gate/up and down projections at decode and in a prefill chunk.
+GMM_PATH_SHAPES = {
+    "grok decode": (8, 8, 6144, 32768),
+    "grok decode down": (8, 8, 32768, 6144),
+    "grok prefill": (8, 320, 6144, 32768),
+    "grok prefill down": (8, 320, 32768, 6144),
+    "kimi decode": (384, 8, 7168, 2048),
+    "kimi decode down": (384, 8, 2048, 7168),
+    "kimi prefill": (384, 28, 7168, 2048),
+    "kimi prefill down": (384, 28, 2048, 7168)}
+
+
+@pytest.mark.parametrize("name", sorted(GMM_PATH_SHAPES))
+def test_gmm_plan_at_the_path_shapes(name):
+    """bf16 takes the tensor cores at every path shape, in the regime its
+    rows call for, with enough CTAs to fill the card; f32 takes the CUDA
+    cores."""
+    E, C, d, f = GMM_PATH_SHAPES[name]
+    p = grouped_matmul.plan(E, C, d, f, torch.bfloat16)
+    assert p.kernel == "tensor_core"
+    assert p.regime == ("prefill" if C > 32 else "decode")
+    ctas = -(-C // p.bm) * -(-f // p.bn) * E * p.split
+    assert ctas >= grouped_matmul.SPLIT_TARGET or p.regime == "prefill"
+    assert grouped_matmul.plan(E, C, d, f, torch.float32).kernel == \
+        "cuda_core"
+    if name == "grok decode down":         # 384 CTAs unsplit: split d
+        assert p.split == 3 and ctas == 1152
+    if p.variant >= grouped_matmul.MMA_SYNC_VARIANTS:   # wgmma: no split
+        assert p.split == 1
+
+
+@pytest.mark.parametrize("E,C,d,f,variant", [
+    (8, 160, 6144, 32768, 2),        # Grok-1, a chunk of one 512-token row
+    (8, 640, 6144, 32768, 3),        # Grok-1, of four rows: two tiles
+    (384, 42, 7168, 2048, 1),        # Kimi-K2, of three rows
+    (384, 56, 7168, 2048, 1),        # Kimi-K2, of four rows
+    (384, 14, 7168, 2048, 0)])       # Kimi-K2, of one row
+def test_gmm_plan_off_the_path(E, C, d, f, variant):
+    """Prefill chunks of other batch sizes take the tile that holds their
+    rows, not the 320-row one sized for the path's."""
+    assert grouped_matmul.plan(E, C, d, f, torch.bfloat16).variant == variant
+
+
+def test_gmm_padding_share_is_bounded():
+    """Above decode's 32 rows, where the tensor cores set the time, no C
+    up to 2048 pads more than 60% of a launch's rows (a single 320-row
+    tile would pad 87% at C = 42)."""
+    for C in range(33, 2049):
+        p = grouped_matmul.plan(8, C, 6144, 32768, torch.bfloat16)
+        padded = -(-C // p.bm) * p.bm
+        assert (padded - C) / padded <= 0.6, (C, p.bm)
+
+
+@pytest.mark.parametrize("E,C,d,f", [
+    (8, 8, 32768, 6144), (8, 8, 6144, 32768), (3, 13, 1000, 300),
+    (2, 1, 99, 37), (1, 1, 64, 8), (1, 1, 100000, 8), (4, 30, 4097, 16),
+    (1, 5, 513, 128), (384, 28, 2048, 7168)])
+def test_gmm_split_covers_d_exactly(E, C, d, f):
+    """The split ranges [s * chunk, min(d, (s + 1) * chunk)) are whole
+    slices, none empty, and together cover d once."""
+    p = grouped_matmul.plan(E, C, d, f, torch.bfloat16)
+    assert p.chunk % p.bk == 0 and p.split >= 1
+    ranges = [(s * p.chunk, min(d, (s + 1) * p.chunk))
+              for s in range(p.split)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == d
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    if p.split > 1:
+        assert p.chunk >= grouped_matmul.MIN_SPLIT_SLICES * p.bk
+
+
+def _code(src: str) -> str:
+    """A CUDA source without its // comments (which may name TF32 to say
+    why it is not used)."""
+    return "\n".join(line.split("//")[0] for line in src.splitlines())
 
 
 def test_grouped_matmul_cuda_source():
     src = (build.CSRC / "grouped_matmul.cu").read_text()
-    assert "use_fast_math" not in src + " ".join(build.NVCC_FLAGS)
+    tc = (build.CSRC / "grouped_matmul_tc.cu").read_text()
+    header = (build.CSRC / "mma_sm90.cuh").read_text()
+    flags = " ".join(build.NVCC_FLAGS)
+    for text in (_code(src), _code(tc), _code(header), flags):
+        assert "use_fast_math" not in text and "tf32" not in text.lower()
     assert 'extern "C" int grouped_matmul_fwd' in src
-    assert "cuda_error_string" in src and "cudaGetLastError" in src
+    assert 'extern "C" int grouped_matmul_bf16_fwd' in tc
+    for text in (src, tc):
+        assert "cuda_error_string" in text and "cudaGetLastError" in text
     assert "constexpr int kBN = 128;" in src and grouped_matmul.BN == 128
     for bm in grouped_matmul.ROW_TILES:
         assert f"launch<T, {bm}," in src
+    # f32 stays on the CUDA cores; bf16 runs mma.sync (decode) and wgmma
+    # (prefill) from the header.
+    assert "mma" not in _code(src) and "bfloat16" not in _code(src)
+    assert '#include "mma_sm90.cuh"' in tc and "mma_bf16_16816(" in tc
+    assert "ldmatrix_x4_trans(" in tc and "cp_async16(" in tc
+    assert "wgmma_m64n160k16_ta(" in tc and "fence_proxy_async()" in tc
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in header
+    assert "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16" in header
+    n_sync = grouped_matmul.MMA_SYNC_VARIANTS
+    for i, (bm, bn, bk, warps, stages) in enumerate(
+            grouped_matmul.TC_VARIANTS):
+        case = tc.split(f"case {i}:")[1].split("case ")[0]
+        if i < n_sync:
+            assert f"return launch<{bm}, {bn}, {bk}," in case, i
+            wm, wn, st = (int(v)
+                          for v in case.split("<")[1].split(",")[3:6])
+            assert (wm * wn, st) == (warps, stages)
+        else:
+            assert bm % 160 == 0 and warps == 8
+            assert f"return launch_wgmma_t<{bm // 160}, {stages}, VEC>" \
+                in case, i
+            assert f"constexpr int BF = {bn}, BT = 160 * NH, BK = {bk};" \
+                in tc
+    assert f"case {len(grouped_matmul.TC_VARIANTS)}:" not in tc
 
 
 def test_no_try_around_the_grouped_matmul():

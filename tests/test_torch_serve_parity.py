@@ -225,8 +225,8 @@ def test_other_families_are_queued(arch, match):
                                           ("kimi_k2_1t_a32b", True, False),
                                           ("internvl2_2b", False, True)])
 def test_moe_and_vlm_families_build(arch, moe, vlm):
-    """Full configs build (nothing is allocated until ``init``); Kimi-K2's
-    head_dim 112 is refused by the attention kernels on the card only."""
+    """Full configs build (nothing is allocated until ``init``), Kimi-K2's
+    at its head_dim 112 too; ``test_kimi_head_dim_112_*`` below run it."""
     for cfg in (get_arch(arch), get_arch(arch).smoke_config()):
         model = build_model(cfg, device="cpu")
         assert (model.is_moe, model.is_vlm) == (moe, vlm)
@@ -238,6 +238,9 @@ def test_moe_and_vlm_families_build(arch, moe, vlm):
 # ---- the MoE and VLM families ------------------------------------------
 
 FAMILY_ARCHS = ("grok_1_314b", "internvl2_2b")
+# Kimi-K2's smoke config sets head_dim 16; its own is 112.
+KIMI = "kimi_k2_1t_a32b"
+KIMI_HEAD_DIM = 112
 
 
 @pytest.fixture(scope="module")
@@ -267,6 +270,24 @@ def _flat_specs(spec):
 
     walk(spec, [])
     return out
+
+
+@pytest.fixture(scope="module")
+def kimi_weights():
+    """The reference's random parameters of Kimi-K2's smoke config at head
+    dim 112, as a numpy tree."""
+    return jax.tree.map(np.asarray, jax_build_model(_kimi_cfgs()[0]).init(
+        jax.random.PRNGKey(0)))
+
+
+def _kimi_cfgs():
+    return tuple(g(KIMI).smoke_config().scaled(head_dim=KIMI_HEAD_DIM)
+                 for g in (jax_get_arch, get_arch))
+
+
+def _kimi_models():
+    jcfg, pcfg = _kimi_cfgs()
+    return jax_build_model(jcfg), build_model(pcfg, device="cpu")
 
 
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
@@ -331,6 +352,61 @@ def test_moe_engine_greedy_tokens_identical(family_weights):
     jeng = JaxServingEngine(jm, weights, JaxServeConfig(
         batch_slots=4, max_seq=32, max_new_tokens=6))
     peng = ServingEngine(pm, convert.params_from_reference(weights,
+                                                           device="cpu"),
+                         ServeConfig(batch_slots=4, max_seq=32,
+                                     max_new_tokens=6))
+    want = jeng.run(prompts)
+    got = peng.run(prompts)
+    assert peng.steps == jeng.steps
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
+    assert all(r.done and len(r.out_tokens) == 6 for r in got)
+
+
+def test_kimi_head_dim_112_forward_and_aux_match(kimi_weights):
+    """Kimi-K2's smoke config at its real head dim (7 x 16): the port's
+    attention takes 112 on the CPU, and logits and MoE metrics match
+    ``repro``'s."""
+    jm, pm = _kimi_models()
+    assert pm.cfg.resolved_head_dim == KIMI_HEAD_DIM and pm.is_moe
+    tokens = np.random.default_rng(9).integers(0, 512, (2, 24)).astype(
+        np.int32)
+    want, want_aux = jm.forward(kimi_weights, jnp.asarray(tokens))
+    got, aux = pm.forward(convert.params_from_reference(kimi_weights,
+                                                        device="cpu"),
+                          torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert set(aux) == set(want_aux)
+    for k, v in aux.items():
+        np.testing.assert_allclose(float(v), float(want_aux[k]), **TOL,
+                                   err_msg=k)
+
+
+def test_kimi_head_dim_112_decode_steps_match(kimi_weights):
+    jm, pm = _kimi_models()
+    tokens = np.random.default_rng(10).integers(0, 512, (3, 20)).astype(
+        np.int32)
+    step = jax.jit(jax_make_serve_step(jm))
+    jcache = jm.init_cache(3, 32)
+    params = convert.params_from_reference(kimi_weights, device="cpu")
+    pstep = make_serve_step(pm)
+    pcache = pm.init_cache(3, 32)
+    for s in range(20):
+        want, jcache = step(kimi_weights, jcache,
+                            jnp.asarray(tokens[:, s:s + 1]))
+        got, pcache = pstep(params, pcache,
+                            torch.from_numpy(tokens[:, s:s + 1]))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"step {s}")
+
+
+def test_kimi_head_dim_112_engine_greedy_tokens_identical(kimi_weights):
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, 512, int(n)).astype(np.int32)
+               for n in rng.integers(4, 10, 10)]
+    jm, pm = _kimi_models()
+    jeng = JaxServingEngine(jm, kimi_weights, JaxServeConfig(
+        batch_slots=4, max_seq=32, max_new_tokens=6))
+    peng = ServingEngine(pm, convert.params_from_reference(kimi_weights,
                                                            device="cpu"),
                          ServeConfig(batch_slots=4, max_seq=32,
                                      max_new_tokens=6))
