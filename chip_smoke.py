@@ -22,7 +22,8 @@ Phases, in order; any failure raises and exits non-zero:
      (the reference's kernel sweeps with head dim 112 added, 2e-5 in f32,
      2e-2 in bf16; every serving path's shapes, Kimi-K2's at head dim 112
      included, 2e-5 in f32, and in bf16 2**-6 rtol plus 2**-5 of each
-     output row's RMS);
+     output row's RMS; bf16 decode also at the engine's live length and at
+     ragged lengths that hit each tile and split boundary);
   7. the serving path at full width: Qwen3-4B (36 layers, bf16, seeded
      random weights), prompts fetched over the simulated WAN by
      ``build_stack``, a 4 x 2048 prefill and continuous-batching decode of
@@ -31,7 +32,8 @@ Phases, in order; any failure raises and exits non-zero:
      kernels' plain versions): prefill and decode logits within 1e-3;
   9. the attention kernels' times at every bf16 path shape (Qwen3-4B's,
      Grok-1's and Kimi-K2's) against their bounds, plain versions and
-     ``scaled_dot_product_attention``;
+     ``scaled_dot_product_attention``; flash decode also at the engine's
+     live lengths, and beside the CUDA-core decode kernel in bf16;
  10. grouped matmul == its plain version on the card: the reference's
      sweep, ragged and unaligned edges and strided views (f32 1e-4; bf16
      5e-2 rtol / 5e-1 atol), and every shape of the Grok-1 and Kimi-K2
@@ -110,7 +112,7 @@ KERNELS = {
                         "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                         "src/repro/kernels/flash_attention.py:79"),
     "flash_decode": (decode_attention,
-                     "src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro_torch/kernels/csrc/flash_decode_tc.cu",
                      "src/repro/kernels/decode_attention.py:60"),
     "grouped_matmul": (grouped_matmul,
                        "src/repro_torch/kernels/csrc/grouped_matmul_tc.cu",
@@ -177,6 +179,13 @@ TIME_DECODES = [("flash_decode", TIME_DECODE),
                 ("flash_decode serving", (SLOTS, 8, 4, MAX_SEQ, 128)),
                 ("flash_decode grok", (8, 8, 6, 1024, 128)),
                 ("flash_decode kimi", (8, 8, 8, 1024, 112))]
+# The live length of each serving path's cache half way through its engine
+# run (models/attention.py passes min(pos + 1, T) to every slot, pos one
+# shared count of the steps: 318 steps for Qwen3-4B, 158 for Grok-1, 79
+# for Kimi-K2): checked in phase 6 and timed in phase 9 beside the full
+# cache.
+DECODE_LIVE = {(SLOTS, 8, 4, MAX_SEQ, 128): 160, (8, 8, 6, 1024, 128): 80,
+               (8, 8, 8, 1024, 112): 40}
 
 # The MoE serving path: Grok-1 at full width (d_model 6144, 48 query heads
 # over 8 KV heads, d_ff 32768, 8 experts, top-2, vocab 131072), 4 of its 64
@@ -398,6 +407,32 @@ def median_event_ms(fn, n: int = 20, repeats: int = 20) -> float:
     return statistics.median(times)
 
 
+def median_graph_ms(fn, n: int = 20, repeats: int = 20) -> float:
+    """Median over ``repeats`` of the device time per call of ``n`` calls
+    captured in one CUDA graph and replayed between a pair of CUDA events:
+    the device's own time, without the host's launch gaps that set
+    ``median_event_ms`` for a call shorter than its host side."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
 def median_host_ms(fn, n: int = 20, repeats: int = 20) -> float:
     """Median host time per call to enqueue ``n`` calls (no sync inside)."""
     times = []
@@ -522,6 +557,16 @@ def path_tol(want: torch.Tensor, dtype):
     return rtol, share * want.float().pow(2).mean(-1, keepdim=True).sqrt()
 
 
+def ragged_lengths(B: int, K: int, G: int, T: int, D: int) -> list:
+    """B lengths of one batch that hit the bf16 decode kernel's tile and
+    split boundaries (``decode_attention.plan``): 1, tile - 1, tile,
+    tile + 1, split * tile, split * tile + 1, T - 1 and T, in turn."""
+    p = decode_attention.plan(B, K, G, T, D, torch.bfloat16)
+    edges = [1, p.tile - 1, p.tile, p.tile + 1, p.split * p.tile,
+             p.split * p.tile + 1, T - 1, T]
+    return [min(max(edges[i % len(edges)], 1), T) for i in range(B)]
+
+
 def check_attention(device) -> dict:
     """Phase 6: flash attention and flash decode against their plain
     versions on the same inputs.  The sweeps use contiguous tensors and
@@ -567,11 +612,16 @@ def check_attention(device) -> dict:
     for (B, K, G, T, D), dtype in DECODE_PATH_CASES:
         q = randn((B, K, G, D), dtype)
         k, v = (randn((B, T, K, D), dtype).transpose(1, 2) for _ in "kv")
-        for n in (1, T // 3, T):
-            lengths = torch.full((B,), n, dtype=torch.int32, device=device)
+        runs = [(f"length {n}", [n] * B) for n in (1, T // 3, T)]
+        if dtype == torch.bfloat16:
+            live = DECODE_LIVE[B, K, G, T, D]
+            runs += [(f"live length {live}", [live] * B),
+                     ("ragged lengths", ragged_lengths(B, K, G, T, D))]
+        for label, n in runs:
+            lengths = torch.tensor(n, dtype=torch.int32, device=device)
             want = ref.decode_reference(q.reshape(B, K * G, D), k, v,
                                         lengths).reshape(B, K, G, D)
-            err = compare(f"decode path {dtype} {(B, K, G, T, D)} length {n}",
+            err = compare(f"decode path {dtype} {(B, K, G, T, D)} {label}",
                           ops.flash_decode(q, k, v, lengths), want, dtype,
                           path_tol(want, dtype))
             if dtype == torch.bfloat16:
@@ -781,7 +831,12 @@ def time_attention(device, kind: str) -> dict:
     per call, its plain version's ms and one PyTorch call's ms
     (``scaled_dot_product_attention``, timed only) at the timed shapes:
     ``TIME_ATTENTION`` in bf16 (and Qwen3-4B's in f32 as well) and
-    ``TIME_DECODES`` in bf16."""
+    ``TIME_DECODES`` in bf16, at the full cache and at ``DECODE_LIVE``'s
+    live lengths.  Each decode row also times the CUDA-core decode kernel
+    on the same bf16 inputs (``cuda_core_ms``), gives the tensor-core
+    kernel's split and how many of its clusters the card holds at once, and
+    times the kernel, the CUDA-core kernel and SDPA replayed from a CUDA
+    graph as well (``*graph_ms``: device time without the host's gaps)."""
     gen = torch.Generator(device).manual_seed(9)
 
     def randn(shape, dtype):
@@ -814,10 +869,14 @@ def time_attention(device, kind: str) -> dict:
                 "bound_by": bound_by}
             del q, k, v
     dtype = torch.bfloat16
-    for name, (b, K, G, t, D) in TIME_DECODES:
+    decode_rows = [(name, shape, shape[3]) for name, shape in TIME_DECODES]
+    decode_rows += [(f"{name} live {DECODE_LIVE[shape]}", shape,
+                     DECODE_LIVE[shape]) for name, shape in TIME_DECODES
+                    if shape in DECODE_LIVE]
+    for name, (b, K, G, t, D), n in decode_rows:
         q = randn((b, K, G, D), dtype)
         k, v = (randn((b, t, K, D), dtype).transpose(1, 2) for _ in "kv")
-        lengths = torch.full((b,), t, dtype=torch.int32, device=device)
+        lengths = torch.full((b,), n, dtype=torch.int32, device=device)
         mask = (torch.arange(t, device=device)[None, :]
                 < lengths[:, None])[:, None, None, :]
         q_h = q.reshape(b, K * G, 1, D)
@@ -825,20 +884,33 @@ def time_attention(device, kind: str) -> dict:
         def kernel(q=q, k=k, v=v, lengths=lengths):
             return ops.flash_decode(q, k, v, lengths)
 
+        def cuda_core(q=q, k=k, v=v, lengths=lengths):
+            return decode_attention.flash_decode(q, k, v, lengths,
+                                                 kernel="cuda_core")
+
+        def sdpa(q_h=q_h, k=k, v=v, mask=mask):
+            return F.scaled_dot_product_attention(q_h, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
         nbytes, flops, bound_ms, bound_by = decode_bound(
-            kind, [t] * b, K, G, D, q.element_size())
+            kind, [n] * b, K, G, D, q.element_size())
+        split = decode_attention.plan(b, K, G, t, D, dtype).split
         out[name] = {
-            "shape": [b, K, G, t, D],
+            "shape": [b, K, G, t, D], "length": n,
             "ms": median_event_ms(kernel),
+            "graph_ms": median_graph_ms(kernel),
             "host_ms_per_call": median_host_ms(kernel),
+            "cuda_core_ms": median_event_ms(cuda_core),
+            "cuda_core_graph_ms": median_graph_ms(cuda_core),
             "plain_ms": median_event_ms(
                 lambda: ref.decode_reference(q.reshape(b, K * G, D), k, v,
                                              lengths), n=3, repeats=5),
-            "library_ms": median_event_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q_h, k, v, attn_mask=mask, enable_gqa=True)),
+            "library_ms": median_event_ms(sdpa),
+            "library_graph_ms": median_graph_ms(sdpa),
             "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "split": split,
+            "clusters_held": decode_attention.max_active_clusters(D, split),
+            "clusters_launched": b * K}
         del q, k, v
     for name, t in out.items():
         frac = (f"{t['bound_ms'] / t['ms']:.3f} of the bound"
@@ -848,6 +920,14 @@ def time_attention(device, kind: str) -> dict:
               f"ms, sdpa {t['library_ms']!r} ms, bound {t['bound_ms']!r} ms "
               f"({t['bound_by']}; {t['bytes'] / 1e6:.1f} MB, "
               f"{t['flops'] / 1e9:.1f} GFLOP), {frac}")
+        if "cuda_core_ms" in t:
+            print(f"  decode at length {t['length']}: CUDA-core kernel "
+                  f"{t['cuda_core_ms']!r} ms; from a CUDA graph: kernel "
+                  f"{t['graph_ms']!r} ms, CUDA-core kernel "
+                  f"{t['cuda_core_graph_ms']!r} ms, sdpa "
+                  f"{t['library_graph_ms']!r} ms; split {t['split']}, "
+                  f"{t['clusters_launched']} clusters launched, "
+                  f"{t['clusters_held']} held at once")
     return out
 
 

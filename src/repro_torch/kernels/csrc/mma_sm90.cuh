@@ -1,6 +1,6 @@
 // Tensor-core and copy primitives for sm_90a, shared by the port's bf16
-// kernels (grouped_matmul_tc.cu, flash_attention_tc.cu): cp.async with zero
-// fill, ldmatrix (plain and transposed), mma.sync.m16n8k16 with bf16 inputs
+// kernels (grouped_matmul_tc.cu, flash_attention_tc.cu, flash_decode_tc.cu):
+// cp.async with zero fill (and an L2 prefetch hint), ldmatrix (plain and transposed), mma.sync.m16n8k16 with bf16 inputs
 // and f32 accumulators, and the warpgroup's wgmma with its descriptors and
 // fences.
 //
@@ -29,6 +29,23 @@ static __device__ __forceinline__ void cp_async16(void* dst,
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
+}
+
+// As cp_async16, and L2 fetches the 256 bytes around src with it: a hint
+// for streams of 256-byte rows (a KV cache's rows at head dim 128).
+static __device__ __forceinline__ void cp_async16_l2_256(void* dst,
+                                                         const void* src,
+                                                         int src_bytes) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(src_bytes)
+      : "memory");
+}
+
+// Ask L2 to fetch the 128-byte line that holds p.
+static __device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
 static __device__ __forceinline__ void cp_async_commit() {

@@ -247,7 +247,8 @@ def test_flash_decode_inputs_are_checked(case):
 
 
 @pytest.mark.parametrize("name", ["flash_attention.cu",
-                                  "flash_attention_tc.cu", "flash_decode.cu"])
+                                  "flash_attention_tc.cu", "flash_decode.cu",
+                                  "flash_decode_tc.cu"])
 def test_cuda_sources(name):
     src = (build.CSRC / name).read_text()
     flags = " ".join(build.NVCC_FLAGS)
@@ -331,6 +332,104 @@ def test_flash_plan_matches_the_sources():
         assert p.grid == (-(-200 // c["kBQ"]), 8)
     assert "return static_cast<size_t>(kBQ + 4 * kBKV)" in \
         (build.CSRC / "flash_attention_tc.cu").read_text() and bf.stages == 2
+
+
+DECODE_SHAPES = [
+    (16, 8, 4, 32768, 128),          # decode_32k
+    (8, 8, 4, 4096, 128),            # Qwen3-4B's serving cache
+    (8, 8, 6, 1024, 128),            # Grok-1's
+    (8, 8, 8, 1024, 112),            # Kimi-K2's
+]
+
+
+@pytest.mark.parametrize("B,K,G,T,D", DECODE_SHAPES + [(2, 2, 2, 40, 16)])
+def test_decode_plan_picks_the_kernel_by_dtype(B, K, G, T, D):
+    bf = decode_attention.plan(B, K, G, T, D, torch.bfloat16)
+    assert bf.kernel == "tensor_core" and bf.grid == (bf.split, B * K)
+    assert 1 <= bf.split <= decode_attention.MAX_SPLIT
+    assert bf.split <= -(-T // bf.tile) and bf.stages >= 2
+    assert B * K * bf.split <= decode_attention.TC_CTAS_PER_SM * \
+        decode_attention.SMS or bf.split == 1
+    f32 = decode_attention.plan(B, K, G, T, D, torch.float32)
+    chunk, n_chunks = decode_attention.split(B * K, T)
+    assert f32.kernel == "cuda_core" and f32.tile == decode_attention.TILE
+    assert f32.grid == (n_chunks, B * K) == (f32.split, B * K)
+    with pytest.raises(ValueError):
+        decode_attention.plan(B, K, G, T, 48, torch.bfloat16)
+    with pytest.raises(ValueError):
+        decode_attention.plan(B, K, G, T, D, torch.float16)
+    with pytest.raises(ValueError):
+        decode_attention.plan(B, K, 9, T, D, torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,K,G,T,D", DECODE_SHAPES)
+def test_decode_device_split_covers_every_live_length(B, K, G, T, D):
+    """The Python twin of the tensor-core kernel's split: for every length
+    1..T the row's CTAs take [0, len) exactly, in order, without overlap,
+    in whole tiles but the last, and none is idle once len >= split *
+    tile."""
+    p = decode_attention.plan(B, K, G, T, D, torch.bfloat16)
+    for n in range(1, T + 1):
+        chunks = [decode_attention.tc_chunk(r, p.split, n)
+                  for r in range(p.split)]
+        assert chunks[0][0] == 0 and chunks[-1][1] == n
+        for (lo, hi), (lo2, _) in zip(chunks, chunks[1:]):
+            assert hi == lo2 or lo == hi
+        assert sum(hi - lo for lo, hi in chunks) == n
+        assert all(lo % p.tile == 0 and lo <= hi for lo, hi in chunks)
+        assert all(hi % p.tile == 0 or hi == n for lo, hi in chunks)
+        if n >= p.split * p.tile:
+            assert all(hi > lo for lo, hi in chunks)
+
+
+def test_decode_plan_matches_the_source():
+    """The plan's tile, stages, warps and largest split are those of
+    flash_decode_tc.cu, whose C entry launches (split, B*K) CTAs; the
+    kernel and the wrapper compute the split with one formula."""
+    src = (build.CSRC / "flash_decode_tc.cu").read_text()
+    c = _constants(src)
+    assert (c["kTile"], c["kStages"], c["kWarps"], c["kMaxSplit"],
+            c["kRows"]) == (decode_attention.TC_TILE,
+                            decode_attention.TC_STAGES,
+                            decode_attention.TC_WARPS,
+                            decode_attention.MAX_SPLIT,
+                            decode_attention.MAX_GROUP)
+    assert "config<D>(dim3(split, B * K), split, stream, &attr)" in src
+    assert "const int tile_lo = rank * n_live / split;" in src
+    assert "const int tile_hi = (rank + 1) * n_live / split;" in src
+    assert "lo = rank * n_live // n_split" in \
+        (KERNELS / "decode_attention.py").read_text()
+    assert "cudaLaunchAttributeClusterDimension" in src
+
+
+def test_bf16_decode_runs_on_the_tensor_cores():
+    """The bf16 decode kernel multiplies with mma.sync on bf16 operands
+    (K through ldmatrix, V through ldmatrix.trans) from a cp.async ring,
+    through the shared header, and folds a row's CTAs through distributed
+    shared memory in one launch; the f32 kernel stays on the CUDA cores."""
+    tc = (build.CSRC / "flash_decode_tc.cu").read_text()
+    assert '#include "mma_sm90.cuh"' in tc
+    for call in ("mma_bf16_16816(", "ldmatrix_x4(", "ldmatrix_x4_trans(",
+                 "cp_async16_l2_256(", "cp_async_wait<kStages - 2>()",
+                 "map_shared_rank(", "cluster.sync()"):
+        assert call in _code(tc), call
+    assert _code(tc).count("<<<") == 0       # cudaLaunchKernelEx: one launch
+    f32 = _code((build.CSRC / "flash_decode.cu").read_text())
+    assert "mma" not in f32 and "ldmatrix" not in f32
+
+
+def test_decode_wrapper_takes_no_cpu_tensor_and_no_unknown_kernel():
+    """The wrapper launches a kernel or raises: a CPU tensor is refused (the
+    plain version is ops.flash_decode's, not the wrapper's), and so is a
+    kernel name it does not know."""
+    args = (torch.zeros(1, 2, 2, 16), torch.zeros(1, 2, 8, 16),
+            torch.zeros(1, 2, 8, 16), torch.tensor([3]))
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention.flash_decode(*args)
+    with pytest.raises(ValueError, match="kernel"):
+        decode_attention.flash_decode(*args, kernel="tensor_core")
+    assert decode_attention.launches == before
 
 
 def test_no_try_around_the_kernels():

@@ -40,6 +40,17 @@ def test_exits_nonzero_alone(tmp_path):
     assert '"ok"' not in out.stdout
 
 
+def test_step_ab_exits_nonzero_without_a_card():
+    """tools/torch_step_ab.py, which times two checkouts' serving step in
+    turns on one card, refuses to run without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, "tools/torch_step_ab.py", ".",
+                          "."], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0 and "RESULT" not in out.stdout
+
+
 @pytest.fixture
 def small(monkeypatch):
     for name, value in dict(B=6, H=20, W=18, C=3, OH=12, OW=10).items():
@@ -88,6 +99,7 @@ def small_attention(monkeypatch):
     monkeypatch.setattr(chip_smoke, "DECODE_PATH_CASES", [
         ((4, 2, 2, 48, 16), torch.bfloat16), ((4, 2, 2, 33, 16),
                                               torch.float32)])
+    monkeypatch.setattr(chip_smoke, "DECODE_LIVE", {(4, 2, 2, 48, 16): 20})
 
 
 def test_attention_checks_rehearse_on_cpu(small_attention):
@@ -469,3 +481,105 @@ def test_kernels_line_names_every_kernel():
         path, line = replaces.split(":")
         assert "pallas" in (ROOT / path).read_text()
         assert int(line) > 0
+
+
+def _tc_decode(q, k, v, length, split, *, lose=None):
+    """The bf16 tensor-core decode kernel's arithmetic, emulated on the CPU
+    for rows that share one ``length``: each of the row's ``split`` CTAs
+    takes ``decode_attention.tc_chunk``'s keys in 64-key tiles, each warp 16
+    keys of a tile with an f32 online softmax of its own, each weight P
+    rounded to bf16 before P V and l summed from the rounded P; the warps'
+    parts fold in the CTA, the CTAs' parts in rank 0.  ``lose`` (head,
+    key, n) leaves keys key .. key + n - 1 out of that head's P V in every
+    row, but not out of its l."""
+    da = chip_smoke.decode_attention
+    B, K, G, D = q.shape
+    T = k.shape[2]
+    warps, kw = da.TC_WARPS, da.TC_TILE // da.TC_WARPS
+    scale2 = torch.tensor(D ** -0.5) * torch.tensor(math.log2(math.e))
+    s = torch.einsum("bkgd,bktd->bkgt", q.float(), k.float()) * scale2
+    parts = []
+    for rank in range(split):
+        lo, hi = da.tc_chunk(rank, split, length)
+        m = torch.full((B, K, G, warps), -1e30)
+        l = torch.zeros(B, K, G, warps)
+        acc = torch.zeros(B, K, G, warps, D)
+        for t0 in range(lo, hi, da.TC_TILE):
+            keys = (t0 + torch.arange(da.TC_TILE)).reshape(warps, kw)
+            valid = keys < hi
+            idx = keys.clamp(max=T - 1)
+            st = torch.where(valid, s[..., idx], torch.tensor(-1e30))
+            vt = v[:, :, idx].float() * valid[..., None]
+            new = torch.maximum(m, st.amax(-1))
+            corr, m = torch.exp2(m - new), new
+            p = torch.exp2(st - m[..., None]).bfloat16().float()
+            l = l * corr + p.sum(-1)
+            if lose is not None:
+                head, key, n = lose
+                p[:, :, head] *= ~((keys >= key) & (keys < key + n))
+            acc = acc * corr[..., None] + torch.einsum("bkgwj,bkwjd->bkgwd",
+                                                       p, vt)
+        mw = m.amax(-1, keepdim=True)
+        e = torch.exp2(m - mw)
+        parts.append((mw[..., 0], (e * l).sum(-1),
+                      (e[..., None] * acc).sum(-2)))
+    mc = torch.stack([p[0] for p in parts]).amax(0)
+    num = sum(torch.exp2(pm - mc)[..., None] * pa for pm, _, pa in parts)
+    den = sum(torch.exp2(pm - mc) * pl for pm, pl, _ in parts)
+    return (num / den[..., None]).bfloat16()
+
+
+@pytest.mark.parametrize("length", [160, 4096])
+def test_decode_path_tolerance_admits_bf16_weights(length):
+    """The decode path limit (2**-6 rtol plus 2**-5 of the row's RMS)
+    passes the tensor-core decode kernel's rounding of P to bf16 at
+    Qwen3-4B's decode shape, at the live and at the full length, and
+    fails a kernel that leaves one mma's 8 keys out of one head's P V."""
+    B, K, G, T, D = chip_smoke.TIME_DECODES[1][1]
+    split = chip_smoke.decode_attention.plan(B, K, G, T, D,
+                                             torch.bfloat16).split
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               .bfloat16() for s in ((B, K, G, D), (B, K, T, D),
+                                     (B, K, T, D)))
+    lengths = torch.full((B,), length)
+    want = chip_smoke.ref.decode_reference(
+        q.reshape(B, K * G, D), k, v, lengths).reshape(B, K, G, D)
+    rtol, atol = tol = chip_smoke.path_tol(want, torch.bfloat16)
+    got = _tc_decode(q, k, v, length, split)
+    diff = (got.float() - want.float()).abs()
+    assert float((diff / (atol + rtol * want.float().abs())).max()) < 1
+    chip_smoke.compare("emulated", got, want, torch.bfloat16, tol)
+    lost = _tc_decode(q, k, v, length, split, lose=(1, length // 2, 8))
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.compare("lost", lost, want, torch.bfloat16, tol)
+
+
+def test_decode_is_checked_and_timed_at_live_and_ragged_lengths():
+    """Every bf16 decode path shape has a live length, the cache's length
+    half way through its engine run (every slot attends to the shared
+    position + 1, which grows by one per step over the whole run), is timed
+    there, and its ragged batch hits 1, each tile and split boundary of the
+    tensor-core kernel, T - 1 and T."""
+    bf16 = {shape for shape, dtype in chip_smoke.DECODE_PATH_CASES
+            if dtype == torch.bfloat16}
+    assert set(chip_smoke.DECODE_LIVE) == bf16
+    qwen = dict(n_prompts=chip_smoke.N_PROMPTS,
+                prompt_len=chip_smoke.PROMPT_LEN, slots=chip_smoke.SLOTS,
+                max_seq=chip_smoke.MAX_SEQ, new_tokens=chip_smoke.NEW_TOKENS)
+    for serve, shape in ((qwen, (chip_smoke.SLOTS, 8, 4,
+                                 chip_smoke.MAX_SEQ, 128)),
+                         (chip_smoke.MOE_SERVE, (8, 8, 6, 1024, 128)),
+                         (chip_smoke.KIMI_SERVE, (8, 8, 8, 1024, 112))):
+        steps = -(-serve["n_prompts"] // serve["slots"]) * (
+            serve["prompt_len"] + serve["new_tokens"] - 1)
+        assert shape[3] == serve["max_seq"] > steps
+        assert abs(chip_smoke.DECODE_LIVE[shape] - steps / 2) <= 1
+    timed = {shape for _, shape in chip_smoke.TIME_DECODES}
+    assert bf16 <= timed
+    for B, K, G, T, D in bf16:
+        p = chip_smoke.decode_attention.plan(B, K, G, T, D, torch.bfloat16)
+        n = chip_smoke.ragged_lengths(B, K, G, T, D)
+        assert len(n) == B and all(1 <= x <= T for x in n)
+        assert {1, p.tile - 1, p.tile, p.tile + 1, p.split * p.tile,
+                p.split * p.tile + 1, T - 1, T} <= set(n)

@@ -1,0 +1,74 @@
+#!/usr/bin/env python3
+"""Qwen3-4B's serving step in two checkouts of the repo, in turns, on one
+card: chip_smoke.py's phase 7 (full width, 36 layers, bf16, 16 prompts
+through ServingEngine over a 4096-token cache) run once per turn, each in a
+process of its own that imports that checkout's ``chip_smoke``.
+
+    python3 tools/torch_step_ab.py PARENT_DIR CHANGE_DIR [--rounds N]
+
+Runs parent, change, change, parent per round and prints, per run, the
+ms per engine step, the tokens/s and the kernels' launches, then the
+medians of each checkout.  Comparing two versions is only meaningful within
+one such call: the host's speed, which sets the dense step, differs from
+machine to machine.  Needs a CUDA card; without one it exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+RUN = """
+import json, sys, torch
+sys.path.insert(0, {root!r})
+import chip_smoke
+torch.zeros(1, device="cuda")       # start CUDA, as chip_smoke's phases do
+cfg = chip_smoke.get_arch(chip_smoke.ARCH)
+run, _ = chip_smoke.drive_serving(torch.device("cuda", 0), cfg, n_prefill=1)
+print("RESULT " + json.dumps({{k: run[k] for k in (
+    "ms_per_engine_step", "tokens_per_s", "engine_steps", "launches")}}))
+"""
+
+
+def one(root: Path) -> dict:
+    proc = subprocess.run([sys.executable, "-c", RUN.format(root=str(root))],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the run in {root} failed:\n{proc.stderr[-4000:]}")
+    line = next(ln for ln in proc.stdout.splitlines()
+                if ln.startswith("RESULT "))
+    return json.loads(line[len("RESULT "):])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("parent", type=Path)
+    ap.add_argument("change", type=Path)
+    ap.add_argument("--rounds", type=int, default=1)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_step_ab: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    steps = {"parent": [], "change": []}
+    for _ in range(args.rounds):
+        for name in ("parent", "change", "change", "parent"):
+            run = one(getattr(args, name).resolve())
+            steps[name].append(run["ms_per_engine_step"])
+            print(name, json.dumps(run), flush=True)
+    print(json.dumps({name: {"median_ms_per_engine_step":
+                             statistics.median(ms), "runs": ms}
+                      for name, ms in steps.items()}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
