@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 H100: builds the port's CUDA kernels, holds each against its plain PyTorch
-version, drives the image lane, the dense Qwen3-4B serving path and the
-Grok-1 and Kimi-K2 MoE serving paths end to end, and times the kernels.
+version, drives the image lane, the dense Qwen3-4B serving path, the
+Grok-1 and Kimi-K2 MoE serving paths and the Qwen3-4B training path end to
+end, and times the kernels.
 
     python3 chip_smoke.py
 
@@ -51,10 +52,22 @@ Phases, in order; any failure raises and exits non-zero:
      a 2 x 2048 prefill and continuous-batching decode of 8 prompts, with
      the kernels' launches counted, then the same path in f32 at d_ff 256
      on the card and on the CPU (logits within 1e-3);
- 14. the grouped matmul's times at the Grok-1 and Kimi-K2 decode and
+ 14. the training path at full width and depth: Qwen3-4B (36 layers,
+     bf16, remat, seeded random weights; Kimi-K2's tensors freed first),
+     token records fetched over the simulated WAN by ``build_stack``'s
+     DeviceFeed, 8 steps of ``run_training`` (AdamW) at 2 x 4096 tokens,
+     with ms per step, tokens/s, peak memory, each step's loss and grad
+     norm, stall and goodput, and a derived share of the bf16 peak; it
+     raises on a loss or norm that is not finite, unchanged parameters,
+     missing steps or any kernel launch (training runs none);
+ 15. the train step in f32 at 2 layers, full width, 1 x 256 tokens, on
+     the card and on the CPU from one state: the first step's gradients
+     and 3 steps' losses within 1e-3; then a restart from a checkpoint on
+     the card (the quickstart config) against the run without a stop;
+ 16. the grouped matmul's times at the Grok-1 and Kimi-K2 decode and
      prefill shapes, and at the two chunks off the path, against its
      bound, plain version and ``torch.bmm``;
- 15. one JSON line of kernels, then the result line.
+ 17. one JSON line of kernels, then the result line.
 
 Needs a CUDA card; without one it exits non-zero and prints no result.
 """
@@ -67,6 +80,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -76,7 +90,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs.base import get_arch  # noqa: E402
+from repro_torch.configs.base import ArchConfig, get_arch  # noqa: E402
 from repro_torch.core import KVStore, LoaderConfig, build_stack  # noqa: E402
 from repro_torch.data.datasets import (SyntheticPixelDataset,  # noqa: E402
                                        SyntheticTokenDataset, ingest)
@@ -85,9 +99,13 @@ from repro_torch.kernels import (crop_norm, decode_attention,  # noqa: E402
                                  flash_attention, grouped_matmul, ops, ref)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.moe import n_chunks  # noqa: E402
-from repro_torch.models.params import tree_map  # noqa: E402
+from repro_torch.models.params import (count_params, tree_leaves,  # noqa: E402
+                                      tree_map)
 from repro_torch.serve import ServeConfig, ServingEngine  # noqa: E402
-from repro_torch.train.step import make_prefill_step  # noqa: E402
+from repro_torch.train.loop import TrainLoopConfig, run_training  # noqa: E402
+from repro_torch.train.optimizer import OptimizerConfig  # noqa: E402
+from repro_torch.train.step import (  # noqa: E402
+    init_state, make_prefill_step, make_train_step)
 
 # The main path: LoaderConfig's default batch, 256x256x3 uint8 frames,
 # 224x224 crops.
@@ -240,7 +258,7 @@ TIME_GMM = [("decode", GMM_DECODE, 5, 5),
 # kernel takes tiles of its own (grouped_matmul.plan): Grok-1 at one row
 # of 2048 tokens (C = 160, one wgmma CTA of 160 rows) and Kimi-K2 at four
 # rows (C = 4 x 14 = 56, the 64-row mma.sync tile).  Checked in bf16
-# within GMM_PATH_TOL (phase 10) and timed (phase 14), as TIME_GMM.
+# within GMM_PATH_TOL (phase 10) and timed (phase 16), as TIME_GMM.
 GMM_OFF_PATH = [("grok prefill b1", (8, 160, 6144, 32768), 5, 5),
                 ("kimi prefill b4", (384, 56, 7168, 2048), 3, 3)]
 # (rtol, atol): the reference's tolerances for the sweep and the edges.
@@ -251,6 +269,21 @@ GMM_OFF_PATH = [("grok prefill b1", (8, 160, 6144, 32768), 5, 5),
 # 16-deep slice of d would be off by some 0.05 and fail it.
 GMM_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 5e-1)}
 GMM_PATH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -6, 1e-3)}
+
+# The training path (phase 14): Qwen3-4B at full width and depth, bf16,
+# remat, seeded random weights, train_4k's sequence of 4096 tokens at a
+# global batch of 2 (train_4k's 256, cut by one card's memory), 8 steps of
+# run_training over route high (the first is warm-up).  The f32 check
+# (phase 15) runs 2 layers at full width on 1 x 256 tokens for 3 steps on
+# the card and on the CPU: losses within CHECK_TOL, and the first step's
+# gradients within CHECK_TOL of each leaf's max |g|; then a restart from a
+# checkpoint on the card at the quickstart config.
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 8
+TRAIN_OPT = dict(peak_lr=3e-4, warmup_steps=2)
+TRAIN_CHECK_B, TRAIN_CHECK_S, TRAIN_CHECK_STEPS = 1, 256, 3
+RESTART_CFG = dict(name="quickstart-lm", family="dense", n_layers=2,
+                   d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
+                   vocab=2048, head_dim=32, dtype="float32", remat=False)
 
 
 def make_inputs(seed: int, b: int, h: int, w: int, c: int, oh: int, ow: int,
@@ -980,7 +1013,7 @@ def gmm_bound(kind: str, E: int, C: int, d: int, f: int, elsize: int):
 
 
 def time_gmm(device, kind: str) -> dict:
-    """Phase 14: the grouped matmul's device ms per launch, the host's ms
+    """Phase 16: the grouped matmul's device ms per launch, the host's ms
     per call, its plain version's ms and ``torch.bmm``'s ms (timed only)
     at the MoE path's shapes (``TIME_GMM``) and off it (``GMM_OFF_PATH``),
     in bf16, with w at the model's scale."""
@@ -1017,6 +1050,174 @@ def time_gmm(device, kind: str) -> dict:
               f"({t['bound_by']}; {t['bytes'] / 1e9:.3f} GB, "
               f"{t['flops'] / 1e12:.3f} TFLOP), {frac}")
     return out
+
+
+def train_flops(cfg, n_params: int, B: int, S: int) -> int:
+    """Operations of one train step, derived: 6 per parameter and token
+    (forward, and a backward of twice the forward) plus the causal
+    attention's 4*D per kept (query, key) pair and head, three times over.
+    Remat's second forward is not counted."""
+    attn = 4 * B * cfg.n_heads * cfg.resolved_head_dim * causal_pairs(S, S)
+    return 6 * n_params * B * S + 3 * cfg.n_layers * attn
+
+
+def drive_training(device, kind: str, cfg, *, batch: int = TRAIN_B,
+                   seq: int = TRAIN_S, steps: int = TRAIN_STEPS) -> dict:
+    """Phase 14: the training path through the entry points a user calls:
+    ``init_state``, then ``run_training`` over the simulated WAN (token
+    records fetched by ``build_stack``'s DeviceFeed on route high), with
+    the kernels' launches counted (training runs none: it uses the plain
+    attention, as the reference trains with XLA ops).  Raises on a loss or
+    gradient norm that is not finite, parameters that did not change, or
+    fewer steps than asked."""
+    model = build_model(cfg, device=device)
+    opt_cfg = OptimizerConfig(total_steps=steps, **TRAIN_OPT)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = init_state(model, opt_cfg, torch.Generator(device).manual_seed(0))
+    sync(device)
+    out = {"init_s": time.perf_counter() - t0, "batch": batch, "seq": seq}
+    params = state["params"]
+    n_params = count_params(params)
+    # Views of three weight matrices, updated in place.  (A norm scale of
+    # 1.0 may not move: a bf16 parameter keeps no f32 master copy, in the
+    # reference as here, and an update under half its ulp rounds away.)
+    probes = {"embedding": params["embed"]["embedding"][:8].detach(),
+              "wq layer 0": params["blocks"]["attn"]["wq"][0, :8].detach(),
+              "w_down last layer":
+                  params["blocks"]["mlp"]["w_down"][-1, :8].detach()}
+    before = {k: v.clone() for k, v in probes.items()}
+    store = KVStore()
+    uuids = ingest(store, SyntheticTokenDataset(
+        n_samples=16 * batch, seq_len=seq, vocab=cfg.vocab, seed=2))
+    loader_cfg = LoaderConfig(batch_size=batch, route="high",
+                              materialize=True, seed=2)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_training(model, store, uuids, loader_cfg,
+                       TrainLoopConfig(total_steps=steps, seq_len=seq,
+                                       log_every=1), opt_cfg, state=state)
+    sync(device)
+    out["run_s"] = time.perf_counter() - t0
+    out["launches"] = launch_counts()
+    ss, hist = res["step_stats"], res["history"]
+    step_s = statistics.median(ss.compute_s[1:])
+    flops = train_flops(cfg, n_params, batch, seq)
+    peak = PEAKS.get(kind)
+    out.update({
+        "params": n_params, "steps": ss.steps,
+        "ms_per_step": step_s * 1e3,
+        "ms_per_step_all": [c * 1e3 for c in ss.compute_s],
+        "tokens_per_s": batch * seq / step_s,
+        "peak_GB": (torch.cuda.max_memory_allocated(device) / 1e9
+                    if device.type == "cuda" else None),
+        "losses": [r["loss"] for r in hist],
+        "grad_norms": [r["grad_norm"] for r in hist],
+        "stall_frac": res["stats"]["stall_frac"],
+        "goodput_sps": res["stats"]["goodput_sps"],
+        "loader_MBps_virtual": res["loader_stats"].throughput(skip=1) / 1e6,
+        "flops_per_step_derived": flops,
+        "bf16_peak_share_derived":
+            flops / step_s / peak["bf16_flops"] if peak else None,
+        "changed": {k: float((probes[k].float() - before[k].float()).abs()
+                             .max()) for k in probes}})
+    print("training path:", json.dumps(out))
+    bad = [r for r in hist if not (np.isfinite(r["loss"])
+                                   and np.isfinite(r["grad_norm"]))]
+    if bad or len(hist) != steps or ss.steps != steps:
+        raise AssertionError(f"training: {len(hist)} of {steps} steps "
+                             f"logged, {ss.steps} run, not finite: {bad}")
+    if not all(v > 0 for v in out["changed"].values()):
+        raise AssertionError(f"training left parameters unchanged: "
+                             f"{out['changed']}")
+    if any(out["launches"].values()):
+        raise AssertionError(f"training launched kernels: {out['launches']}")
+    return out
+
+
+def check_f32_training(device, cfg, *, batch: int = TRAIN_CHECK_B,
+                       seq: int = TRAIN_CHECK_S,
+                       steps: int = TRAIN_CHECK_STEPS) -> dict:
+    """Phase 15: the train step in f32 on one state, once on ``device`` and
+    once through the port on the CPU: the first step's gradients (each
+    leaf within ``CHECK_TOL`` of its max |g|) and the loss of each of
+    ``steps`` steps (within ``CHECK_TOL``).  Then a restart on the card:
+    ``run_training`` to a checkpoint and on from it gives the loss curve
+    of the run without a stop.  TF32 is off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt_cfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
+                              total_steps=steps)
+    state = init_state(build_model(cfg, device=device), opt_cfg,
+                       torch.Generator(device).manual_seed(0))
+    tokens, _ = fetch_tokens(4 * batch, seq, cfg.vocab, batch, device,
+                             seed=3)
+    cpu = torch.device("cpu")
+    runs = []
+    for dev, st in ((device, state),
+                    (cpu, tree_map(lambda t: t.to(cpu, copy=True), state))):
+        model = build_model(cfg, device=dev)
+        b = {"tokens": tokens.to(dev),
+             "loss_mask": torch.ones(tokens.shape, device=dev)}
+        leaves = tree_leaves(st["params"])
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        grads = [g.to(cpu) for g in torch.autograd.grad(
+            model.train_loss(st["params"], b)[0], leaves)]
+        step = make_train_step(model, opt_cfg)
+        losses = []
+        for _ in range(steps):
+            st, metrics = step(st, b)
+            losses.append(float(metrics["loss"]))
+        runs.append((losses, grads))
+        del st, leaves
+    (card_losses, card_grads), (cpu_losses, cpu_grads) = runs
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(card_grads, cpu_grads))
+    out = {"card_losses": card_losses, "cpu_losses": cpu_losses,
+           "loss_max_abs_diff": max(abs(a - b) for a, b in
+                                    zip(card_losses, cpu_losses)),
+           "grad_max_rel_diff": grad_err}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["restart"] = check_restart(device, tmp)
+    print("f32 training, card vs CPU:", json.dumps(out))
+    if not (out["loss_max_abs_diff"] <= CHECK_TOL
+            and grad_err <= CHECK_TOL):
+        raise AssertionError(f"the card's f32 train step differs from the "
+                             f"CPU port's by more than {CHECK_TOL}: {out}")
+    if out["restart"]["max_abs_diff"] > CHECK_TOL:
+        raise AssertionError(f"restart from a checkpoint changed the loss "
+                             f"curve: {out['restart']}")
+    return out
+
+
+def check_restart(device, directory: str, steps: int = 8) -> dict:
+    """``run_training`` for ``steps`` steps, against half of them to a
+    checkpoint and the rest from it (the loader position and the state
+    restored), on the quickstart config: the two loss curves."""
+    store = KVStore()
+    uuids = ingest(store, SyntheticTokenDataset(n_samples=512, seq_len=64,
+                                                vocab=2048, seed=5))
+    loader_cfg = LoaderConfig(batch_size=8, route="high", out_of_order=False,
+                              materialize=True, seed=5)
+    opt_cfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=2,
+                              total_steps=steps)
+    model = build_model(ArchConfig(**RESTART_CFG), device=device)
+
+    def run(total, ckpt=None):
+        res = run_training(model, store, uuids, loader_cfg,
+                           TrainLoopConfig(total_steps=total, seq_len=64,
+                                           log_every=1,
+                                           checkpoint_every=steps // 2,
+                                           checkpoint_dir=ckpt), opt_cfg)
+        return [r["loss"] for r in res["history"]]
+
+    whole = run(steps)
+    resumed = run(steps // 2, directory) + run(steps, directory)
+    return {"losses": whole, "resumed": resumed,
+            "max_abs_diff": max(abs(a - b) for a, b in zip(whole, resumed)),
+            "bit_exact": whole == resumed}
 
 
 def free_card() -> None:
@@ -1080,7 +1281,12 @@ def main() -> int:
     check_f32_path(device, kimi_cfg.scaled(
         d_ff=KIMI_CHECK_D_FF, dtype="float32"), kimi_prompts)
     free_card()
-    gmm_time = time_gmm(device, kind)                         # phase 14
+    drive_training(device, kind, cfg.scaled(remat=True))      # phase 14
+    free_card()
+    check_f32_training(device, cfg.scaled(                    # phase 15
+        n_layers=CHECK_LAYERS, dtype="float32"))
+    free_card()
+    gmm_time = time_gmm(device, kind)                         # phase 16
     f32 = timing["f32"]
     rows = {"crop_mirror_normalize": {
         "launches": run["launches"],
@@ -1101,7 +1307,7 @@ def main() -> int:
         "max_abs_err": gmm_err[GMM_DECODE, torch.bfloat16], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
-    print(json.dumps({"kernels": [                            # phase 15
+    print(json.dumps({"kernels": [                            # phase 17
         {"name": name, "route": "cuda", "source": KERNELS[name][1],
          "replaces": KERNELS[name][2], **row} for name, row in rows.items()]}))
     print(json.dumps({"ok": True, "device": {

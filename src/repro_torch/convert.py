@@ -9,7 +9,9 @@ taken.
 Model weights cross as numpy, leaf by leaf under the same key paths:
 ``params_from_reference`` takes a tree of numpy arrays (the reference's
 parameter tree after ``np.asarray`` on each leaf) and ``params_to_numpy``
-gives one back.
+gives one back.  A training state, ``{"params", "opt": {"m", "v",
+"step"}}``, crosses the same way through ``state_from_reference`` and
+``state_to_numpy``.
 """
 
 from __future__ import annotations
@@ -88,5 +90,32 @@ def params_to_numpy(tree: Any) -> Any:
     return tree_map(leaf, tree)
 
 
+def _check_state(state: Any) -> None:
+    if not isinstance(state, Mapping) or set(state) != {"params", "opt"}:
+        got = (sorted(state) if isinstance(state, Mapping)
+               else type(state).__name__)
+        raise ValueError(f"a training state is {{'params', 'opt'}}, got "
+                         f"{got}")
+    if not isinstance(state["opt"], Mapping) or \
+            set(state["opt"]) != {"m", "v", "step"}:
+        raise ValueError("the optimizer state is {'m', 'v', 'step'} "
+                         "(float32 moments; the int8 states are ROADMAP A8)")
+
+
+def state_from_reference(state: Any, device="cuda") -> Any:
+    """``repro``'s training state as numpy (``jax.tree.map(np.asarray,
+    state)``) -> the port's, on ``device``: parameters, f32 moments and
+    the int32 ``step``, dtypes kept."""
+    _check_state(state)
+    return params_from_reference(dict(state), device)
+
+
+def state_to_numpy(state: Any) -> Any:
+    """The inverse of :func:`state_from_reference` (bf16 leaves widened
+    to float32, exactly)."""
+    _check_state(state)
+    return params_to_numpy(dict(state))
+
+
 __all__ = ["feed_state_from_reference", "params_from_reference",
-           "params_to_numpy"]
+           "params_to_numpy", "state_from_reference", "state_to_numpy"]

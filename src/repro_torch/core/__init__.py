@@ -1,8 +1,9 @@
 """repro_torch.core — the paper's loader: out-of-order, incremental
 prefetching over NoSQL storage, copied from ``repro.core``.
 
-Only the single-host stack is ported; multi-host, federation, replication,
-tenancy, scenarios, splits and competitors are queued (see ROADMAP.md).
+Only the single-host stack and the splits are ported; multi-host,
+federation, replication, tenancy, scenarios and competitors are queued
+(see ROADMAP.md).
 """
 
 from .arena import ArenaSlab, PinnedArena
@@ -22,6 +23,7 @@ from .placement import (PLACEMENT_POLICIES, global_order,
                         split_strips)
 from .prefetcher import (EpochPlan, InOrderPrefetcher, OutOfOrderPrefetcher,
                          PrefetchConfig, compute_reflow, make_prefetcher)
+from .splits import SplitSpec, check_entity_independence, create_splits
 from .stack import FEED_KINDS, Stack, build_stack
 from .stats import LoaderStats, StepStats
 from .wirefmt import (WIRE_CODECS, ByteShuffleCodec, Int8QuantCodec,
@@ -42,5 +44,6 @@ __all__ = [
     "compute_reflow", "PLACEMENT_POLICIES", "global_order",
     "preferred_node_subsets", "replica_local_fraction", "split_strips",
     "InOrderPrefetcher", "OutOfOrderPrefetcher", "PrefetchConfig",
-    "make_prefetcher", "LoaderStats", "StepStats",
+    "make_prefetcher", "LoaderStats", "StepStats", "SplitSpec",
+    "check_entity_independence", "create_splits",
 ]

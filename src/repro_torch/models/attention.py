@@ -1,12 +1,15 @@
 """GQA attention for the dense decoder: projections, the plain attention
-path, and the one-token decode step against a KV cache.
+path, the memory-efficient (chunked) attention that trains long sequences,
+and the one-token decode step against a KV cache.
 
 The port of the dense family's part of ``repro.models.attention``, in its
 layouts: q (B,S,H,Dh) with H = K*G, k and v (B,T,K,Dh), and a KV cache of
 (B,T,K,Dh).  On a CUDA tensor, decode attention runs the hand-written
 flash-decode kernel (``kernels.ops.flash_decode``), which reads the cache
 in place through strides; on the CPU it runs the kernel's plain version.
-``chunked_attention`` and its recompute backward come with the trainer.
+``dense_attention`` and ``chunked_attention`` are plain torch with
+autograd: they are what training runs, as the reference trains with XLA
+ops (no kernel has a backward).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
@@ -85,8 +89,9 @@ def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
 
 def expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     """(B,T,K,D) -> (B,T,H,D) by repeating each kv head G=H/K times.  (In
-    the reference a TPU sharding workaround; here only the plain path's
-    ``expand_heads`` branch uses it.)"""
+    the reference a TPU sharding workaround; the port keeps it where the
+    reference calls it, in the plain and chunked attention, so that both
+    compute the same sums.)"""
     G = n_heads // k.shape[2]
     if G == 1:
         return k
@@ -119,6 +124,170 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     o = torch.einsum("bkgst,btkd->bskgd", w, v)
     return o.reshape(B, S, H, Dh)
+
+
+# ---------------------------------------------------------------------------
+# Chunked (memory-efficient) attention with a recompute backward
+# ---------------------------------------------------------------------------
+
+def _block_live(qs: slice, ks: slice, causal: bool, window: int) -> bool:
+    """Whether the (query, key) block keeps at least one pair under the
+    causal and window masks.  A block the masks remove whole adds exactly
+    nothing in the reference (its softmax weights are exp(-1e30 - m) = 0,
+    and a weight it gives a row with no key yet is reset to 0 by the next
+    block's correction), so skipping it changes no bit of the result."""
+    if causal and ks.start > qs.stop - 1:
+        return False
+    return not (window > 0 and qs.start - (ks.stop - 1) >= window)
+
+
+def _grouped(x: torch.Tensor, K: int) -> torch.Tensor:
+    """(B,S,H,Dh) -> (B,K,G,S,Dh), a view where the strides allow."""
+    B, S, H, Dh = x.shape
+    return x.reshape(B, S, K, H // K, Dh).permute(0, 2, 3, 1, 4)
+
+
+def _mea_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, window: int, q_chunk: int, kv_chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Online-softmax forward, the reference's ``_mea_forward``: q
+    (B,S,H,Dh), k and v (B,T,K,Dh), S and T multiples of their chunks,
+    positions arange.  Returns out (B,S,H,Dh) in q's dtype and the
+    log-sum-exp lse (B,K,G,S) in f32."""
+    B, S, H, Dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = Dh ** -0.5
+    dev = q.device
+    qg = _grouped(q, K)                                  # (B,K,G,S,Dh)
+    kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)   # (B,K,T,Dh)
+    out = torch.empty((B, K, G, S, Dh), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, K, G, S), dtype=torch.float32, device=dev)
+    for iq in range(S // q_chunk):
+        qs = slice(iq * q_chunk, (iq + 1) * q_chunk)
+        qc = qg[:, :, :, qs]
+        qpos = torch.arange(qs.start, qs.stop, device=dev)
+        m = torch.full((B, K, G, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((B, K, G, q_chunk), device=dev)
+        acc = torch.zeros((B, K, G, q_chunk, Dh), device=dev)
+        for j in range(T // kv_chunk):
+            ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            if not _block_live(qs, ks, causal, window):
+                continue
+            kb, vb = kt[:, :, ks], vt[:, :, ks]
+            kpos = torch.arange(ks.start, ks.stop, device=dev)
+            s = torch.einsum("bkgqd,bktd->bkgqt", qc, kb).float()
+            s = s * scale + _mask_bias(qpos, kpos, causal, window)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqt,bktd->bkgqd", p.to(vb.dtype), vb)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out[:, :, :, qs] = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+        lse[..., qs] = m + torch.log(l.clamp_min(1e-30))
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh), lse
+
+
+def _mea_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                  causal: bool, window: int, q_chunk: int, kv_chunk: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-style backward, the reference's ``_mea_bwd``: the scores are
+    recomputed blockwise from ``lse`` and never saved, ``delta = sum(dO *
+    O)``, dq accumulates in f32 over the kv chunks, and each kv chunk's dk
+    and dv sum (in f32) over the q chunks.  Live memory is one block's
+    scores plus the dq accumulator."""
+    B, S, H, Dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = Dh ** -0.5
+    dev = q.device
+    qg, dog = _grouped(q, K), _grouped(dout, K)
+    kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    delta = (dout.float() * out.float()).sum(dim=-1)          # (B,S,H)
+    delta = delta.reshape(B, S, K, G).permute(0, 2, 3, 1)     # (B,K,G,S)
+    dq = torch.zeros((B, K, G, S, Dh), device=dev)
+    dk = torch.empty((B, K, T, Dh), dtype=k.dtype, device=dev)
+    dv = torch.empty((B, K, T, Dh), dtype=v.dtype, device=dev)
+    for j in range(T // kv_chunk):
+        ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
+        kb, vb = kt[:, :, ks], vt[:, :, ks]
+        kb32, vb32 = kb.float(), vb.float()
+        kpos = torch.arange(ks.start, ks.stop, device=dev)
+        dk_j = torch.zeros((B, K, kv_chunk, Dh), device=dev)
+        dv_j = torch.zeros((B, K, kv_chunk, Dh), device=dev)
+        for iq in range(S // q_chunk):
+            qs = slice(iq * q_chunk, (iq + 1) * q_chunk)
+            if not _block_live(qs, ks, causal, window):
+                continue
+            qc, doc = qg[:, :, :, qs], dog[:, :, :, qs].float()
+            qpos = torch.arange(qs.start, qs.stop, device=dev)
+            s = torch.einsum("bkgqd,bktd->bkgqt", qc, kb).float()
+            s = s * scale + _mask_bias(qpos, kpos, causal, window)
+            p = torch.exp(s - lse[..., qs, None])
+            dv_j += torch.einsum("bkgqt,bkgqd->bktd", p, doc)
+            dp = torch.einsum("bkgqd,bktd->bkgqt", doc, vb32)
+            ds = p * (dp - delta[..., qs, None]) * scale
+            dq[:, :, :, qs] += torch.einsum("bkgqt,bktd->bkgqd", ds, kb32)
+            dk_j += torch.einsum("bkgqt,bkgqd->bktd", ds, qc.float())
+        dk[:, :, ks] = dk_j.to(k.dtype)
+        dv[:, :, ks] = dv_j.to(v.dtype)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)
+    return dq, dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp`` ``_mea_attention``: the forward saves
+    q, k, v, out and lse; the backward recomputes the scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk):
+        out, lse = _mea_forward(q, k, v, causal, window, q_chunk, kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = (causal, window, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _mea_backward(q, k, v, out, lse, dout, *ctx.masks)
+        return dq, dk, dv, None, None, None, None
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: Optional[torch.Tensor] = None,
+                      kv_pos: Optional[torch.Tensor] = None, *,
+                      causal: bool = True, window: int = 0,
+                      q_chunk: int = 1024, kv_chunk: int = 1024
+                      ) -> torch.Tensor:
+    """Memory-efficient attention with a recompute backward: q
+    (B,S,H,Dh), k/v (B,T,K,Dh) -> (B,S,H,Dh), equal to
+    ``dense_attention`` forward and gradient.
+
+    Positions are implicit arange (``q_pos``/``kv_pos`` are accepted for
+    parity with ``dense_attention`` and ignored, as in the reference).  k
+    and v are expanded to the H query heads first, and S and T padded to
+    multiples of their chunks (padded keys lie after every real query, so
+    a causal mask removes them; non-causal callers must pass exact
+    multiples, as in the reference)."""
+    B, S, H, Dh = q.shape
+    k = expand_kv(k, H)
+    v = expand_kv(v, H)
+    T = k.shape[1]
+    q_chunk = min(q_chunk, S)
+    kv_chunk = min(kv_chunk, T)
+    S_p = -(-S // q_chunk) * q_chunk
+    T_p = -(-T // kv_chunk) * kv_chunk
+    if S_p != S:
+        q = F.pad(q, (0, 0, 0, 0, 0, S_p - S))
+    if T_p != T:
+        k = F.pad(k, (0, 0, 0, 0, 0, T_p - T))
+        v = F.pad(v, (0, 0, 0, 0, 0, T_p - T))
+    out = _ChunkedAttention.apply(q, k, v, causal, window, q_chunk,
+                                  kv_chunk)
+    return out[:, :S]
 
 
 # ---------------------------------------------------------------------------
@@ -175,5 +344,6 @@ def decode_attention(params: Dict, cache: Dict, x: torch.Tensor, *,
 
 
 __all__ = ["gqa_spec", "project_qkv", "project_out", "expand_kv",
-           "dense_attention", "init_kv_cache", "cache_slot",
+           "dense_attention", "chunked_attention", "init_kv_cache",
+           "cache_slot",
            "decode_attention", "NEG_INF"]

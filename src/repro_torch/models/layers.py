@@ -67,7 +67,11 @@ def embed_spec(vocab: int, d: int) -> Dict:
 
 def embed(params: Dict, tokens: torch.Tensor,
           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    return params["embedding"].to(dtype)[tokens]
+    """Rows of the embedding in ``dtype``.  ``F.embedding``'s backward sums
+    a repeated token's rows in a fixed order (indexing's backward adds
+    them in whatever order the CPU's threads reach them), which keeps a
+    restart from a checkpoint bit-exact."""
+    return F.embedding(tokens.long(), params["embedding"].to(dtype))
 
 
 def unembed(params: Dict, x: torch.Tensor) -> torch.Tensor:

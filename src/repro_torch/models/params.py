@@ -39,6 +39,34 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a tree of nested dicts, in sorted-key order (the
+    reference's ``jax.tree.leaves`` order), whatever the dicts' insertion
+    order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(tree: Any, leaves: list) -> Any:
+    """``tree``'s structure around ``leaves`` given in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(t: Any) -> Any:
+        if not isinstance(t, dict):
+            return next(it)
+        made = {k: build(t[k]) for k in sorted(t)}
+        return {k: made[k] for k in t}
+
+    return build(tree)
+
+
+def count_params(tree: Any) -> int:
+    """Elements in a tree of specs or of tensors."""
+    return sum(int(np.prod(leaf.shape)) for leaf in tree_leaves(tree))
+
+
 def _fan_in(shape: Tuple[int, ...]) -> int:
     # convention: last axis is the output axis for weight matrices
     return int(np.prod(shape[:-1])) if len(shape) > 1 else shape[0]
@@ -89,4 +117,4 @@ def stack_layer_specs(spec_tree: Any, n_layers: int) -> Any:
 
 
 __all__ = ["P", "init_params", "logical_axes", "stack_layer_specs",
-           "tree_map"]
+           "tree_map", "tree_leaves", "tree_unflatten", "count_params"]

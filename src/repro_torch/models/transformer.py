@@ -1,5 +1,6 @@
 """Decoder-only LM, dense, MoE and VLM families: the port of
-``repro.models.transformer``'s ``DecoderLM`` for prefill and decode.
+``repro.models.transformer``'s ``DecoderLM`` for training, prefill and
+decode.
 
 One pre-norm block: x += attn(norm(x)); x += swiglu|moe(norm(x)).
 Parameters are a dict tree under the reference's names, shapes and layout
@@ -13,6 +14,14 @@ family's expert FFNs run the grouped-matmul kernel (``models.moe``).  On
 the CPU each runs its plain version.  The VLM family writes its projected
 patch embeddings (``extras["patch_embeds"]``) over the first positions.
 The audio, hybrid and ssm families are queued (ROADMAP A7).
+
+Training (``forward(..., train=True)``, ``train_loss``) runs plain torch
+with autograd, as the reference trains with XLA ops: no kernel has a
+backward.  Attention follows the reference's rule: ``dense_attention`` up
+to ``DENSE_ATTN_MAX_SEQ`` tokens and ``chunked_attention`` (recompute
+backward) above; ``cfg.remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``), as ``jax.checkpoint(nothing_saveable)``
+does.  MoE training is queued (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import resolve_device
@@ -28,10 +38,11 @@ from repro_torch.kernels import ops
 from . import attention as attn
 from . import moe as moe_mod
 from .layers import (apply_rope, embed, embed_spec, rmsnorm, rmsnorm_spec,
-                     swiglu, swiglu_spec, unembed)
+                     softmax_xent, swiglu, swiglu_spec, unembed)
 from .params import P, init_params, stack_layer_specs, tree_map
 
 FAMILIES = ("dense", "moe", "vlm")
+DENSE_ATTN_MAX_SEQ = 2048   # above this, train with chunked attention
 
 
 class DecoderLM:
@@ -86,9 +97,14 @@ class DecoderLM:
                            dtype or self.dtype, self.device)
 
     # -- forward -------------------------------------------------------------
-    @staticmethod
-    def _layer(params: Dict, i: int) -> Dict:
-        return tree_map(lambda p: p[i], params["blocks"])
+    def _layers(self, params: Dict) -> list:
+        """The stacked ``blocks`` as one parameter dict per layer.  Each
+        leaf is split once with ``unbind``, whose backward is one ``stack``
+        (indexing ``p[i]`` per layer would write a zero-filled gradient of
+        the whole stack for every layer)."""
+        parts = tree_map(lambda p: torch.unbind(p, 0), params["blocks"])
+        return [tree_map(lambda t: t[i], parts)
+                for i in range(self.cfg.n_layers)]
 
     def _ffn(self, lp: Dict, h: torch.Tensor
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -98,29 +114,52 @@ class DecoderLM:
                                      capacity_factor=c.capacity_factor)
         return swiglu(lp["mlp"], h), {}
 
-    def _block(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor
+    def _attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   positions: torch.Tensor, train: bool) -> torch.Tensor:
+        c = self.cfg
+        if not train:
+            # (B,S,H,D) -> (B,H,S,D) views: the kernel reads them in place
+            # and returns q's layout, so the transpose back is free.
+            return ops.flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=True, window=c.window).transpose(1, 2)
+        # Both expand k and v to the query heads, as the reference does
+        # before either.
+        if q.shape[1] <= DENSE_ATTN_MAX_SEQ:
+            return attn.dense_attention(q, k, v, positions[0], positions[0],
+                                        causal=True, window=c.window)
+        return attn.chunked_attention(q, k, v, causal=True, window=c.window)
+
+    def _block(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
+               train: bool
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         c = self.cfg
         h = rmsnorm(lp["ln1"], x, c.norm_eps)
         q, k, v = attn.project_qkv(lp["attn"], h)
         q = apply_rope(q, positions, c.rope_theta)
         k = apply_rope(k, positions, c.rope_theta)
-        # (B,S,H,D) -> (B,H,S,D) views: the kernel reads them in place and
-        # returns q's layout, so the transpose back is free.
-        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=True,
-                                window=c.window).transpose(1, 2)
+        o = self._attention(q, k, v, positions, train)
         x = x + attn.project_out(lp["attn"], o)
         h = rmsnorm(lp["ln2"], x, c.norm_eps)
         y, aux = self._ffn(lp, h)
         return x + y, aux
 
     def forward(self, params: Dict, tokens: torch.Tensor,
-                extras: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
-        """Full-sequence logits (prefill): tokens (B,S) -> (B,S,V) f32, and
-        the MoE metrics averaged over layers ({} for the other families).
-        A VLM reads ``extras["patch_embeds"]`` (B,P,d), P <= S."""
+                extras: Optional[Dict] = None, train: bool = False
+                ) -> Tuple[torch.Tensor, Dict]:
+        """Full-sequence logits: tokens (B,S) -> (B,S,V) f32, and the MoE
+        metrics averaged over layers ({} for the other families).  A VLM
+        reads ``extras["patch_embeds"]`` (B,P,d), P <= S.
+
+        ``train=False`` (prefill) runs the flash-attention kernel, which
+        has no backward; ``train=True`` runs the differentiable plain
+        attention and, with ``cfg.remat``, recomputes each layer in the
+        backward."""
         c = self.cfg
+        if train and self.is_moe:
+            raise NotImplementedError(
+                f"{c.name}: MoE training is not ported yet (ROADMAP A5); "
+                "the expert kernel has no backward")
         B, S = tokens.shape
         x = embed(params["embed"], tokens, self.dtype)
         if self.is_vlm:
@@ -131,13 +170,35 @@ class DecoderLM:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
         aux = {}
-        for i in range(c.n_layers):
-            x, layer_aux = self._block(self._layer(params, i), x, positions)
+        for lp in self._layers(params):
+            if train and c.remat:
+                x, layer_aux = checkpoint(self._block, lp, x, positions, True,
+                                          use_reentrant=False)
+            else:
+                x, layer_aux = self._block(lp, x, positions, train)
             for k, v in layer_aux.items():
                 aux[k] = aux.get(k, 0.0) + v.float()
         aux = {k: v / c.n_layers for k, v in aux.items()}
         x = rmsnorm(params["ln_f"], x, c.norm_eps)
         return unembed(params["embed"], x), aux
+
+    # -- losses --------------------------------------------------------------
+    def train_loss(self, params: Dict, batch: Dict
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross-entropy of ``batch["tokens"]`` (B,S) under
+        ``batch["loss_mask"]`` (B,S) where given; a VLM without a mask
+        scores the text positions only.  Returns (loss, {"xent", "loss"});
+        MoE training raises (ROADMAP A5)."""
+        tokens = batch["tokens"]
+        logits, _ = self.forward(params, tokens, batch, train=True)
+        targets = tokens[:, 1:]
+        mask = batch.get("loss_mask")
+        mask = mask[:, 1:] if mask is not None else None
+        if self.is_vlm and mask is None:
+            pos = torch.arange(targets.shape[1], device=tokens.device)[None]
+            mask = (pos >= self.cfg.n_patches).float()
+        loss = softmax_xent(logits[:, :-1], targets, mask)
+        return loss, {"xent": loss, "loss": loss}
 
     # -- decode --------------------------------------------------------------
     def _cache_len(self, seq_len: int) -> int:
@@ -162,8 +223,7 @@ class DecoderLM:
         c = self.cfg
         x = embed(params["embed"], tokens, self.dtype)
         pos = cache["pos"]
-        for i in range(c.n_layers):
-            lp = self._layer(params, i)
+        for i, lp in enumerate(self._layers(params)):
             h = rmsnorm(lp["ln1"], x, c.norm_eps)
             o, _ = attn.decode_attention(
                 lp["attn"], {"k": cache["k"][i], "v": cache["v"][i],
@@ -177,4 +237,4 @@ class DecoderLM:
                                              "v": cache["v"], "pos": pos + 1}
 
 
-__all__ = ["DecoderLM"]
+__all__ = ["DecoderLM", "DENSE_ATTN_MAX_SEQ"]

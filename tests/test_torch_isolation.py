@@ -29,7 +29,7 @@ COPIED = ["core/stats.py", "core/netsim.py", "core/kvstore.py",
           "core/cluster.py", "core/wirefmt.py", "core/flowctl.py",
           "core/arena.py", "core/connection.py", "core/batch_loader.py",
           "core/placement.py", "core/prefetcher.py", "core/loader.py",
-          "data/datasets.py"] + sorted(
+          "core/splits.py", "data/datasets.py"] + sorted(
               str(p.relative_to(REF)) for p in (REF / "configs").glob("*.py"))
 # The one string a copy may change: get_arch imports the port's configs.
 RENAMED = {"repro.configs.{arch_id}": "repro_torch.configs.{arch_id}"}
@@ -146,6 +146,11 @@ def test_model_and_engine_refuse_cuda_without_card():
     cfg = get_arch("qwen3_4b").smoke_config()
     _refuse(lambda: build_model(cfg))
     _refuse(lambda: build_model(cfg, device="cuda:0"))
+
+
+def test_train_launcher_refuses_cuda_without_card():
+    from repro_torch.launch import train as launch_train
+    _refuse(lambda: launch_train.main(["--demo", "--steps", "1"]))
 
 
 def _strip_imports(tree: ast.AST) -> str:
