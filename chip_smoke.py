@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 H100: builds the port's CUDA kernels, holds each against its plain PyTorch
-version, drives the image lane, the dense Qwen3-4B serving path, the
-Grok-1 and Kimi-K2 MoE serving paths and the Qwen3-4B training path end to
-end, and times the kernels.
+version, drives the image lane (and its arena bench), the dense Qwen3-4B
+serving path, the Grok-1 and Kimi-K2 MoE serving paths, the Qwen3-4B
+training path and the 1000-host multi-host loader end to end, and times
+the kernels.
 
     python3 chip_smoke.py
 
@@ -14,11 +15,22 @@ Phases, in order; any failure raises and exits non-zero:
      offsets, mirror, ragged sizes, a full-frame crop and the main-path
      shape (max|diff| == 0 in f32, <= 1 ulp in bf16);
   4. the image lane: store -> cluster -> pool -> OOO prefetcher -> arena ->
-     ImageFeed -> kernel at B=512, 256x256x3 -> 224x224, checked against
-     the same run on the materialize path and for the kernel's launches;
+     ImageFeed -> kernel at B=512, 256x256x3 -> 224x224 on route high,
+     through ``bench_torch_wirefmt.compare_paths``: every batch checked
+     against the same run on the materialize path, the kernel's launches
+     against the batches formed, and the bench's checks (host prep <= 0.5x
+     the materialize path, slab reuse);
   5. the crop kernel's time per launch (CUDA events around back-to-back
      launches), the host's time per call, the plain version's time and the
      bound;
+  A. the image lane's arena bench on the card: ``bench_torch_wirefmt``'s
+     arena section at its full sizes (B=64, 64x64x3 -> 56x56, 24 batches
+     on each path, through ``ImageFeed``): its three checks (tensors within
+     1e-5 of the materialize path, host prep <= 0.5x the materialize path,
+     slab reuse) and the crop kernel's launches equal to the arena batches
+     formed; prints both paths' host prep ms per batch, their ratio, the
+     max difference and its own launches (the kernels line counts phase
+     4's);
   6. flash attention and flash decode == their plain versions on the card
      (the reference's kernel sweeps with head dim 112 added, 2e-5 in f32,
      2e-2 in bf16; every serving path's shapes, Kimi-K2's at head dim 112
@@ -67,6 +79,13 @@ Phases, in order; any failure raises and exits non-zero:
  16. the grouped matmul's times at the Grok-1 and Kimi-K2 decode and
      prefill shapes, and at the two chunks off the path, against its
      bound, plain version and ``torch.bmm``;
+  B. the multi-host path on the card's host: ``bench_torch_multihost``'s
+     ``--scale --quick`` cell (1,000 hosts over three federated clusters on
+     routes local, med and high, through the port's ``MultiHostRun``), its
+     virtual-clock metrics, ``events_total`` included, equal to
+     ``benchmarks/baselines/multihost_scale.json``; its wall-clock checks
+     (the CI budget, the events/sec floor) are printed and not judged,
+     since they time the host;
  17. one JSON line of kernels, then the result line.
 
 Needs a CUDA card; without one it exits non-zero and prints no result.
@@ -90,6 +109,8 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from benchmarks import bench_torch_multihost  # noqa: E402
+from benchmarks import bench_torch_wirefmt, torch_gate  # noqa: E402
 from repro_torch.configs.base import ArchConfig, get_arch  # noqa: E402
 from repro_torch.core import KVStore, LoaderConfig, build_stack  # noqa: E402
 from repro_torch.data.datasets import (SyntheticPixelDataset,  # noqa: E402
@@ -362,63 +383,110 @@ def check_kernel(device) -> dict:
     return worst
 
 
-def image_stack(store, uuids, use_arena: bool, device, *, b: int, h: int,
-                w: int, c: int, oh: int, ow: int):
-    cfg = LoaderConfig(batch_size=b, route="high", out_of_order=True,
-                       incremental_ramp=True, materialize=True,
-                       use_arena=use_arena, arena_slot_bytes=h * w * c)
-    return build_stack(store=store, uuids=uuids, config=cfg, feed="image",
-                       image_shape=(h, w, c), out_shape=(oh, ow), mean=MEAN,
-                       std=STD, feed_seed=7, device=device)
-
-
 def drive_main_path(device, *, n_samples: int = N_SAMPLES, b: int = B,
                     h: int = H, w: int = W, c: int = C, oh: int = OH,
                     ow: int = OW, n_batches: int = N_BATCHES) -> dict:
     """Phase 4: the arena path (uint8 upload + kernel) next to the same run
-    on the materialize path (NumPy transform + float upload).  Returns the
-    kernel launches made while the arena path ran, and what it formed."""
+    on the materialize path (NumPy transform + float upload), through
+    ``bench_torch_wirefmt.compare_paths`` on the high route, every batch
+    held against the other path's.  The kernel is warmed up first; the
+    launch counts are set to 0 just before the two paths run and read just
+    after.  Returns the launches, what the arena path formed, both paths'
+    host prep and the bench's checks."""
+    if h != w or oh != ow:
+        raise ValueError("the arena bench's frames and crops are square")
     store = KVStore()
     t0 = time.perf_counter()
-    uuids = ingest(store, SyntheticPixelDataset(n_samples=n_samples, h=h,
-                                                w=w, c=c, seed=0))
+    ds = SyntheticPixelDataset(n_samples=n_samples, h=h, w=w, c=c, seed=0)
+    uuids = ingest(store, ds)
     print(f"ingested {n_samples} frames of {h}x{w}x{c} in "
           f"{time.perf_counter() - t0:.1f} s")
-    arena = image_stack(store, uuids, True, device, b=b, h=h, w=w, c=c,
-                        oh=oh, ow=ow)
-    mat = image_stack(store, uuids, False, device, b=b, h=h, w=w, c=c,
-                      oh=oh, ow=ow)
-    crop_norm.launches = 0
-    worst = 0.0
-    for i in range(n_batches):
-        a, a_meta = next(arena.feed)
-        m, m_meta = next(mat.feed)
-        if a_meta.uuids != m_meta.uuids:
-            raise AssertionError(f"batch {i}: the two paths fetched "
-                                 "different rows")
-        img = a["images"]
-        if img.shape != (b, c, oh, ow) or img.dtype != torch.float32 \
-                or not torch.isfinite(img).all():
-            raise AssertionError(f"batch {i}: bad images {tuple(img.shape)} "
-                                 f"{img.dtype}")
-        if not torch.equal(a["labels"], m["labels"]):
-            raise AssertionError(f"batch {i}: labels differ")
-        worst = max(worst, float((img - m["images"]).abs().max()))
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    launches = crop_norm.launches
-    out = {"launches": launches, "batches_formed": arena.feed.batches,
-           "arena_vs_materialize_max_abs_diff": worst}
-    for name, st in (("arena", arena), ("materialize", mat)):
-        out[f"{name}_loader_MBps_virtual"] = \
-            st.loader.stats.throughput(skip=2) / 1e6
+    bench_torch_wirefmt.warm_up(device, b, h, oh)
+    reset_launches()
+    res = bench_torch_wirefmt.compare_paths(
+        store, uuids, ds, device=device, batch_size=b, n_batches=n_batches,
+        out_hw=oh, route="high", mean=MEAN, std=STD)
+    sync(device)
+    launches = launch_counts()
+    m = res["modes"]
+    out = {"launches": launches.pop("crop_mirror_normalize"),
+           "other_launches": launches,
+           "batches_formed": m["arena"]["batches_formed"],
+           "arena_vs_materialize_max_abs_diff": res["max_abs_diff"],
+           "images": m["arena"]["images"]}
+    for name in ("arena", "materialize"):
+        out[f"{name}_loader_MBps_virtual"] = m[name]["loader_MBps"]
         out[f"{name}_host_prep_ms_per_batch"] = \
-            st.feed.host_prep_s / st.feed.batches * 1e3
-    out["arena_stats"] = arena.loader.arena.stats()
-    arena.close()
-    mat.close()
+            m[name]["host_prep_ms_per_batch"]
+    out["host_cpu_ratio"] = res["host_cpu_ratio"]
+    out["arena_stats"] = m["arena"]["arena"]
+    out["checks"] = res["checks"]
     print("main path:", json.dumps(out))
     return out
+
+
+def check_main_path(run: dict) -> None:
+    """Phase 4's checks on the card: one kernel launch per batch formed and
+    no other kernel, the arena path equal to the materialize path on every
+    batch, images of the main path's shape, and the bench's checks (host
+    prep <= 0.5x the materialize path, slab reuse)."""
+    if run["launches"] < 1 or run["launches"] != run["batches_formed"] \
+            or any(run["other_launches"].values()):
+        raise AssertionError(f"kernel launched {run['launches']} times "
+                             f"(others {run['other_launches']}) for "
+                             f"{run['batches_formed']} batches formed")
+    if run["arena_vs_materialize_max_abs_diff"] != 0.0:
+        raise AssertionError("arena and materialize paths disagree: "
+                             f"{run['arena_vs_materialize_max_abs_diff']!r}")
+    if run["images"] != {"shape": [B, C, OH, OW], "dtype": "torch.float32"}:
+        raise AssertionError(f"bad images {run['images']}")
+    failed = [k for k, ok in run["checks"].items() if not ok]
+    if failed:
+        raise AssertionError(f"main path checks failed: {failed}")
+
+
+def drive_arena_bench(device) -> int:
+    """Phase A: ``bench_torch_wirefmt``'s arena section at its full sizes
+    on the card, with its checks; returns the crop kernel's launches on
+    the arena path, which the bench counts itself and holds to the
+    batches formed."""
+    reset_launches()
+    arena = bench_torch_wirefmt.run_arena_section(quick=False, device=device)
+    launches = launch_counts()
+    m = arena["modes"]
+    print("arena bench:", json.dumps({
+        "batch_size": arena["batch_size"],
+        "arena_host_prep_ms_per_batch": m["arena"]["host_prep_ms_per_batch"],
+        "materialize_host_prep_ms_per_batch":
+            m["materialize"]["host_prep_ms_per_batch"],
+        "host_cpu_ratio": arena["host_cpu_ratio"],
+        "max_abs_diff": arena["max_abs_diff"],
+        "crop_launches": m["arena"]["crop_launches"],
+        "batches_formed": m["arena"]["batches_formed"],
+        "arena_stats": m["arena"]["arena"], "checks": arena["checks"]}))
+    failed = [k for k, ok in arena["checks"].items() if not ok]
+    if failed:
+        raise AssertionError(f"arena bench checks failed: {failed}")
+    # The section's own count, plus the one launch of its warm-up.
+    if launches["crop_mirror_normalize"] != m["arena"]["crop_launches"] + 1 \
+            or any(n for k, n in launches.items()
+                   if k != "crop_mirror_normalize"):
+        raise AssertionError(f"arena bench launched {launches} for "
+                             f"{m['arena']['batches_formed']} batches")
+    return m["arena"]["crop_launches"]
+
+
+def drive_multihost_scale() -> None:
+    """Phase B: ``bench_torch_multihost``'s ``--scale --quick`` cell through
+    the port's ``MultiHostRun``; its virtual-clock metrics must equal the
+    committed baseline.  The wall-clock checks are printed, not judged."""
+    results = bench_torch_multihost.run_scale(quick=True)
+    bench_torch_multihost.print_scale(results)
+    if torch_gate.finish(
+            "multihost_scale.json", results, quick=True,
+            reported_only=bench_torch_multihost.SCALE_WALL_CLOCK_CHECKS):
+        raise AssertionError("the multi-host scale cell differs from "
+                             "benchmarks/baselines/multihost_scale.json")
 
 
 def median_event_ms(fn, n: int = 20, repeats: int = 20) -> float:
@@ -1246,13 +1314,9 @@ def main() -> int:
         print(f"built {name} in {secs:.1f} s")
     checks = check_kernel(device)                             # phase 3
     run = drive_main_path(device)                             # phase 4
-    if run["launches"] < 1 or run["launches"] != run["batches_formed"]:
-        raise AssertionError(f"kernel launched {run['launches']} times for "
-                             f"{run['batches_formed']} batches formed")
-    if run["arena_vs_materialize_max_abs_diff"] != 0.0:
-        raise AssertionError("arena and materialize paths disagree: "
-                             f"{run['arena_vs_materialize_max_abs_diff']!r}")
+    check_main_path(run)
     timing = time_kernel(device, kind)                        # phase 5
+    drive_arena_bench(device)                                 # phase A
     attn_err = check_attention(device)                        # phase 6
     cfg = get_arch(ARCH)
     serve, prompts = drive_serving(device, cfg)               # phase 7
@@ -1287,6 +1351,7 @@ def main() -> int:
         n_layers=CHECK_LAYERS, dtype="float32"))
     free_card()
     gmm_time = time_gmm(device, kind)                         # phase 16
+    drive_multihost_scale()                                   # phase B
     f32 = timing["f32"]
     rows = {"crop_mirror_normalize": {
         "launches": run["launches"],

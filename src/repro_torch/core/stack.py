@@ -1,8 +1,15 @@
 """One-call stack construction: config object -> running data stack.
 
-The port of ``repro.core.stack`` for the single-host chain
-``Cluster`` -> ``ConnectionPool`` -> ``CassandraLoader`` -> ``DeviceFeed`` /
-``ImageFeed``:
+The port of ``repro.core.stack``.  The config object decides the shape of
+the stack:
+
+* a :class:`~repro_torch.core.loader.LoaderConfig` builds the single-host
+  chain ``Cluster`` -> ``ConnectionPool`` -> ``CassandraLoader`` ->
+  ``DeviceFeed`` / ``ImageFeed``;
+* a :class:`~repro_torch.core.multihost.MultiHostConfig` builds a
+  :class:`~repro_torch.core.multihost.MultiHostRun`: N sharded loaders
+  against one shared cluster or a federation (``clusters=``).  Per-host
+  feeds over it are not built here, as in the reference.
 
     from repro_torch.core import LoaderConfig, build_stack
 
@@ -14,10 +21,8 @@ The port of ``repro.core.stack`` for the single-host chain
     ...
     stack.close()
 
-A :class:`~repro_torch.core.loader.LoaderConfig` builds the chain with the
-loader's own defaulting, so a ``build_stack`` stack is bit-identical to the
-hand-wired one.  Multi-host stacks (``MultiHostConfig``) are not ported
-yet.
+A ``LoaderConfig`` builds the chain with the loader's own defaulting, so a
+``build_stack`` stack is bit-identical to the hand-wired one.
 
 Everything is keyword-only and validated up front: unknown feed kinds,
 missing feed parameters, feed requests the config cannot serve and a
@@ -28,11 +33,12 @@ missing feed parameters, feed requests the config cannot serve and a
 from __future__ import annotations
 
 import uuid as _uuid
-from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence, Tuple
 
 from .kvstore import KVStore
 from .loader import CassandraLoader, LoaderConfig
+from .multihost import MultiHostConfig, MultiHostRun
 from .netsim import Clock
 
 FEED_KINDS = (None, "device", "image")
@@ -40,21 +46,34 @@ FEED_KINDS = (None, "device", "image")
 
 @dataclass
 class Stack:
-    """What :func:`build_stack` returns — every layer, individually usable."""
+    """What :func:`build_stack` returns — every layer, individually usable.
 
-    config: LoaderConfig
+    ``loader``/``feed`` are populated for a ``LoaderConfig`` stack, ``run``
+    for a ``MultiHostConfig`` stack; the rest are always present (for a
+    multi-host stack, ``loaders`` lists every per-host loader and
+    ``cluster``/``pool`` refer to host 0's view).
+    """
+
+    config: "LoaderConfig | MultiHostConfig"
     clock: Clock
     cluster: object
     pool: object
-    loader: CassandraLoader
+    loader: Optional[CassandraLoader] = None
     feed: Optional[object] = None
+    run: Optional[MultiHostRun] = None
+    loaders: List[CassandraLoader] = field(default_factory=list)
 
     def next_batch(self, timeout: float = 600.0):
-        """Convenience passthrough to the loader."""
+        """Single-host convenience passthrough to the loader."""
+        if self.loader is None:
+            raise RuntimeError("next_batch() is a single-host convenience; "
+                               "use stack.run for a MultiHostConfig stack")
         return self.loader.next_batch(timeout=timeout)
 
     def close(self) -> None:
-        self.loader.close()
+        for ld in (self.loaders or
+                   ([self.loader] if self.loader is not None else [])):
+            ld.close()
 
 
 def _build_feed(kind: str, loader: CassandraLoader, *,
@@ -82,7 +101,7 @@ def _build_feed(kind: str, loader: CassandraLoader, *,
 
 
 def build_stack(*, store: KVStore, uuids: Sequence[_uuid.UUID],
-                config: LoaderConfig,
+                config: "LoaderConfig | MultiHostConfig",
                 clock: Optional[Clock] = None,
                 cluster: Optional[object] = None,
                 ingress: Optional[object] = None,
@@ -95,22 +114,38 @@ def build_stack(*, store: KVStore, uuids: Sequence[_uuid.UUID],
                 step_stats=None,
                 mean=None, std=None, feed_seed: int = 0,
                 device="cuda") -> Stack:
-    """Assemble the single-host data stack from one ``LoaderConfig``.
+    """Assemble the data stack from one config object.
 
     Parameters are those of ``repro.core.build_stack`` plus ``device``,
     where the feed puts its tensors: ``"cuda"`` (default) needs a card and
-    raises without one; ``"cpu"`` runs the kernels' plain versions.
+    raises without one; ``"cpu"`` runs the kernels' plain versions.  A
+    ``MultiHostConfig`` stack builds no feed, so it does not use
+    ``device``.
     """
     from repro_torch.data.pipeline import resolve_device
 
     if feed not in FEED_KINDS:
         raise ValueError(f"unknown feed kind {feed!r} "
                          f"(choose from {FEED_KINDS})")
-    device = resolve_device(device)
+    if isinstance(config, MultiHostConfig):
+        if feed is not None:
+            raise ValueError("per-host feeds over a MultiHostConfig are not "
+                             "built here — build the MultiHostRun stack and "
+                             "wrap stack.loaders[i] yourself")
+        if clock is not None or cluster is not None or ingress is not None:
+            raise ValueError("MultiHostRun owns its clock/cluster/ingress; "
+                             "clock=/cluster=/ingress= are single-host only")
+        run = MultiHostRun(store, list(uuids), config)
+        if start:
+            run.start()
+        host0 = run.loaders[0]
+        return Stack(config=config, clock=run.clock, cluster=run.cluster,
+                     pool=host0.pool, run=run, loaders=list(run.loaders))
+
     if not isinstance(config, LoaderConfig):
-        raise TypeError(f"config must be a LoaderConfig, got "
-                        f"{type(config).__name__} (multi-host stacks are "
-                        "queued for a later slice of the port)")
+        raise TypeError(f"config must be a LoaderConfig or MultiHostConfig, "
+                        f"got {type(config).__name__}")
+    device = resolve_device(device)
     if feed is not None and not config.materialize:
         raise ValueError(f"feed={feed!r} consumes real payload bytes — set "
                          "materialize=True on the LoaderConfig")
@@ -127,7 +162,8 @@ def build_stack(*, store: KVStore, uuids: Sequence[_uuid.UUID],
     if start:
         loader.start()
     return Stack(config=config, clock=loader.clock, cluster=loader.cluster,
-                 pool=loader.pool, loader=loader, feed=feed_obj)
+                 pool=loader.pool, loader=loader, feed=feed_obj,
+                 loaders=[loader])
 
 
 __all__ = ["FEED_KINDS", "Stack", "build_stack"]

@@ -1,7 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke`` import neither
-JAX nor ``repro``, its entry points refuse a CUDA device when there is no
-card, and the modules it copied from ``repro`` are the originals with only
-their imports rewritten."""
+"""The port stands alone: ``repro_torch``, its benches and ``chip_smoke``
+import neither JAX nor ``repro``, its entry points refuse a CUDA device when
+there is no card, and the modules it copied from ``repro`` are the originals
+with only their imports rewritten."""
 
 import ast
 import json
@@ -29,10 +29,14 @@ COPIED = ["core/stats.py", "core/netsim.py", "core/kvstore.py",
           "core/cluster.py", "core/wirefmt.py", "core/flowctl.py",
           "core/arena.py", "core/connection.py", "core/batch_loader.py",
           "core/placement.py", "core/prefetcher.py", "core/loader.py",
-          "core/splits.py", "data/datasets.py"] + sorted(
+          "core/splits.py", "core/replication.py", "core/federation.py",
+          "core/tenancy.py", "core/multihost.py", "core/scenarios.py",
+          "core/competitors.py", "data/datasets.py"] + sorted(
               str(p.relative_to(REF)) for p in (REF / "configs").glob("*.py"))
 # The one string a copy may change: get_arch imports the port's configs.
 RENAMED = {"repro.configs.{arch_id}": "repro_torch.configs.{arch_id}"}
+# Copies outside the package: (the port's file, the original), from the root.
+COPIED_PAIRS = [("benchmarks/torch_common.py", "benchmarks/common.py")]
 COPIED_FUNCTIONS = [("kernels/ref.py", "crop_mirror_normalize_np"),
                     ("data/pipeline.py", "batch_to_numpy")]
 
@@ -44,8 +48,18 @@ def _port_modules():
                   for p in PORT.rglob("*.py"))
 
 
+def _bench_modules():
+    return sorted(f"benchmarks.{p.stem}" for p in
+                  (ROOT / "benchmarks").glob("*.py")
+                  if p.stem.startswith(("bench_torch_", "torch_")))
+
+
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
-    mods = _port_modules() + ["chip_smoke"]
+    benches = _bench_modules()
+    assert {"benchmarks.torch_common", "benchmarks.torch_gate",
+            "benchmarks.bench_torch_wirefmt",
+            "benchmarks.bench_torch_multihost"} <= set(benches)
+    mods = _port_modules() + benches + ["chip_smoke"]
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -170,10 +184,13 @@ def _renamed(source: str) -> str:
     return source
 
 
-@pytest.mark.parametrize("rel", COPIED)
-def test_copied_module_equals_original(rel):
-    port = ast.parse((PORT / rel).read_text())
-    ref = ast.parse(_renamed((REF / rel).read_text()))
+@pytest.mark.parametrize("port_path,ref_path",
+                         [(PORT / rel, REF / rel) for rel in COPIED]
+                         + [(ROOT / a, ROOT / b) for a, b in COPIED_PAIRS],
+                         ids=COPIED + [a for a, _ in COPIED_PAIRS])
+def test_copied_module_equals_original(port_path, ref_path):
+    port = ast.parse(port_path.read_text())
+    ref = ast.parse(_renamed(ref_path.read_text()))
     assert _strip_imports(port) == _strip_imports(ref)
 
 

@@ -2,7 +2,7 @@
 and ``repro_torch.core`` ingest the same seeded dataset and deliver the same
 uuids, batch order, labels, payload bytes, event times and stats on every
 configuration below; and ``build_stack`` rejects what the reference
-rejects for a single host."""
+rejects for a single host, and a ``repro`` config object."""
 
 import itertools
 
@@ -118,9 +118,14 @@ def test_build_stack_validation_matches_reference(case, stores):
 
 
 def test_port_rejects_multihost_config(stores):
+    """The port shares no types with ``repro``: a reference
+    ``MultiHostConfig`` is not the port's, and is refused as any other
+    foreign config is."""
     store, uuids = stores[port_core]
     cfg = ref_core.MultiHostConfig(n_hosts=2, batch_size=64, route="low",
                                    n_nodes=2)
-    with pytest.raises(TypeError, match="multi-host stacks are queued"):
+    assert not isinstance(cfg, port_core.MultiHostConfig)
+    with pytest.raises(TypeError, match="LoaderConfig or MultiHostConfig, "
+                                        "got MultiHostConfig"):
         port_core.build_stack(store=store, uuids=uuids, config=cfg,
                               device="cpu")
