@@ -76,9 +76,7 @@ def run_ours(store, uuids, route: str, n_batches: int) -> float:
     cfg = LoaderConfig(batch_size=BATCH, prefetch_buffers=16, io_threads=16,
                        conns_per_thread=2, route=route, backend="scylla",
                        seed=SEED, flow_control="adaptive")
-    # A stack without a feed touches no device; "cpu" keeps build_stack
-    # from asking for a card it would not use.
-    stack = build_stack(store=store, uuids=uuids, config=cfg, device="cpu")
+    stack = build_stack(store=store, uuids=uuids, config=cfg)
     res = tight_loop(stack.loader, n_batches, timeout=3000.0)
     return res["throughput_Bps"]
 

@@ -1,6 +1,17 @@
-"""Multi-host loading on the port: the 1000-host scale-out and hot-key
-replication.  The twin of ``benchmarks/bench_multihost.py --scale`` and
-``--replication`` for ``repro_torch``.
+"""Multi-host loading on the port: N hosts against one shared cluster, the
+1000-host scale-out and hot-key replication.  The twin of
+``benchmarks/bench_multihost.py`` for ``repro_torch``.
+
+* no flag: the reference's scaling table (1, 2, 4, 8 clients on a 4-node
+  rf=2 cluster with 10 GbE node NICs), placement policies, elastic
+  N -> M restores, the two-cluster federation with a cluster outage, and
+  a node failure: ``run``, ``_cfg``, ``_fed_cfg`` and
+  ``_federation_section``, copied with only their imports rewritten and
+  their files named ``results/multihost_scaling_torch.csv`` and
+  ``results/multihost_federation_torch.json``
+  (``tests/test_torch_isolation.py`` holds each function equal to the
+  original; no baseline: ``tests/test_torch_bench_figures.py`` holds the
+  rows equal to the reference's);
 
 * ``--scale``: 1000 training hosts over a 3-cluster local/med/high
   federation in one virtual run (``MultiHostRun``, cluster-aware
@@ -21,26 +32,189 @@ equality; the checks are the reference's.  Results land in
 ``results/multihost_{scale,replication}_torch.json``.
 
     PYTHONPATH=src python -m benchmarks.bench_torch_multihost \\
-        (--scale | --replication) [--quick]
+        [--scale | --replication] [--quick]
 
 The simulation runs in the host's numpy and touches no device, so the
-bench takes no ``--device`` and needs no card.  The reference's scaling,
-placement, elastic and federation tables (``bench_multihost.run``) have no
-baseline and no twin.
+bench takes no ``--device`` and needs no card.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 import time
 
 from repro_torch.core import ClusterSpec, MultiHostConfig, MultiHostRun
 
 from . import torch_gate
-from .torch_common import make_store
+from .torch_common import RESULTS_DIR, make_store, write_csv
 
 NODE_EGRESS = 1.25e9        # 10 GbE per storage node
+N_NODES = 4
+ROUNDS = 60
+
+
+def _cfg(n_hosts: int, seed: int = 11, placement: str = "contiguous"
+         ) -> MultiHostConfig:
+    return MultiHostConfig(n_hosts=n_hosts, batch_size=256,
+                           prefetch_buffers=8, io_threads=8,
+                           route="high", backend="scylla",
+                           n_nodes=N_NODES, replication_factor=2,
+                           hedge_after=1.0, seed=seed,
+                           node_egress_bandwidth=NODE_EGRESS,
+                           placement=placement)
+
+
+def run(seed: int = 11) -> str:
+    store, uuids = make_store(n_samples=200_000)
+    lines = [f"{'clients':>7s} {'agg MB/s':>9s} {'per-client MB/s':>16s} "
+             f"{'fairness':>8s} {'node egress spread':>18s}"]
+    rows = []
+    for n in (1, 2, 4, 8):
+        rep = MultiHostRun(store, uuids, _cfg(n, seed)).run(ROUNDS)
+        per = [b / 1e6 for b in rep["per_client_Bps"]]
+        load = rep["cluster_load"]
+        egress = [v["egress_bytes"] for v in load.values()]
+        spread = max(egress) / max(min(egress), 1)
+        lines.append(f"{n:7d} {rep['aggregate_Bps']/1e6:9.0f} "
+                     f"{min(per):7.0f}-{max(per):<8.0f} "
+                     f"{rep['fairness']:8.2f} {spread:18.2f}")
+        rows.append(f"{n},{rep['aggregate_Bps']/1e6:.1f},"
+                    f"{min(per):.1f},{max(per):.1f},{rep['fairness']:.3f}")
+
+    # -- placement policies: contiguous vs token-aware ----------------------
+    lines.append("")
+    lines.append(f"placement policies (4 clients, {N_NODES}-node rf=2):")
+    lines.append(f"  {'policy':>12s} {'agg MB/s':>9s} "
+                 f"{'replica-local':>13s} {'egress imbalance':>16s}")
+    for policy in ("contiguous", "token_aware"):
+        rep = MultiHostRun(store, uuids,
+                           _cfg(4, seed, placement=policy)).run(ROUNDS // 2)
+        lines.append(f"  {policy:>12s} {rep['aggregate_Bps']/1e6:9.0f} "
+                     f"{rep['replica_local_hit_frac']:13.2f} "
+                     f"{rep['egress_imbalance']:16.2f}")
+        rows.append(f"4/{policy},{rep['aggregate_Bps']/1e6:.1f},,,"
+                    f"{rep['fairness']:.3f}")
+
+    # -- elastic resharding: N-host checkpoint restored onto M hosts --------
+    lines.append("")
+    lines.append("elastic resharding (checkpoint with N, restore with M):")
+    for old_n, new_n, fail in ((4, 2, None), (2, 8, None), (4, 2, "node2")):
+        before = MultiHostRun(store, uuids, _cfg(old_n, seed)).start()
+        rep0 = before.run(ROUNDS // 4)
+        ck = before.checkpoint()
+        after = MultiHostRun(store, uuids, _cfg(new_n, seed)).start(ck)
+        if fail is not None:
+            after.inject_failure(fail, after=0.5)
+        rep1 = after.run(ROUNDS // 4)
+        note = f" ({fail} dark mid-restore)" if fail else ""
+        lines.append(f"  {old_n} -> {new_n} hosts{note}: "
+                     f"{rep0['aggregate_Bps']/1e6:.0f} -> "
+                     f"{rep1['aggregate_Bps']/1e6:.0f} MB/s aggregate, "
+                     f"fairness {rep1['fairness']:.2f}, "
+                     f"failovers {rep1['failovers']}")
+        rows.append(f"{old_n}to{new_n}{'+fail' if fail else ''},"
+                    f"{rep1['aggregate_Bps']/1e6:.1f},,,"
+                    f"{rep1['fairness']:.3f}")
+
+    # -- multi-cluster federation: local + intercontinental -----------------
+    lines.append("")
+    lines.extend(_federation_section(store, uuids, seed, rows))
+
+    # -- node-failure scenario: node goes dark 25% into the run -------------
+    lines.append("")
+    lines.append("node-failure scenario (4 clients, node1 dark mid-run):")
+    run4 = MultiHostRun(store, uuids, _cfg(4, seed)).start()
+    warm = run4.run(ROUNDS // 4)
+    run4.inject_failure("node1", after=0.0)
+    rep = run4.run(3 * ROUNDS // 4)         # completes or raises TimeoutError
+    lines.append(f"  before: {warm['aggregate_Bps']/1e6:.0f} MB/s   "
+                 f"after failure: {rep['aggregate_Bps']/1e6:.0f} MB/s   "
+                 f"failovers: {rep['failovers']}   "
+                 f"all {4 * 3 * ROUNDS // 4} batches delivered")
+    rows.append(f"4+fail,{rep['aggregate_Bps']/1e6:.1f},,,"
+                f"{rep['fairness']:.3f}")
+    write_csv("multihost_scaling_torch.csv",
+              "clients,agg_MBps,client_min_MBps,client_max_MBps,fairness",
+              rows)
+    return "\n".join(lines)
+
+
+def _fed_cfg(routes, seed: int) -> MultiHostConfig:
+    """4 hosts over a 2-cluster federation.  prefetch_buffers/ramp_every are
+    sized so the in-flight window covers the intercontinental route's
+    bandwidth-delay product (~150 ms x ~2.4 GB/s per host) — the same
+    deeper-prefetch story as the paper's Sec. 3.4, one level up."""
+    specs = tuple(ClusterSpec(name, route=route, n_nodes=N_NODES,
+                              replication_factor=2,
+                              node_egress_bandwidth=NODE_EGRESS)
+                  for name, route in routes)
+    return MultiHostConfig(n_hosts=4, batch_size=256, prefetch_buffers=24,
+                           io_threads=8, ramp_every=1, hedge_after=1.0,
+                           seed=seed, placement="cluster_aware",
+                           clusters=specs)
+
+
+def _federation_section(store, uuids, seed: int, rows) -> list:
+    lines = ["multi-cluster federation (4 clients, 2x 4-node rf=2 clusters, "
+             "cluster-aware placement):"]
+    lines.append(f"  {'scenario':>22s} {'agg MB/s':>9s} {'WAN share':>9s} "
+                 f"{'replica-local':>13s} {'cluster failovers':>17s}")
+    emitted = {}
+
+    def row(tag, rep):
+        lines.append(f"  {tag:>22s} {rep['aggregate_Bps']/1e6:9.0f} "
+                     f"{rep.get('wan_bytes_share', 0.0):9.2f} "
+                     f"{rep['replica_local_hit_frac']:13.2f} "
+                     f"{rep.get('cluster_failovers', 0):17d}")
+        rows.append(f"fed/{tag.replace(' ', '_')},"
+                    f"{rep['aggregate_Bps']/1e6:.1f},,,"
+                    f"{rep['fairness']:.3f}")
+        emitted[tag] = rep
+
+    # baseline: same federated topology, but both clusters in-region
+    base = MultiHostRun(store, uuids, _fed_cfg(
+        (("dc0", "local"), ("dc1", "local")), seed)).run(ROUNDS)
+    row("all-local", base)
+
+    # half the keyspace an ocean away (one local + one intercontinental)
+    fed = MultiHostRun(store, uuids, _fed_cfg(
+        (("onprem", "local"), ("overseas", "high")), seed)).run(ROUNDS)
+    row("local+intercontinental", fed)
+    ratio = base["aggregate_Bps"] / max(fed["aggregate_Bps"], 1.0)
+    lines.append(f"  -> federation sustains 1/{ratio:.2f} of all-local "
+                 f"aggregate (target: within 2x)"
+                 + ("" if ratio <= 2.0 else "  [MISSED]"))
+    egress = fed["per_cluster_egress_share"]
+    lines.append("  -> per-cluster egress share: "
+                 + ", ".join(f"{c}={v:.2f}" for c, v in egress.items()))
+
+    # cluster-level outage: the intercontinental member goes dark mid-run
+    # and its keys degrade to the surviving (replica) cluster
+    out = MultiHostRun(store, uuids, _fed_cfg(
+        (("onprem", "local"), ("overseas", "high")), seed)).start()
+    warm = out.run(ROUNDS // 3)
+    out.inject_cluster_outage("overseas", after=0.0)
+    degraded = out.run(2 * ROUNDS // 3)
+    row("overseas dark", degraded)
+    lines.append(f"  -> outage: {warm['aggregate_Bps']/1e6:.0f} -> "
+                 f"{degraded['aggregate_Bps']/1e6:.0f} MB/s, WAN share "
+                 f"{warm['wan_bytes_share']:.2f} -> "
+                 f"{degraded['wan_bytes_share']:.2f}, all "
+                 f"{4 * 2 * ROUNDS // 3} batches delivered")
+    emitted["overseas warm"] = warm
+
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    path = os.path.join(RESULTS_DIR, "multihost_federation_torch.json")
+    with open(path, "w") as f:
+        json.dump({"seed": seed, "rounds": ROUNDS,
+                   "all_local_over_federated_ratio": ratio,
+                   "scenarios": emitted}, f, indent=2, sort_keys=True)
+    lines.append(f"  (full reports: {os.path.relpath(path)})")
+    return lines
+
 
 # ---------------------------------------------------------------------------
 # 1000-host scale-out: the calendar-queue event core at full width
@@ -249,7 +423,7 @@ def print_replication(r: dict) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    section = ap.add_mutually_exclusive_group(required=True)
+    section = ap.add_mutually_exclusive_group()
     section.add_argument("--scale", action="store_true",
                          help="the 1000-host x 3-cluster scale point")
     section.add_argument("--replication", action="store_true",
@@ -258,6 +432,11 @@ def main(argv=None) -> int:
                     help="CI size: the baseline's sizing")
     args = ap.parse_args(argv)
     tag = " (quick)" if args.quick else ""
+    if not (args.scale or args.replication):
+        print(f"# Multi-host scaling — {N_NODES}-node cluster, 10 GbE node "
+              "NICs, high-latency route (repro_torch)")
+        print(run())
+        return 0
     if args.scale:
         print("# 1000-host scale-out (repro_torch)" + tag)
         results = run_scale(quick=args.quick)

@@ -1,6 +1,16 @@
-"""Adaptive flow control against a static depth sweep, on the port's
-loader.  The twin of ``benchmarks/bench_ramp.py --flowctl`` for
-``repro_torch``.
+"""Eager against incremental prefetch ramp, and adaptive flow control
+against a static depth sweep, on the port's loader.  The twin of
+``benchmarks/bench_ramp.py`` for ``repro_torch``.
+
+The ramp table (the paper's Sec. 3.4 ablation) is the reference's ``run``
+and ``_run``, copied with only their imports rewritten and the CSV named
+``results/ramp_ablation_torch.csv`` (``tests/test_torch_isolation.py``
+holds each function equal to the original): 8 consumers on one client NIC
+over the 150 ms route, 8 buffers of 512 each, posted at once (eager) or
+one more per 4 consumed (incremental); the warm-up time, MB/s, p99 gap and
+initial requests.  It runs first unless ``--flowctl`` is given.
+
+The flow-control section:
 
 Static prefetch depths are swept against the BDP-tracking controller
 (``core/flowctl.py``) on the local / medium / intercontinental routes, plus
@@ -13,12 +23,13 @@ static depth on the 150 ms route, steady-state depth <= 2x the true route
 BDP on the local route, and the WAN member ramps deeper than the local
 one.  Results land in ``results/flowctl_ramp_torch.json``.
 
-    PYTHONPATH=src python -m benchmarks.bench_torch_ramp --flowctl \\
+    PYTHONPATH=src python -m benchmarks.bench_torch_ramp [--flowctl] \\
         [--quick]
 
-The sweep runs in the host's numpy and touches no device, so the bench
-takes no ``--device`` and needs no card.  The reference's eager vs
-incremental ramp table (``bench_ramp.run``) has no baseline and no twin.
+Both sections run in the host's numpy and touch no device, so the bench
+takes no ``--device`` and needs no card.  The ramp table has no baseline:
+``tests/test_torch_bench_figures.py`` holds its rows equal to the
+reference's.
 """
 
 from __future__ import annotations
@@ -27,14 +38,81 @@ import argparse
 import math
 import sys
 
-from repro_torch.core import (CassandraLoader, ClusterSpec, LoaderConfig,
-                              MultiHostConfig, MultiHostRun)
-from repro_torch.core.netsim import route_bdp_samples
+import numpy as np
+
+from repro_torch.core import (CassandraLoader, Cluster, ClusterSpec,
+                              LoaderConfig, MultiHostConfig, MultiHostRun,
+                              VirtualClock)
+from repro_torch.core.connection import ConnectionPool
+from repro_torch.core.netsim import (NIC_BANDWIDTH, TIERS, RateResource,
+                                     route_bdp_samples)
+from repro_torch.core.prefetcher import (EpochPlan, PrefetchConfig,
+                                         make_prefetcher)
 
 from . import torch_gate
-from .torch_common import make_store
+from .torch_common import make_store, write_csv
 
 BATCH = 512
+N_GPUS = 8
+WARMUP_BATCHES = 16           # per consumer
+
+
+def _run(ramp: bool, seed: int = 3) -> dict:
+    store, uuids = make_store()
+    clock = VirtualClock()
+    cluster = Cluster(clock, store, backend="scylla", seed=seed)
+    shared = RateResource("client/ingress", NIC_BANDWIDTH)
+    pfs = []
+    for g in range(N_GPUS):
+        pool = ConnectionPool(clock, cluster, TIERS["high"], io_threads=4,
+                              seed=seed + 31 * g)
+        pool.ingress = shared
+        for c in pool.connections:
+            c._client_ingress = shared
+        plan = EpochPlan(uuids, seed=seed, shard_id=g, num_shards=N_GPUS)
+        pf = make_prefetcher(clock, pool, plan,
+                             PrefetchConfig(batch_size=BATCH, num_buffers=8,
+                                            incremental_ramp=ramp))
+        pf.start()
+        pfs.append(pf)
+    initial_reqs = sum(p.pool.requests_sent for p in pfs)
+
+    done = [0] * N_GPUS
+    while min(done) < WARMUP_BATCHES:
+        g = int(np.argmin(done))
+        pfs[g].next_batch(timeout=3000.0)
+        done[g] += 1
+    t_warm = clock.now()
+    total_bytes = sum(sum(p.stats.batch_nbytes) for p in pfs)
+    gaps = np.concatenate([p.stats.batch_times()[1:] for p in pfs]) * 1e3
+    return {"t_warmup_s": t_warm,
+            "warmup_MBps": total_bytes / t_warm / 1e6,
+            "p99_gap_ms": float(np.percentile(gaps, 99)),
+            "initial_requests": initial_reqs}
+
+
+def run() -> str:
+    lines = [f"{'ramp':12s} {'warmup time(s)':>14s} {'warmup MB/s':>12s} "
+             f"{'p99 gap(ms)':>12s} {'initial reqs':>13s}"]
+    rows = []
+    for ramp in (False, True):
+        r = _run(ramp)
+        name = "incremental" if ramp else "eager"
+        lines.append(f"{name:12s} {r['t_warmup_s']:14.2f} "
+                     f"{r['warmup_MBps']:12.0f} {r['p99_gap_ms']:12.1f} "
+                     f"{r['initial_requests']:13d}")
+        rows.append(f"{name},{r['t_warmup_s']:.2f},{r['warmup_MBps']:.0f},"
+                    f"{r['p99_gap_ms']:.1f},{r['initial_requests']}")
+    write_csv("ramp_ablation_torch.csv",
+              "ramp,warmup_time_s,warmup_MBps,p99_gap_ms,initial_requests",
+              rows)
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Static-depth sweep vs adaptive flow control (core/flowctl.py)
+# ---------------------------------------------------------------------------
+
 FLOW_ROUTES = ("local", "med", "high")
 STATIC_SWEEP = (2, 4, 8, 16, 32)
 
@@ -162,10 +240,15 @@ def print_flowctl(results: dict) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--flowctl", action="store_true",
-                    help="the flow-control section (the only section)")
+                    help="only the flow-control section")
     ap.add_argument("--quick", action="store_true",
                     help="CI size: the baseline's sizing")
     args = ap.parse_args(argv)
+    if not args.flowctl:
+        print("# Sec. 3.4 — incremental vs eager prefetch ramp "
+              "(8 consumers, high latency)")
+        print(run())
+        print()
     print("# Flow control — static depth sweep vs BDP-tracking controller "
           "(repro_torch)" + (" (quick)" if args.quick else ""))
     results = run_flowctl(quick=args.quick)

@@ -1,6 +1,16 @@
-"""Goodput of the port's training path: the real loader -> DeviceFeed ->
-train step, swept over route x flow control.  The twin of
-``benchmarks/bench_training.py --goodput`` for ``repro_torch``.
+"""Training-side benchmarks on the port: the simulated Table-4 sweep and
+the goodput of the real loader -> DeviceFeed -> train step.  The twin of
+``benchmarks/bench_training.py`` for ``repro_torch``.
+
+**Table 4** (``--table4``): the reference's ``run_table4``, ``run_ours``,
+``run_sd`` and ``_consume_round_robin``, copied with only their imports
+rewritten and the CSV named ``results/table4_training_torch.csv``
+(``tests/test_torch_isolation.py`` holds each function equal to the
+original): 8 consumers each with its own loader shard share the client
+NIC and the storage node, and take a batch, then "train" for the paper's
+no-I/O step time, on the virtual clock; no device.
+
+**Goodput** (``--goodput``, the rest of this docstring):
 
 It drives ``repro_torch``'s ``run_training`` on a tiny LM (the reference
 bench's config) over ``CassandraLoader`` (materialized token payloads)
@@ -16,10 +26,11 @@ stalls no less, goodput stays under the compute bound, and an in-order
 checkpoint->restore through ``DeviceFeed.state()`` is exactly-once.
 Results land in ``results/training_goodput_torch.json``.
 
-    PYTHONPATH=src python -m benchmarks.bench_torch_training --goodput \\
-        [--quick] [--device cpu]
+    PYTHONPATH=src python -m benchmarks.bench_torch_training \\
+        [--table4 | --goodput] [--quick] [--device cpu]
 
-``--device`` defaults to ``cuda`` (a card is needed); ``cpu`` runs the
+With neither flag both sections run, as in the reference.  ``--device``
+(goodput only) defaults to ``cuda`` (a card is needed); ``cpu`` runs the
 same path on the CPU with identical goodput numbers.
 """
 
@@ -29,14 +40,117 @@ import argparse
 import json
 import os
 
+import numpy as np
+
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import KVStore, LoaderConfig, build_stack
+from repro_torch.core import (Cluster, KVStore, LoaderConfig, VirtualClock,
+                              build_stack)
+from repro_torch.core.competitors import RecordShardLoader, build_shards
+from repro_torch.core.netsim import NIC_BANDWIDTH, RateResource
 from repro_torch.data.datasets import SyntheticTokenDataset, ingest
 from repro_torch.models import build_model
 from repro_torch.train.loop import TrainLoopConfig, run_training
 from repro_torch.train.optimizer import OptimizerConfig
 
-RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "results")
+from .torch_common import RESULTS_DIR, make_store, write_csv
+
+# ---------------------------------------------------------------------------
+# Table 4 — simulated 8-GPU sweep
+# ---------------------------------------------------------------------------
+
+N_GPUS = 8
+NO_IO_IMGS_PER_S = 11199.0          # paper's fixed-tensor upper bound
+BATCH = 512
+STEP_TIME = BATCH / (NO_IO_IMGS_PER_S / N_GPUS)   # per-GPU step seconds
+
+PAPER = {"cassandra-dali": {"low": 10608, "med": 10587, "high": 10485},
+         "mosaicml-sd": {"low": 6209, "med": 5424, "high": 3992}}
+
+
+def _consume_round_robin(clock, loaders, n_batches: int, step_time: float,
+                         timeout: float = 600.0) -> float:
+    """The Table-4 consumer model: round-robin over per-GPU loaders, one
+    fixed-cost step per batch.  Returns aggregate samples/s."""
+    t_next = [0.0] * len(loaders)
+    done = [0] * len(loaders)
+    t0 = None
+    while min(done) < n_batches:
+        g = int(np.argmin(t_next))
+        if clock.now() < t_next[g]:
+            clock.sleep(t_next[g] - clock.now())
+        loaders[g].next_batch(timeout=timeout)
+        if t0 is None:
+            t0 = clock.now()
+        done[g] += 1
+        t_next[g] = max(clock.now(), t_next[g]) + step_time
+    return sum(done) * BATCH / max(clock.now() - t0, 1e-9)
+
+
+def run_ours(route: str, seed: int = 1, n_batches: int = 60) -> float:
+    """8 loaders (one per GPU) sharing one cluster + client NIC.
+
+    Each GPU's stack comes from one ``build_stack`` call; the shared clock,
+    cluster, and client-NIC ``RateResource`` are passed through, so all
+    eight loaders contend on the same simulated machine — the facade
+    spelling of what this bench used to hand-wire from pool + plan +
+    prefetcher parts.
+    """
+    store, uuids = make_store()
+    clock = VirtualClock()
+    cluster = Cluster(clock, store, backend="scylla", seed=seed)
+    shared_ingress = RateResource("client/ingress", NIC_BANDWIDTH)
+    loaders = []
+    for g in range(N_GPUS):
+        # one shared plan seed (every shard computes the same global
+        # shuffle); pool randomness decorrelates per shard_id inside the
+        # loader
+        cfg = LoaderConfig(batch_size=BATCH, prefetch_buffers=8, io_threads=4,
+                           route=route, seed=seed, shard_id=g,
+                           num_shards=N_GPUS)
+        stack = build_stack(store=store, uuids=uuids, config=cfg,
+                            clock=clock, cluster=cluster,
+                            ingress=shared_ingress, start=True)
+        loaders.append(stack.loader)
+    return _consume_round_robin(clock, loaders, n_batches, STEP_TIME)
+
+
+def run_sd(route: str, seed: int = 1, n_batches: int = 40) -> float:
+    store, uuids = make_store()
+    clock = VirtualClock()
+    cluster = Cluster(clock, store, backend="scylla", seed=seed)
+    shards = build_shards(store, uuids)
+    per = len(shards) // N_GPUS
+    # per-rank SD keeps only a small shard lookahead (library default);
+    # aggregate supply across 8 ranks is what the paper's Table 4 measures
+    loaders = [RecordShardLoader(clock, cluster, route,
+                                 shards[g * per:(g + 1) * per],
+                                 batch_size=BATCH, predownload=2,
+                                 seed=seed + g).start()
+               for g in range(N_GPUS)]
+    return _consume_round_robin(clock, loaders, n_batches, STEP_TIME,
+                                timeout=5000.0)
+
+
+def run_table4() -> str:
+    lines = [f"{'loader':16s} {'tier':5s} {'img/s':>8s} {'% of bound':>10s} "
+             f"{'paper':>7s}"]
+    rows = []
+    for name, fn in [("cassandra-dali", run_ours), ("mosaicml-sd", run_sd)]:
+        for route in ("low", "med", "high"):
+            v = fn(route)
+            pct = 100.0 * v / NO_IO_IMGS_PER_S
+            lines.append(f"{name:16s} {route:5s} {v:8.0f} {pct:9.1f}% "
+                         f"{PAPER[name][route]:>7d}")
+            rows.append(f"{name},{route},{v:.0f},{pct:.1f},"
+                        f"{PAPER[name][route]}")
+    write_csv("table4_training_torch.csv",
+              "loader,tier,img_per_s,pct_of_bound,paper_img_per_s", rows)
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Goodput — real loader -> DeviceFeed -> train step
+# ---------------------------------------------------------------------------
 
 GOODPUT_ROUTES = ("local", "med", "high")
 GOODPUT_FLOW = ("static", "adaptive")
@@ -206,14 +320,23 @@ def print_goodput(results: dict) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--table4", action="store_true",
+                    help="only the simulated Table-4 sweep")
     ap.add_argument("--goodput", action="store_true",
-                    help="the real-path goodput sweep (the only section)")
+                    help="only the real-path goodput sweep")
     ap.add_argument("--quick", action="store_true",
                     help="CI-sized goodput sweep (fewer steps, smaller set)")
     ap.add_argument("--device", default="cuda",
-                    help="where the model and the feed run (default cuda)")
+                    help="where the goodput sweep's model and feed run "
+                         "(default cuda)")
     args = ap.parse_args()
-    print_goodput(run_goodput(quick=args.quick, device=args.device))
+    run_all = not (args.table4 or args.goodput)
+    if args.table4 or run_all:
+        print("# Table 4 — training throughput (8 consumers, no-I/O bound "
+              f"{NO_IO_IMGS_PER_S:.0f} img/s)")
+        print(run_table4())
+    if args.goodput or run_all:
+        print_goodput(run_goodput(quick=args.quick, device=args.device))
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 H100: builds the port's CUDA kernels, holds each against its plain PyTorch
 version, drives the image lane (and its arena bench), the dense Qwen3-4B
-serving path, the Grok-1 and Kimi-K2 MoE serving paths, the Qwen3-4B
-training path and the 1000-host multi-host loader end to end, and times
-the kernels.
+serving path, the Grok-1 and Kimi-K2 MoE serving paths, the Qwen3-4B and
+Grok-1 training paths and the 1000-host multi-host loader end to end, and
+times the kernels.
 
     python3 chip_smoke.py
 
@@ -76,6 +76,22 @@ Phases, in order; any failure raises and exits non-zero:
      the card and on the CPU from one state: the first step's gradients
      and 3 steps' losses within 1e-3; then a restart from a checkpoint on
      the card (the quickstart config) against the run without a stop;
+  C. the MoE training path at full width: Grok-1 (1 of its 64 layers, all
+     8 experts, top-2, bf16, f32 AdamW moments, remat, seeded random
+     weights; the earlier phases' tensors freed first), token records
+     fetched over the simulated WAN by ``build_stack``'s DeviceFeed, 8
+     steps of ``run_training`` at 2 x 2048 tokens (four 512-token chunks a
+     row, each under its checkpoint), with ms per step, tokens/s, peak
+     memory, the losses and MoE metrics, the stall share and a derived
+     share of the bf16 peak over the active parameters; it raises as phase
+     14 does (the router and an expert weight must change; training
+     launches no kernel: its experts are the reference's einsums); then
+     the train step in f32 at 1 layer and d_ff 256 on 1 x 1024 tokens (two
+     chunks) on the card and on the CPU, as phase 15 (no restart); then,
+     on the card, the trained f32 model's training forward (einsums)
+     against its serving forward (the f32 grouped-matmul and
+     flash-attention kernels): logits within 1e-3 and exactly
+     3 x layers x chunks grouped-matmul launches;
  16. the grouped matmul's times at the Grok-1 and Kimi-K2 decode and
      prefill shapes, and at the two chunks off the path, against its
      bound, plain version and ``torch.bmm``;
@@ -121,10 +137,11 @@ from repro_torch.kernels import (crop_norm, decode_attention,  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.moe import n_chunks  # noqa: E402
 from repro_torch.models.params import (count_params, tree_leaves,  # noqa: E402
-                                      tree_map)
+                                      tree_map, tree_unflatten)
 from repro_torch.serve import ServeConfig, ServingEngine  # noqa: E402
 from repro_torch.train.loop import TrainLoopConfig, run_training  # noqa: E402
-from repro_torch.train.optimizer import OptimizerConfig  # noqa: E402
+from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
+                                         adamw_update)
 from repro_torch.train.step import (  # noqa: E402
     init_state, make_prefill_step, make_train_step)
 
@@ -305,6 +322,17 @@ TRAIN_CHECK_B, TRAIN_CHECK_S, TRAIN_CHECK_STEPS = 1, 256, 3
 RESTART_CFG = dict(name="quickstart-lm", family="dense", n_layers=2,
                    d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
                    vocab=2048, head_dim=32, dtype="float32", remat=False)
+# The MoE training path (phase C): Grok-1 at full width, 1 of its 64
+# layers: 5.73e9 parameters (experts 4.83e9, attention 8.8e7, the
+# embedding, which also unembeds, 8.05e8), at 12 B each (bf16 parameters
+# and gradients, f32 moments) 68.7 GB before activations; 2 x 2048 tokens,
+# four 512-token chunks a row.  The f32 check cuts d_ff to 256 (0.93e9
+# parameters, 15 GB at 16 B each on each side) and runs 1 x 1024 tokens,
+# two chunks, for 3 steps.
+MOE_TRAIN_LAYERS = 1
+MOE_TRAIN_B, MOE_TRAIN_S = 2, 2048
+MOE_TRAIN_CHECK_D_FF = 256
+MOE_TRAIN_CHECK_B, MOE_TRAIN_CHECK_S = 1, 1024
 
 
 def make_inputs(seed: int, b: int, h: int, w: int, c: int, oh: int, ow: int,
@@ -1120,24 +1148,38 @@ def time_gmm(device, kind: str) -> dict:
     return out
 
 
+def active_params(cfg, params: dict) -> int:
+    """Parameters a token passes through: all, or for MoE all but the
+    experts' and ``top_k / n_experts`` of the experts'."""
+    n = count_params(params)
+    if not cfg.n_experts:
+        return n
+    experts = sum(params["blocks"]["moe"][k].numel()
+                  for k in ("w_gate", "w_up", "w_down"))
+    return n - experts + experts * cfg.top_k // cfg.n_experts
+
+
 def train_flops(cfg, n_params: int, B: int, S: int) -> int:
-    """Operations of one train step, derived: 6 per parameter and token
-    (forward, and a backward of twice the forward) plus the causal
+    """Operations of one train step, derived: 6 per (active) parameter and
+    token (forward, and a backward of twice the forward) plus the causal
     attention's 4*D per kept (query, key) pair and head, three times over.
-    Remat's second forward is not counted."""
+    Remat's second forward and the experts' capacity slack (their slots
+    are capacity_factor times the routed pairs) are not counted."""
     attn = 4 * B * cfg.n_heads * cfg.resolved_head_dim * causal_pairs(S, S)
     return 6 * n_params * B * S + 3 * cfg.n_layers * attn
 
 
 def drive_training(device, kind: str, cfg, *, batch: int = TRAIN_B,
                    seq: int = TRAIN_S, steps: int = TRAIN_STEPS) -> dict:
-    """Phase 14: the training path through the entry points a user calls:
-    ``init_state``, then ``run_training`` over the simulated WAN (token
-    records fetched by ``build_stack``'s DeviceFeed on route high), with
-    the kernels' launches counted (training runs none: it uses the plain
-    attention, as the reference trains with XLA ops).  Raises on a loss or
-    gradient norm that is not finite, parameters that did not change, or
-    fewer steps than asked."""
+    """Phases 14 and C: the training path through the entry points a user
+    calls: ``init_state``, then ``run_training`` over the simulated WAN
+    (token records fetched by ``build_stack``'s DeviceFeed on route high),
+    with the kernels' launches counted (training runs none: it uses the
+    plain attention and, for MoE, the expert einsums, as the reference
+    trains with XLA ops).  Raises on a loss or gradient norm that is not
+    finite, parameters that did not change (for MoE the router and an
+    expert's weight among them), fewer steps than asked, or a peak above
+    the card's memory."""
     model = build_model(cfg, device=device)
     opt_cfg = OptimizerConfig(total_steps=steps, **TRAIN_OPT)
     if device.type == "cuda":
@@ -1148,13 +1190,18 @@ def drive_training(device, kind: str, cfg, *, batch: int = TRAIN_B,
     out = {"init_s": time.perf_counter() - t0, "batch": batch, "seq": seq}
     params = state["params"]
     n_params = count_params(params)
-    # Views of three weight matrices, updated in place.  (A norm scale of
+    # Views of weight matrices, updated in place.  (A norm scale of
     # 1.0 may not move: a bf16 parameter keeps no f32 master copy, in the
     # reference as here, and an update under half its ulp rounds away.)
+    blocks = params["blocks"]
     probes = {"embedding": params["embed"]["embedding"][:8].detach(),
-              "wq layer 0": params["blocks"]["attn"]["wq"][0, :8].detach(),
-              "w_down last layer":
-                  params["blocks"]["mlp"]["w_down"][-1, :8].detach()}
+              "wq layer 0": blocks["attn"]["wq"][0, :8].detach()}
+    if "moe" in blocks:
+        probes["router last layer"] = blocks["moe"]["router"][-1].detach()
+        probes["w_down expert 0 last layer"] = \
+            blocks["moe"]["w_down"][-1, 0, :8].detach()
+    else:
+        probes["w_down last layer"] = blocks["mlp"]["w_down"][-1, :8].detach()
     before = {k: v.clone() for k, v in probes.items()}
     store = KVStore()
     uuids = ingest(store, SyntheticTokenDataset(
@@ -1171,10 +1218,11 @@ def drive_training(device, kind: str, cfg, *, batch: int = TRAIN_B,
     out["launches"] = launch_counts()
     ss, hist = res["step_stats"], res["history"]
     step_s = statistics.median(ss.compute_s[1:])
-    flops = train_flops(cfg, n_params, batch, seq)
+    n_active = active_params(cfg, params)
+    flops = train_flops(cfg, n_active, batch, seq)
     peak = PEAKS.get(kind)
     out.update({
-        "params": n_params, "steps": ss.steps,
+        "params": n_params, "active_params": n_active, "steps": ss.steps,
         "ms_per_step": step_s * 1e3,
         "ms_per_step_all": [c * 1e3 for c in ss.compute_s],
         "tokens_per_s": batch * seq / step_s,
@@ -1190,7 +1238,10 @@ def drive_training(device, kind: str, cfg, *, batch: int = TRAIN_B,
             flops / step_s / peak["bf16_flops"] if peak else None,
         "changed": {k: float((probes[k].float() - before[k].float()).abs()
                              .max()) for k in probes}})
-    print("training path:", json.dumps(out))
+    for key in ("moe_aux_loss", "moe_z_loss", "moe_dropped_frac"):
+        if key in hist[0]:
+            out[key] = [r[key] for r in hist]
+    print(f"training path, {cfg.name}:", json.dumps(out))
     bad = [r for r in hist if not (np.isfinite(r["loss"])
                                    and np.isfinite(r["grad_norm"]))]
     if bad or len(hist) != steps or ss.steps != steps:
@@ -1201,20 +1252,64 @@ def drive_training(device, kind: str, cfg, *, batch: int = TRAIN_B,
                              f"{out['changed']}")
     if any(out["launches"].values()):
         raise AssertionError(f"training launched kernels: {out['launches']}")
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory / 1e9
+        if not out["peak_GB"] < total:
+            raise AssertionError(f"training peaked at {out['peak_GB']} GB "
+                                 f"of the card's {total} GB")
+    return out
+
+
+def check_train_vs_serving(model, params, tokens) -> dict:
+    """Phase C: under ``torch.no_grad``, the model's training forward (the
+    expert einsums and the plain attention) against its serving forward
+    (the grouped-matmul and flash-attention kernels) on the same
+    parameters and tokens on the card: logits within ``CHECK_TOL``, and
+    the serving forward's launches exactly 3 x layers x chunks grouped
+    matmuls and one flash attention a layer (none on the CPU, where the
+    plain versions run)."""
+    L, S = model.cfg.n_layers, tokens.shape[1]
+    with torch.no_grad():
+        want, want_aux = model.forward(params, tokens, train=True)
+        sync(tokens.device)
+        reset_launches()
+        got, got_aux = model.forward(params, tokens)
+        sync(tokens.device)
+        launches = launch_counts()
+    expect = {name: 0 for name in KERNELS}
+    if tokens.device.type == "cuda":
+        expect.update(grouped_matmul=3 * L * n_chunks(S), flash_attention=L)
+    out = {"tokens": list(tokens.shape), "chunks": n_chunks(S),
+           "launches": launches,
+           "max_abs_diff": float((got - want).abs().max()),
+           "aux_train": {k: float(v) for k, v in want_aux.items()},
+           "aux_serve": {k: float(v) for k, v in got_aux.items()}}
+    print(f"f32 MoE training forward vs serving forward on "
+          f"{tokens.device}:", json.dumps(out))
+    if launches != expect:
+        raise AssertionError(f"serving forward launched {launches}, "
+                             f"expected {expect}")
+    if not (torch.isfinite(got).all() and out["max_abs_diff"] <= CHECK_TOL):
+        raise AssertionError(f"serving logits differ from training logits "
+                             f"by more than {CHECK_TOL}: {out}")
     return out
 
 
 def check_f32_training(device, cfg, *, batch: int = TRAIN_CHECK_B,
                        seq: int = TRAIN_CHECK_S,
-                       steps: int = TRAIN_CHECK_STEPS) -> dict:
-    """Phase 15: the train step in f32 on one state, once on ``device`` and
-    once through the port on the CPU: the first step's gradients (each
-    leaf within ``CHECK_TOL`` of its max |g|) and the loss of each of
-    ``steps`` steps (within ``CHECK_TOL``).  Then a restart on the card:
+                       steps: int = TRAIN_CHECK_STEPS,
+                       restart: bool = True, serving: bool = False) -> dict:
+    """Phases 15 and C: the train step in f32 on one state, once on
+    ``device`` and once through the port on the CPU: the first step's
+    gradients (each leaf within ``CHECK_TOL`` of its max |g|) and the loss
+    of each of ``steps`` steps (within ``CHECK_TOL``).  With ``serving``,
+    the card's trained model then goes through
+    ``check_train_vs_serving``.  With ``restart``, a restart on the card:
     ``run_training`` to a checkpoint and on from it gives the loss curve
     of the run without a stop.  TF32 is off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     opt_cfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
                               total_steps=steps)
     state = init_state(build_model(cfg, device=device), opt_cfg,
@@ -1231,14 +1326,22 @@ def check_f32_training(device, cfg, *, batch: int = TRAIN_CHECK_B,
         leaves = tree_leaves(st["params"])
         for leaf in leaves:
             leaf.requires_grad_(True)
-        grads = [g.to(cpu) for g in torch.autograd.grad(
-            model.train_loss(st["params"], b)[0], leaves)]
+        # The first step as make_train_step takes it (train_loss, autograd,
+        # AdamW), its gradients kept; the rest through make_train_step.
+        loss = model.train_loss(st["params"], b)[0]
+        grads = torch.autograd.grad(loss, leaves)
+        losses = [float(loss.detach())]
+        st["params"], st["opt"], _ = adamw_update(
+            tree_unflatten(st["params"], list(grads)), st["opt"],
+            st["params"], opt_cfg)
+        grads = [g.to(cpu) for g in grads]
         step = make_train_step(model, opt_cfg)
-        losses = []
-        for _ in range(steps):
+        for _ in range(steps - 1):
             st, metrics = step(st, b)
             losses.append(float(metrics["loss"]))
         runs.append((losses, grads))
+        if serving and dev == device:
+            served = check_train_vs_serving(model, st["params"], b["tokens"])
         del st, leaves
     (card_losses, card_grads), (cpu_losses, cpu_grads) = runs
     grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
@@ -1246,18 +1349,39 @@ def check_f32_training(device, cfg, *, batch: int = TRAIN_CHECK_B,
     out = {"card_losses": card_losses, "cpu_losses": cpu_losses,
            "loss_max_abs_diff": max(abs(a - b) for a, b in
                                     zip(card_losses, cpu_losses)),
-           "grad_max_rel_diff": grad_err}
-    with tempfile.TemporaryDirectory() as tmp:
-        out["restart"] = check_restart(device, tmp)
-    print("f32 training, card vs CPU:", json.dumps(out))
+           "grad_max_rel_diff": grad_err,
+           "seconds": time.perf_counter() - t0}
+    if restart:
+        with tempfile.TemporaryDirectory() as tmp:
+            out["restart"] = check_restart(device, tmp)
+    print(f"f32 training of {cfg.name} at {cfg.n_layers} layers, d_ff "
+          f"{cfg.d_ff}, {batch} x {seq}, card vs CPU:", json.dumps(out))
     if not (out["loss_max_abs_diff"] <= CHECK_TOL
             and grad_err <= CHECK_TOL):
         raise AssertionError(f"the card's f32 train step differs from the "
                              f"CPU port's by more than {CHECK_TOL}: {out}")
-    if out["restart"]["max_abs_diff"] > CHECK_TOL:
+    if restart and out["restart"]["max_abs_diff"] > CHECK_TOL:
         raise AssertionError(f"restart from a checkpoint changed the loss "
                              f"curve: {out['restart']}")
+    if serving:
+        out["serving"] = served
     return out
+
+
+def drive_moe_training(device, kind: str) -> dict:
+    """Phase C: Grok-1 at full width (``MOE_TRAIN_LAYERS`` of its layers)
+    trained through ``drive_training``, then its f32 check at
+    ``MOE_TRAIN_CHECK_D_FF`` with the training forward held against the
+    serving forward."""
+    cfg = get_arch(MOE_ARCH).scaled(n_layers=MOE_TRAIN_LAYERS, remat=True)
+    run = drive_training(device, kind, cfg, batch=MOE_TRAIN_B,
+                         seq=MOE_TRAIN_S)
+    free_card()
+    check = check_f32_training(
+        device, cfg.scaled(d_ff=MOE_TRAIN_CHECK_D_FF, dtype="float32"),
+        batch=MOE_TRAIN_CHECK_B, seq=MOE_TRAIN_CHECK_S, restart=False,
+        serving=True)
+    return {"run": run, "check": check}
 
 
 def check_restart(device, directory: str, steps: int = 8) -> dict:
@@ -1349,6 +1473,8 @@ def main() -> int:
     free_card()
     check_f32_training(device, cfg.scaled(                    # phase 15
         n_layers=CHECK_LAYERS, dtype="float32"))
+    free_card()
+    drive_moe_training(device, kind)                          # phase C
     free_card()
     gmm_time = time_gmm(device, kind)                         # phase 16
     drive_multihost_scale()                                   # phase B

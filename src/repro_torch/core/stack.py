@@ -119,8 +119,9 @@ def build_stack(*, store: KVStore, uuids: Sequence[_uuid.UUID],
     Parameters are those of ``repro.core.build_stack`` plus ``device``,
     where the feed puts its tensors: ``"cuda"`` (default) needs a card and
     raises without one; ``"cpu"`` runs the kernels' plain versions.  A
-    ``MultiHostConfig`` stack builds no feed, so it does not use
-    ``device``.
+    stack without a feed (every ``MultiHostConfig`` stack, and a
+    ``LoaderConfig`` one with ``feed=None``) touches no device, so it does
+    not use ``device`` and builds on any host.
     """
     from repro_torch.data.pipeline import resolve_device
 
@@ -145,7 +146,6 @@ def build_stack(*, store: KVStore, uuids: Sequence[_uuid.UUID],
     if not isinstance(config, LoaderConfig):
         raise TypeError(f"config must be a LoaderConfig or MultiHostConfig, "
                         f"got {type(config).__name__}")
-    device = resolve_device(device)
     if feed is not None and not config.materialize:
         raise ValueError(f"feed={feed!r} consumes real payload bytes — set "
                          "materialize=True on the LoaderConfig")
@@ -154,6 +154,7 @@ def build_stack(*, store: KVStore, uuids: Sequence[_uuid.UUID],
                              cluster=cluster, ingress=ingress)
     feed_obj = None
     if feed is not None:
+        device = resolve_device(device)
         feed_obj = _build_feed(feed, loader, seq_len=seq_len,
                                image_shape=image_shape, out_shape=out_shape,
                                feed_prefetch=feed_prefetch,

@@ -189,7 +189,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     check_args(x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise RuntimeError("grouped_matmul has no backward kernel (nor has "
-                           "repro's): the MoE trainer is not ported; call it "
+                           "repro's) and serves only: MoE training runs the "
+                           "expert einsums (moe_apply(train=True)); call it "
                            "under torch.no_grad()")
     _build.require_card(x.device)
     x, w = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, w))

@@ -1,16 +1,16 @@
-"""Training launcher: the port of ``repro.launch.train``'s demo mode.
+"""Training launcher: the port of ``repro.launch.train``.
 
-``--demo`` runs end to end on one host: ingest a synthetic token dataset
-into the KV store and train a reduced model for N steps from the network
-loader (virtual-clock WAN), with checkpoint/restart when
+Runs end to end on one host: ingest a synthetic token dataset into the KV
+store and train the demo model (``--arch demo``) or a config's
+``smoke_config()`` (``--arch grok_1_314b``, ...) for N steps from the
+network loader (virtual-clock WAN), with checkpoint/restart when
 ``--checkpoint-dir`` is given, on one card (``--device cuda``, the
 default) or on the CPU (``--device cpu``)::
 
-    PYTHONPATH=src python -m repro_torch.launch.train --demo --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu
 
-The reference's other mode, lowering the sharded train step for a full
-``--arch`` on a production mesh, comes with the launchers and the dry run
-(ROADMAP A9); without ``--demo`` this launcher raises.
+``--demo`` is accepted and changes nothing: this is the only mode, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ import argparse
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--demo", action="store_true",
-                    help="the single-host end-to-end run (the only mode)")
+                    help="accepted for older command lines; the single-host "
+                         "end-to-end run is the only mode")
     ap.add_argument("--arch", default="demo",
                     help="'demo' (a 4-layer, d=256 LM) or a config id, "
                          "run at its smoke_config()")
@@ -34,10 +35,6 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if not args.demo:
-        raise NotImplementedError(
-            "the production lowering (a sharded train step on a mesh) is "
-            "not ported yet (ROADMAP A9); pass --demo")
 
     from repro_torch.configs.base import ArchConfig, get_arch
     from repro_torch.core import KVStore, LoaderConfig

@@ -5,11 +5,21 @@ Per batch row (one sequence) and per chunk of the sequence: an f32 router,
 softmax and top-k (renormalised gates); Switch aux and z losses; capacity
 ``C = ceil(S*k*cf/E)``; a stable sort of the (token, choice) pairs by
 expert, rank within the expert, drop past C; one gather of the tokens into
-an expert-major ``(E, B*C, d)`` buffer; the three expert products on the
-grouped-matmul kernel (``kernels.ops.grouped_matmul``, one launch each over
-every expert); and a gate-weighted scatter-add back to the tokens.
-Routing, sort, gather, SiLU*up and combine are plain torch, as they are
-XLA in ``repro``.
+an expert-major ``(E, B*C, d)`` buffer; the three expert products; and a
+gate-weighted scatter-add back to the tokens.  Routing, sort, gather,
+SiLU*up and combine are plain torch, as they are XLA in ``repro``.
+
+Two modes share all of it but the expert products:
+- serving (``train=False``, the default): each product is one launch of
+  the grouped-matmul kernel (``kernels.ops.grouped_matmul``) over every
+  expert; the kernel has no backward;
+- training (``train=True``): the products are the reference's einsums in
+  plain torch, differentiable, and with gradients on each chunk of a
+  chunked sequence runs under ``torch.utils.checkpoint``, as the reference
+  wraps its scan body in ``jax.checkpoint``, so the memory per chunk stays
+  bounded.  The dispatch passes gradients to ``x``, the router and the
+  gates as the reference's drop-mode scatters, gather and scatter-add do:
+  the dropped pairs land in a last slot that is cut off, so they get none.
 
 What differs from the reference in form, not in result:
 - the buffer is expert-major ``(E, B, C)`` rather than ``(B, E, C)``, a
@@ -29,6 +39,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
@@ -52,14 +63,23 @@ def n_chunks(S: int, seq_chunk: int = SEQ_CHUNK) -> int:
 
 
 def moe_apply(params: Dict, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25, seq_chunk: int = SEQ_CHUNK
+              capacity_factor: float = 1.25, seq_chunk: int = SEQ_CHUNK,
+              train: bool = False
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (B, S, d), aux metrics (``moe_aux_loss``,
-    ``moe_z_loss``, ``moe_dropped_frac``: 0-d f32, the mean over chunks)."""
-    outs, auxs = zip(*(_moe_chunk(params, xc, top_k=top_k,
-                                  capacity_factor=capacity_factor)
-                       for xc in x.chunk(n_chunks(x.shape[1], seq_chunk),
-                                         dim=1)))
+    ``moe_z_loss``, ``moe_dropped_frac``: 0-d f32, the mean over chunks).
+    ``train`` picks the expert products: the einsums (differentiable,
+    each chunk checkpointed when there are several and gradients are on)
+    or the grouped-matmul kernel."""
+    n = n_chunks(x.shape[1], seq_chunk)
+
+    def chunk(xc):
+        return _moe_chunk(params, xc, top_k=top_k,
+                          capacity_factor=capacity_factor, train=train)
+
+    remat = train and n > 1 and torch.is_grad_enabled()
+    outs, auxs = zip(*(checkpoint(chunk, xc, use_reentrant=False) if remat
+                       else chunk(xc) for xc in x.chunk(n, dim=1)))
     metrics = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
     return torch.cat(outs, dim=1), metrics
 
@@ -74,8 +94,23 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int):
     return logits, probs, gate_vals[..., :top_k], expert_idx[..., :top_k]
 
 
+def _experts_einsum(h: torch.Tensor, params: Dict) -> torch.Tensor:
+    """The expert FFNs as the reference trains them: ``becd,edf->becf``
+    and ``becf,efd->becd``, here over the expert-major (E, N, d) buffer."""
+    g = torch.einsum("end,edf->enf", h, params["w_gate"])
+    u = torch.einsum("end,edf->enf", h, params["w_up"])
+    return torch.einsum("enf,efd->end", F.silu(g) * u, params["w_down"])
+
+
+def _experts_kernel(h: torch.Tensor, params: Dict) -> torch.Tensor:
+    """The expert FFNs for serving: three grouped-matmul launches."""
+    g = ops.grouped_matmul(h, params["w_gate"])
+    u = ops.grouped_matmul(h, params["w_up"])
+    return ops.grouped_matmul(F.silu(g) * u, params["w_down"])
+
+
 def _moe_chunk(params: Dict, x: torch.Tensor, *, top_k: int,
-               capacity_factor: float
+               capacity_factor: float, train: bool = False
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     B, S, d = x.shape
     E = params["router"].shape[-1]
@@ -128,9 +163,8 @@ def _moe_chunk(params: Dict, x: torch.Tensor, *, top_k: int,
     mask = expert_major(filled).reshape(E, B * C, 1)
     h = x.reshape(B * S, d)[token].view(E, B * C, d) * mask.to(x.dtype)
 
-    g = ops.grouped_matmul(h, params["w_gate"])
-    u = ops.grouped_matmul(h, params["w_up"])
-    y = ops.grouped_matmul(F.silu(g) * u, params["w_down"])    # (E, B*C, d)
+    experts = _experts_einsum if train else _experts_kernel
+    y = experts(h, params)                                     # (E, B*C, d)
 
     weight = (expert_major(gate_slot).reshape(E, B * C, 1) * mask)
     updates = (y * weight.to(x.dtype)).reshape(E * B * C, d)

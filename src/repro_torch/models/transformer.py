@@ -19,9 +19,12 @@ Training (``forward(..., train=True)``, ``train_loss``) runs plain torch
 with autograd, as the reference trains with XLA ops: no kernel has a
 backward.  Attention follows the reference's rule: ``dense_attention`` up
 to ``DENSE_ATTN_MAX_SEQ`` tokens and ``chunked_attention`` (recompute
-backward) above; ``cfg.remat`` recomputes each layer in the backward
-(``torch.utils.checkpoint``), as ``jax.checkpoint(nothing_saveable)``
-does.  MoE training is queued (ROADMAP A5).
+backward) above; the MoE experts are the reference's einsums, each
+512-token chunk checkpointed (``models.moe``); ``cfg.remat`` recomputes
+each layer in the backward (``torch.utils.checkpoint``), as
+``jax.checkpoint(nothing_saveable)`` does, with the chunks' checkpoints
+nested inside.  A MoE ``train_loss`` adds the reference's
+``0.01 * moe_aux_loss + 1e-3 * moe_z_loss``.
 """
 
 from __future__ import annotations
@@ -106,12 +109,13 @@ class DecoderLM:
         return [tree_map(lambda t: t[i], parts)
                 for i in range(self.cfg.n_layers)]
 
-    def _ffn(self, lp: Dict, h: torch.Tensor
+    def _ffn(self, lp: Dict, h: torch.Tensor, train: bool = False
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         c = self.cfg
         if self.is_moe:
             return moe_mod.moe_apply(lp["moe"], h, top_k=c.top_k,
-                                     capacity_factor=c.capacity_factor)
+                                     capacity_factor=c.capacity_factor,
+                                     train=train)
         return swiglu(lp["mlp"], h), {}
 
     def _attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -141,7 +145,7 @@ class DecoderLM:
         o = self._attention(q, k, v, positions, train)
         x = x + attn.project_out(lp["attn"], o)
         h = rmsnorm(lp["ln2"], x, c.norm_eps)
-        y, aux = self._ffn(lp, h)
+        y, aux = self._ffn(lp, h, train)
         return x + y, aux
 
     def forward(self, params: Dict, tokens: torch.Tensor,
@@ -151,15 +155,13 @@ class DecoderLM:
         metrics averaged over layers ({} for the other families).  A VLM
         reads ``extras["patch_embeds"]`` (B,P,d), P <= S.
 
-        ``train=False`` (prefill) runs the flash-attention kernel, which
-        has no backward; ``train=True`` runs the differentiable plain
-        attention and, with ``cfg.remat``, recomputes each layer in the
-        backward."""
+        ``train=False`` (prefill) runs the flash-attention and
+        grouped-matmul kernels, which have no backward; ``train=True`` runs
+        the differentiable plain attention and expert einsums and, with
+        ``cfg.remat``, recomputes each layer in the backward.  The MoE
+        metrics are each layer's summed and divided by the layer count,
+        as the reference's scan does."""
         c = self.cfg
-        if train and self.is_moe:
-            raise NotImplementedError(
-                f"{c.name}: MoE training is not ported yet (ROADMAP A5); "
-                "the expert kernel has no backward")
         B, S = tokens.shape
         x = embed(params["embed"], tokens, self.dtype)
         if self.is_vlm:
@@ -187,10 +189,11 @@ class DecoderLM:
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross-entropy of ``batch["tokens"]`` (B,S) under
         ``batch["loss_mask"]`` (B,S) where given; a VLM without a mask
-        scores the text positions only.  Returns (loss, {"xent", "loss"});
-        MoE training raises (ROADMAP A5)."""
+        scores the text positions only.  Returns (loss, {"xent", "loss"}),
+        and for MoE the loss adds ``0.01 * moe_aux_loss + 1e-3 *
+        moe_z_loss`` and the metrics carry the three MoE metrics."""
         tokens = batch["tokens"]
-        logits, _ = self.forward(params, tokens, batch, train=True)
+        logits, aux = self.forward(params, tokens, batch, train=True)
         targets = tokens[:, 1:]
         mask = batch.get("loss_mask")
         mask = mask[:, 1:] if mask is not None else None
@@ -198,7 +201,12 @@ class DecoderLM:
             pos = torch.arange(targets.shape[1], device=tokens.device)[None]
             mask = (pos >= self.cfg.n_patches).float()
         loss = softmax_xent(logits[:, :-1], targets, mask)
-        return loss, {"xent": loss, "loss": loss}
+        metrics = {"xent": loss}
+        if self.is_moe:
+            loss = loss + 0.01 * aux["moe_aux_loss"] + 1e-3 * aux["moe_z_loss"]
+            metrics.update(aux)
+        metrics["loss"] = loss
+        return loss, metrics
 
     # -- decode --------------------------------------------------------------
     def _cache_len(self, seq_len: int) -> int:

@@ -7,8 +7,8 @@ token per engine step through ``decode_step`` (the engine never calls
 prefill), and one ``pos`` per cache is shared by every slot, so a
 linear cache's writes clamp to its last slot once ``pos`` passes its
 length.  The one host sync per step is the greedy ``argmax`` read back to
-the host.  Decoding is greedy (the reference's ``greedy`` and ``seed``
-fields select nothing and are left out).
+the host.  Decoding is greedy; ``ServeConfig.greedy`` and ``seed`` are
+taken and select nothing, as in the reference (whose RNG is never drawn).
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ class ServeConfig:
     max_seq: int = 256
     max_new_tokens: int = 32
     eos_id: int = -1              # -1: run to max_new_tokens
+    greedy: bool = True
+    seed: int = 0
 
 
 @dataclasses.dataclass

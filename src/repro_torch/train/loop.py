@@ -51,8 +51,9 @@ def run_training(model, store: KVStore, uuids, loader_cfg: LoaderConfig,
     ``stats`` is the ``StepStats.summary`` at skip=1 (the first, warm-up
     step excluded) and ``step_stats`` the raw ``core.stats.StepStats`` for
     custom skips.  Beyond the reference's result, each record also carries
-    the step's ``grad_norm``, and ``loader_stats`` is the loader's
-    ``LoaderStats``.
+    the step's ``grad_norm`` (and a MoE model's ``moe_aux_loss``,
+    ``moe_z_loss`` and ``moe_dropped_frac``), and ``loader_stats`` is the
+    loader's ``LoaderStats``.
     """
     opt_cfg = opt_cfg or OptimizerConfig(total_steps=loop_cfg.total_steps)
     step_fn = make_train_step(model, opt_cfg)
@@ -126,6 +127,8 @@ def run_training(model, store: KVStore, uuids, loader_cfg: LoaderConfig,
                    / max(time.time() - t0, 1e-9),
                    "stall_frac": ss.stall_frac(skip=1),
                    "goodput_sps": ss.goodput_sps(B, skip=1)}
+            rec.update((k, float(v)) for k, v in metrics.items()
+                       if k.startswith("moe_"))
             history.append(rec)
             if on_metrics:
                 on_metrics(rec)

@@ -13,16 +13,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
 
 from repro_torch.models.params import tree_leaves, tree_map
 
-# A leaf of 3 or more dims above this many elements (a layer-stacked
-# weight) is updated one leading-axis slice at a time, as the reference's
-# ``upd_leaf`` maps over it, so that the f32 temporaries are per layer
-# (about 0.1 GB at Qwen3-4B) and not per stack (about 3.6 GB).
+# A leaf above this many elements is updated in views of at most this
+# many (0.5 GB of f32 per temporary): a layer-stacked weight one
+# leading-axis slice at a time, as the reference's ``upd_leaf`` maps over
+# it, and further down the stack (Grok-1's experts, (L, 8, 6144, 32768),
+# per expert), a matrix (an embedding, one expert) in blocks of rows.  The
+# update is elementwise, so the bits are those of the whole leaf's.
 CHUNK_ELEMS = 1 << 27
 
 
@@ -54,14 +56,21 @@ def lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
                                  + (1 - cfg.min_lr_ratio) * cos)
 
 
+def _parts(t: torch.Tensor) -> List[torch.Tensor]:
+    """``t`` whole, or views of it of at most ``CHUNK_ELEMS`` elements:
+    cut down its leading axes to matrices, and a matrix into blocks of
+    rows (a single row, or a vector, stays whole)."""
+    if t.numel() <= CHUNK_ELEMS or t.dim() < 2:
+        return [t]
+    if t.dim() == 2:
+        return list(t.split(max(1, CHUNK_ELEMS // t.shape[1])))
+    return [part for s in t.unbind(0) for part in _parts(s)]
+
+
 def _slices(*leaves: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:
-    """The leaves whole, or one leading-axis slice at a time (views) when
-    they are a stacked leaf above ``CHUNK_ELEMS``."""
-    p = leaves[0]
-    if p.dim() >= 3 and p.numel() > CHUNK_ELEMS:
-        yield from zip(*(leaf.unbind(0) for leaf in leaves))
-    else:
-        yield leaves
+    """Matching views of same-shaped leaves (``_parts``), one tuple at a
+    time."""
+    yield from zip(*map(_parts, leaves))
 
 
 def _check_state_dtype(cfg: OptimizerConfig) -> None:

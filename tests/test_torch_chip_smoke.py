@@ -583,3 +583,50 @@ def test_decode_is_checked_and_timed_at_live_and_ragged_lengths():
         assert len(n) == B and all(1 <= x <= T for x in n)
         assert {1, p.tile - 1, p.tile, p.tile + 1, p.split * p.tile,
                 p.split * p.tile + 1, T - 1, T} <= set(n)
+
+
+def test_moe_training_config_is_grok_at_full_width():
+    """Phase C trains Grok-1 at its published widths, all 8 experts top-2
+    and its vocabulary, cut to 1 of 64 layers: 5.73e9 parameters, 68.7 GB
+    at 12 B each (bf16 parameters and gradients, f32 moments), under the
+    card's 80 GB; the derived flops count 2 of the 8 experts a token.
+    Its f32 check cuts only d_ff, to 0.93e9 parameters."""
+    cfg = chip_smoke.get_arch(chip_smoke.MOE_ARCH).scaled(
+        n_layers=chip_smoke.MOE_TRAIN_LAYERS)
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+            cfg.n_experts, cfg.top_k, cfg.vocab, cfg.n_layers, cfg.dtype,
+            cfg.remat) == (6144, 48, 8, 32768, 8, 2, 131072, 1, "bfloat16",
+                           True)
+    specs = chip_smoke.build_model(cfg, device="cpu").param_specs()
+    n = sum(math.prod(shape) for shape in _leaf_shapes(specs))
+    assert n == 5_725_292_544 and 12 * n < 68.71e9
+    assert chip_smoke.MOE_TRAIN_S == 4 * 512              # four chunks a row
+    check = cfg.scaled(d_ff=chip_smoke.MOE_TRAIN_CHECK_D_FF)
+    n_check = sum(math.prod(shape) for shape in _leaf_shapes(
+        chip_smoke.build_model(check, device="cpu").param_specs()))
+    assert 16 * n_check < 15.1e9
+    assert chip_smoke.n_chunks(chip_smoke.MOE_TRAIN_CHECK_S) == 2
+
+
+def test_moe_training_phase_rehearses_on_cpu():
+    """Phase C on the CPU at Grok-1's smoke config: run_training over the
+    loader with the MoE metrics, the probes (router, an expert) moved, no
+    kernel launched; the f32 check (CPU against CPU) at zero, and the
+    training forward against the serving forward (plain versions)."""
+    cpu = torch.device("cpu")
+    cfg = chip_smoke.get_arch(chip_smoke.MOE_ARCH).smoke_config().scaled(
+        n_layers=1, remat=True)
+    run = chip_smoke.drive_training(cpu, "cpu", cfg, batch=2, seq=1024,
+                                    steps=3)
+    assert run["steps"] == 3 and len(run["moe_aux_loss"]) == 3
+    assert set(run["changed"]) == {"embedding", "wq layer 0",
+                                   "router last layer",
+                                   "w_down expert 0 last layer"}
+    experts = 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
+    assert run["active_params"] == run["params"] - experts + experts // 2
+    out = chip_smoke.check_f32_training(
+        cpu, cfg, batch=1, seq=1024, restart=False, serving=True)
+    assert out["loss_max_abs_diff"] == 0.0 and out["grad_max_rel_diff"] == 0
+    assert out["serving"]["chunks"] == 2
+    assert out["serving"]["max_abs_diff"] <= chip_smoke.CHECK_TOL
+    assert "restart" not in out

@@ -36,9 +36,40 @@ COPIED = ["core/stats.py", "core/netsim.py", "core/kvstore.py",
 # The one string a copy may change: get_arch imports the port's configs.
 RENAMED = {"repro.configs.{arch_id}": "repro_torch.configs.{arch_id}"}
 # Copies outside the package: (the port's file, the original), from the root.
-COPIED_PAIRS = [("benchmarks/torch_common.py", "benchmarks/common.py")]
+COPIED_PAIRS = [("benchmarks/torch_common.py", "benchmarks/common.py"),
+                ("benchmarks/bench_torch_tightloop.py",
+                 "benchmarks/bench_tightloop.py"),
+                ("benchmarks/bench_torch_batch_times.py",
+                 "benchmarks/bench_batch_times.py"),
+                ("benchmarks/bench_torch_connections.py",
+                 "benchmarks/bench_connections.py"),
+                ("benchmarks/bench_torch_backends.py",
+                 "benchmarks/bench_backends.py"),
+                ("examples/torch_highlatency_loader.py",
+                 "examples/highlatency_loader.py")]
 COPIED_FUNCTIONS = [("kernels/ref.py", "crop_mirror_normalize_np"),
                     ("data/pipeline.py", "batch_to_numpy")]
+# Bench twins that copy some of a reference bench's top-level functions and
+# constants: (the twin, the original, the names), from the root.
+TWIN_FUNCTIONS = [
+    ("benchmarks/bench_torch_training.py", "benchmarks/bench_training.py",
+     ("N_GPUS", "NO_IO_IMGS_PER_S", "BATCH", "STEP_TIME", "PAPER",
+      "_consume_round_robin", "run_ours", "run_sd", "run_table4")),
+    ("benchmarks/bench_torch_ramp.py", "benchmarks/bench_ramp.py",
+     ("N_GPUS", "BATCH", "WARMUP_BATCHES", "_run", "run")),
+    ("benchmarks/bench_torch_multihost.py", "benchmarks/bench_multihost.py",
+     ("NODE_EGRESS", "N_NODES", "ROUNDS", "_cfg", "run", "_fed_cfg",
+      "_federation_section"))]
+# The strings a twin outside the package changes: the files it writes get a
+# _torch name, so that it never overwrites the reference's, and the
+# example's usage line names the twin.
+TWIN_RENAMED = {f'"{name}.{ext}"': f'"{name}_torch.{ext}"' for name, ext in (
+    ("table3_tightloop", "csv"), ("fig4_batch_times", "csv"),
+    ("fig56_connections", "csv"), ("fig7_backends", "csv"),
+    ("table4_training", "csv"), ("ramp_ablation", "csv"),
+    ("multihost_scaling", "csv"), ("multihost_federation", "json"))}
+TWIN_RENAMED["examples/highlatency_loader.py"] = \
+    "examples/torch_highlatency_loader.py"
 
 
 def _port_modules():
@@ -97,9 +128,14 @@ def _refuse(fn):
 
 
 def test_build_stack_refuses_cuda_without_card():
+    """A stack without a feed touches no device and builds with the
+    default device on any host, as ``repro``'s does; a feed on ``cuda``
+    still needs a card."""
     store, uuids = _small_store()
-    _refuse(lambda: build_stack(store=store, uuids=uuids,
-                                config=LoaderConfig(materialize=True)))
+    stack = build_stack(store=store, uuids=uuids,
+                        config=LoaderConfig(batch_size=8, materialize=True),
+                        start=True)
+    assert stack.feed is None and stack.loader.next_batch() is not None
     _refuse(lambda: build_stack(store=store, uuids=uuids,
                                 config=LoaderConfig(materialize=True),
                                 feed="image", image_shape=(8, 8, 3),
@@ -178,8 +214,8 @@ def _strip_imports(tree: ast.AST) -> str:
     return ast.dump(Strip().visit(tree))
 
 
-def _renamed(source: str) -> str:
-    for old, new in RENAMED.items():
+def _renamed(source: str, renamed=RENAMED) -> str:
+    for old, new in renamed.items():
         source = source.replace(old, new)
     return source
 
@@ -190,8 +226,32 @@ def _renamed(source: str) -> str:
                          ids=COPIED + [a for a, _ in COPIED_PAIRS])
 def test_copied_module_equals_original(port_path, ref_path):
     port = ast.parse(port_path.read_text())
-    ref = ast.parse(_renamed(ref_path.read_text()))
+    renamed = RENAMED if ref_path.is_relative_to(REF) else TWIN_RENAMED
+    ref = ast.parse(_renamed(ref_path.read_text(), renamed))
     assert _strip_imports(port) == _strip_imports(ref)
+
+
+def _top_level(path: Path, renamed=None) -> dict:
+    """Each top-level function and assignment of ``path`` by name, dumped
+    as its AST."""
+    source = path.read_text()
+    out = {}
+    for node in ast.parse(_renamed(source, renamed or {})).body:
+        if isinstance(node, ast.FunctionDef):
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name):
+            out[node.targets[0].id] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize("twin,ref,names", TWIN_FUNCTIONS,
+                         ids=[t for t, _, _ in TWIN_FUNCTIONS])
+def test_twin_functions_equal_originals(twin, ref, names):
+    got = _top_level(ROOT / twin)
+    want = _top_level(ROOT / ref, TWIN_RENAMED)
+    for name in names:
+        assert got[name] == want[name], name
 
 
 def test_copied_configs_are_all_there_and_renamed_once():

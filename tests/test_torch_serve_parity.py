@@ -12,6 +12,8 @@ tokens.  Grok-1's smoke config (4 experts, top-2) is held the same way,
 with the MoE metrics of the forward; InternVL2-2B's smoke config runs its
 forward with patch embeddings through ``make_prefill_step``."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -454,3 +456,13 @@ def test_launcher_refuses_cuda_without_card():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA device"):
         serve.main(["--requests", "2"])
+
+
+def test_serve_config_takes_greedy_and_seed_in_both_packages():
+    """``greedy`` and ``seed`` are fields of both packages' ``ServeConfig``
+    with the same defaults (both select nothing: decoding is greedy)."""
+    kw = dict(batch_slots=8, greedy=True, seed=0)
+    ref, port = JaxServeConfig(**kw), ServeConfig(**kw)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(ServeConfig()) == \
+        dataclasses.asdict(JaxServeConfig())

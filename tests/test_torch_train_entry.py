@@ -1,12 +1,14 @@
 """The port's training entry points on the CPU: the goodput bench twin
 reproduces the reference's committed baseline exactly, the quickstart
-twin and the training launcher run end to end, and the modes that are not
-ported raise and name the ROADMAP item that brings them."""
+twin and the training launcher run end to end, with or without
+``--demo``, for a dense and a MoE config."""
 
 import importlib.util
 import json
+import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from benchmarks import bench_torch_training as bench
@@ -63,6 +65,31 @@ def test_train_launcher_demo_runs_on_cpu(capsys):
     assert "over 2 steps on cpu" in capsys.readouterr().out
 
 
-def test_train_launcher_needs_demo():
-    with pytest.raises(NotImplementedError, match="A9"):
-        launch_train.main(["--device", "cpu"])
+def _launcher_lines(capsys, argv):
+    """The launcher's printed lines, without the samples/s beside each
+    step's loss (wall clock)."""
+    launch_train.main(argv)
+    return re.sub(r" \S+ samples/s", "", capsys.readouterr().out
+                  ).splitlines()
+
+
+def test_train_launcher_needs_demo(capsys):
+    """``--demo`` is no longer needed: a call without it trains, as the
+    reference's launcher does, and prints the losses of a ``--demo``
+    call."""
+    argv = ["--device", "cpu", "--steps", "2", "--batch-size", "4",
+            "--seq-len", "16"]
+    plain = _launcher_lines(capsys, argv)
+    assert plain == _launcher_lines(capsys, ["--demo"] + argv)
+    assert plain[0].startswith("step     1 loss ")
+    assert plain[-1].endswith("over 2 steps on cpu")
+
+
+def test_train_launcher_trains_a_moe_smoke_config(capsys):
+    """``--arch grok_1_314b`` trains its smoke config with no flag."""
+    lines = _launcher_lines(
+        capsys, ["--arch", "grok_1_314b", "--device", "cpu", "--steps", "2",
+                 "--batch-size", "4", "--seq-len", "16"])
+    first, last = re.fullmatch(r"loss (\S+) -> (\S+) over 2 steps on cpu",
+                               lines[-1]).groups()
+    assert np.isfinite(float(first)) and np.isfinite(float(last))

@@ -33,6 +33,7 @@ from repro_torch import convert
 from repro_torch.configs.base import ArchConfig, get_arch
 from repro_torch.core import KVStore, LoaderConfig
 from repro_torch.data.datasets import SyntheticTokenDataset, ingest
+from repro_torch.kernels import ops
 from repro_torch.models import attention, build_model
 from repro_torch.models.params import tree_leaves, tree_unflatten
 from repro_torch.train import optimizer
@@ -193,12 +194,29 @@ def test_train_loss_and_every_gradient_match_reference(name, S, kw):
                         rtol=5e-4, atol=1e-6)
 
 
-def test_moe_training_is_queued():
-    _, pm = _pair("grok_1_314b")
-    params = pm.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A5"):
-        pm.train_loss(params,
-                      {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
+def test_moe_training_is_queued(monkeypatch):
+    """MoE training is ported: Grok-1's smoke ``train_loss`` matches
+    ``repro``'s loss and its five metrics, and it runs the expert einsums,
+    never the serving kernel's dispatcher.  (The gradients, Kimi-K2 and
+    the chunked case: ``tests/test_torch_moe_train_parity.py``.)"""
+    jm, pm = _pair("grok_1_314b")
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    batch = _batch(jm.cfg.vocab, 2, 16)
+    loss, metrics = jm.train_loss(params, batch)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the MoE train path called grouped_matmul")
+
+    monkeypatch.setattr(ops, "grouped_matmul", refuse)
+    p_loss, p_metrics = pm.train_loss(
+        convert.params_from_reference(params, device="cpu"),
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert set(p_metrics) == set(metrics) == {
+        "xent", "loss", "moe_aux_loss", "moe_z_loss", "moe_dropped_frac"}
+    for key in metrics:
+        np.testing.assert_allclose(float(p_metrics[key].detach()),
+                                   float(metrics[key]), **TOL, err_msg=key)
+    np.testing.assert_allclose(float(p_loss.detach()), float(loss), **TOL)
 
 
 def test_forward_for_prefill_is_unchanged_by_train_path():
@@ -271,14 +289,37 @@ def test_clipped_update_matches_reference():
     assert po["step"].dtype == torch.int32 and int(po["step"]) == 1
 
 
+def _stacked_tree(seed, scale=1.0):
+    """``_small_tree`` with a 4-D leaf, stacked experts as Grok-1's
+    (layers, experts, d, f), and a matrix."""
+    rng = np.random.default_rng(seed)
+    tree = _small_tree(seed, scale)
+    tree["experts"] = (scale * rng.standard_normal((2, 3, 4, 6))
+                       ).astype(np.float32)
+    tree["embed"] = (scale * rng.standard_normal((7, 5))).astype(np.float32)
+    return tree
+
+
 def test_per_layer_update_equals_whole_leaf_update(monkeypatch):
     """A stacked leaf updated one layer slice at a time (as at Qwen3-4B's
-    width) gives the bits of the whole-leaf update."""
+    width), a 4-D leaf cut down to one expert's matrix and below (as at
+    Grok-1's), and a matrix in blocks of rows, give the bits of the
+    whole-leaf update; the views cover each leaf once, each within
+    ``CHUNK_ELEMS`` or a single row."""
     kw = dict(peak_lr=1e-2, warmup_steps=2, total_steps=10)
-    params = _small_tree(4)
-    grads = _small_tree(5, scale=0.1)
+    params = _stacked_tree(4)
+    grads = _stacked_tree(5, scale=0.1)
+    for chunk, n_parts in ((1 << 27, 1), (24, 6), (12, 12), (0, 24)):
+        monkeypatch.setattr(optimizer, "CHUNK_ELEMS", chunk)
+        leaf = torch.from_numpy(params["experts"])
+        parts = optimizer._parts(leaf)
+        assert len(parts) == n_parts
+        assert sum(p.numel() for p in parts) == leaf.numel()
+        assert all(p.numel() <= max(chunk, 6) for p in parts)
+        assert torch.equal(torch.cat([p.reshape(-1) for p in parts]),
+                           leaf.reshape(-1))
     outs = []
-    for chunk in (1 << 27, 0):
+    for chunk in (1 << 27, 24, 0):
         monkeypatch.setattr(optimizer, "CHUNK_ELEMS", chunk)
         _, pcfg, _, _, pstate = _state_both(params, kw)
         pgrads = convert.params_from_reference(grads, device="cpu")
@@ -287,8 +328,9 @@ def test_per_layer_update_equals_whole_leaf_update(monkeypatch):
                                          pstate["params"], pcfg)
             pstate = {"params": out[0], "opt": out[1]}
         outs.append(convert.state_to_numpy(pstate))
-    for a, b in zip(jax.tree.leaves(outs[0]), jax.tree.leaves(outs[1])):
-        np.testing.assert_array_equal(a, b)
+    for other in outs[1:]:
+        for a, b in zip(jax.tree.leaves(outs[0]), jax.tree.leaves(other)):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_int8_state_is_queued():

@@ -1,8 +1,9 @@
 """Where the time of the port's train step goes, on one card.
 
-Builds Qwen3-4B (``configs/qwen3_4b.py``; full width, bf16, remat, seeded
-random weights) with ``--layers`` of its 36 layers, runs ``--warmup``
-train steps on a seeded (``--batch`` x ``--seq``) token batch, then:
+Builds ``--arch`` (Qwen3-4B, ``configs/qwen3_4b.py``, by default; any
+dense, MoE or VLM config; full width, bf16, remat, seeded random weights)
+with ``--layers`` of its layers, runs ``--warmup`` train steps on a seeded
+(``--batch`` x ``--seq``) token batch, then:
 
 * times the step's two halves with the host clock around synchronised
   work, as medians over ``--repeats``: the forward and backward
@@ -17,8 +18,10 @@ train steps on a seeded (``--batch`` x ``--seq``) token batch, then:
   share of an unprofiled step is also given, derived as 1 - busy time
   / ``step_ms``.
 
-    python3 tools/torch_train_profile.py [--layers 36] [--batch 2]
-        [--seq 4096]
+    python3 tools/torch_train_profile.py [--arch qwen3_4b] [--layers 36]
+        [--batch 2] [--seq 4096]
+    python3 tools/torch_train_profile.py --arch grok_1_314b --layers 1 \\
+        --seq 2048             # chip_smoke.py's phase C
 
 Needs a CUDA card.  Prints the card's name and power limit first and one
 JSON line of results last.
@@ -71,6 +74,7 @@ def _union_us(spans) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen3_4b")
     ap.add_argument("--layers", type=int, default=36)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=4096)
@@ -85,7 +89,7 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
-    cfg = get_arch("qwen3_4b").scaled(n_layers=args.layers, remat=True)
+    cfg = get_arch(args.arch).scaled(n_layers=args.layers, remat=True)
     model = build_model(cfg, device=dev)
     opt = OptimizerConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
     gen = torch.Generator(dev).manual_seed(0)
@@ -141,7 +145,8 @@ def main(argv=None) -> int:
     print(f"{'kernel':72s} {'calls':>7s} {'device ms':>11s} {'share':>7s}")
     for name, (ms, n) in top:
         print(f"{name[:72]:72s} {n:7d} {ms:11.3f} {ms / wall_ms:7.3f}")
-    out = {"device": torch.cuda.get_device_name(0), "layers": args.layers,
+    out = {"device": torch.cuda.get_device_name(0), "arch": args.arch,
+           "layers": args.layers,
            "batch": args.batch, "seq": args.seq,
            **{k: statistics.median(v) for k, v in halves.items()},
            "step_ms": step_ms,
