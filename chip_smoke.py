@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 H100: builds the port's CUDA kernels, holds each against its plain PyTorch
 version, drives the image lane (and its arena bench), the dense Qwen3-4B
-serving path, the Grok-1 and Kimi-K2 MoE serving paths, the Qwen3-4B and
-Grok-1 training paths and the 1000-host multi-host loader end to end, and
-times the kernels.
+serving path, the Grok-1 and Kimi-K2 MoE serving paths, the Hymba-1.5B,
+xLSTM-350M and Whisper-tiny serving paths, the Qwen3-4B and Grok-1
+training paths and the 1000-host multi-host loader end to end, and times
+the kernels.
 
     python3 chip_smoke.py
 
@@ -32,11 +33,13 @@ Phases, in order; any failure raises and exits non-zero:
      max difference and its own launches (the kernels line counts phase
      4's);
   6. flash attention and flash decode == their plain versions on the card
-     (the reference's kernel sweeps with head dim 112 added, 2e-5 in f32,
-     2e-2 in bf16; every serving path's shapes, Kimi-K2's at head dim 112
-     included, 2e-5 in f32, and in bf16 2**-6 rtol plus 2**-5 of each
-     output row's RMS; bf16 decode also at the engine's live length and at
-     ragged lengths that hit each tile and split boundary);
+     (the reference's kernel sweeps with head dim 112 and G = 5 added, and
+     non-causal attention with S != T, 2e-5 in f32, 2e-2 in bf16; every
+     serving path's shapes, Kimi-K2's at head dim 112, Hymba's windowed
+     prefill and ring and Whisper-tiny's encoder, decoder and
+     cross-attention included, 2e-5 in f32, and in bf16 2**-6 rtol plus
+     2**-5 of each output row's RMS; bf16 decode also at the engine's live
+     length and at ragged lengths that hit each tile and split boundary);
   7. the serving path at full width: Qwen3-4B (36 layers, bf16, seeded
      random weights), prompts fetched over the simulated WAN by
      ``build_stack``, a 4 x 2048 prefill and continuous-batching decode of
@@ -44,7 +47,8 @@ Phases, in order; any failure raises and exits non-zero:
   8. the same path in f32 at 2 layers on the card and on the CPU (the
      kernels' plain versions): prefill and decode logits within 1e-3;
   9. the attention kernels' times at every bf16 path shape (Qwen3-4B's,
-     Grok-1's and Kimi-K2's) against their bounds, plain versions and
+     Grok-1's, Kimi-K2's, Hymba's and Whisper-tiny's, each with its mask)
+     against their bounds, plain versions and
      ``scaled_dot_product_attention``; flash decode also at the engine's
      live lengths, and beside the CUDA-core decode kernel in bf16;
  10. grouped matmul == its plain version on the card: the reference's
@@ -64,8 +68,28 @@ Phases, in order; any failure raises and exits non-zero:
      a 2 x 2048 prefill and continuous-batching decode of 8 prompts, with
      the kernels' launches counted, then the same path in f32 at d_ff 256
      on the card and on the CPU (logits within 1e-3);
+  D. Hymba-1.5B serving at full width and depth (32 layers, 25 query heads
+     over 5 kv heads, a 1024-token window, bf16, seeded random weights;
+     Kimi-K2's tensors freed first): prompts over the simulated WAN, a
+     4 x 2048 prefill and continuous-batching decode of 16 prompts over a
+     1024-slot ring, with exactly 32 flash-attention launches per prefill
+     call and 32 flash-decode launches per engine step; then the same path
+     in f32 at 2 layers on the card and on the CPU, its decode on one slot
+     past the window (a 1050-token prompt, 16 new tokens): logits within
+     1e-3;
+  E. xLSTM-350M serving at full width and depth (24 layers), a 2 x 2048
+     prefill and 16 prompts through the engine, with no kernel launch at
+     all (its cells are plain torch, as the reference's are XLA ops), and
+     the f32 check at 2 layers;
+  F. Whisper-tiny serving at full width and depth (4 encoder and 4 decoder
+     layers): an 8 x 448 prefill with (8, 1500, 384) frames and 16 prompts
+     through the engine over a 448-token cache, with exactly 12
+     flash-attention launches per prefill call (4 encoder, 4 self, 4
+     cross) and 8 flash-decode launches per engine step (4 self, 4 cross
+     over the 1500 frames), and the f32 check of the whole model; each of
+     D, E and F prints its seconds;
  14. the training path at full width and depth: Qwen3-4B (36 layers,
-     bf16, remat, seeded random weights; Kimi-K2's tensors freed first),
+     bf16, remat, seeded random weights; phase F's tensors freed first),
      token records fetched over the simulated WAN by ``build_stack``'s
      DeviceFeed, 8 steps of ``run_training`` (AdamW) at 2 x 4096 tokens,
      with ms per step, tokens/s, peak memory, each step's loss and grad
@@ -127,7 +151,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from benchmarks import bench_torch_multihost  # noqa: E402
 from benchmarks import bench_torch_wirefmt, torch_gate  # noqa: E402
-from repro_torch.configs.base import ArchConfig, get_arch  # noqa: E402
+from repro_torch.configs.base import (ArchConfig, ShapeConfig,  # noqa: E402
+                                      get_arch)
 from repro_torch.core import KVStore, LoaderConfig, build_stack  # noqa: E402
 from repro_torch.data.datasets import (SyntheticPixelDataset,  # noqa: E402
                                        SyntheticTokenDataset, ingest)
@@ -192,12 +217,50 @@ KIMI_ARCH, KIMI_LAYERS = "kimi_k2_1t_a32b", 1
 KIMI_SERVE = dict(n_prompts=8, prompt_len=64, prefill_b=2, prefill_s=2048,
                   slots=8, max_seq=1024, new_tokens=16, n_prefill=2)
 KIMI_CHECK_D_FF = 256
+# The other families' serving paths (phases D, E, F), each at its config's
+# full width and full depth, bf16, seeded random weights, prompts fetched
+# over the simulated WAN, 32 new tokens a prompt:
+# - Hymba-1.5B, 32 layers: 16 prompts of 128 tokens, a 4 x 2048 prefill
+#   (past its 1024-token window), 8 slots over a 2048-token cache (a ring
+#   of 1024); its f32 check runs 2 layers on one slot with a 1050-token
+#   prompt and 16 new tokens, so that decode passes the window and the
+#   ring wraps;
+# - xLSTM-350M, 24 layers (12 mLSTM/sLSTM pairs): 16 prompts of 128
+#   tokens, a 2 x 2048 prefill (the sLSTM a loop of 2048 steps a layer),
+#   8 slots; its f32 check runs 2 layers (one pair);
+# - Whisper-tiny, 4 encoder and 4 decoder layers: 16 prompts of 64 tokens,
+#   an 8 x 448 prefill (its decoder's length) with make_batch's frames
+#   (8, 1500, 384), 8 slots over a 448-token cache; its f32 check runs the
+#   whole model.
+# phase -> (config, drive_serving's sizes, the f32 check's: layers kept,
+# one prompt of that many tokens, check_f32_path's sizes).
+FAMILY_PHASES = {
+    "D": ("hymba_1_5b",
+          dict(n_prompts=16, prompt_len=128, prefill_b=4, prefill_s=2048,
+               slots=8, max_seq=2048, new_tokens=32, n_prefill=2),
+          dict(n_layers=2, prompt=1050, prefill_len=1050,
+               n_steps=1050 + 16 - 1, slots=1, max_seq=2048,
+               new_tokens=16)),
+    "E": ("xlstm_350m",
+          dict(n_prompts=16, prompt_len=128, prefill_b=2, prefill_s=2048,
+               slots=8, max_seq=2048, new_tokens=32, n_prefill=2),
+          dict(n_layers=2)),
+    "F": ("whisper_tiny",
+          dict(n_prompts=16, prompt_len=64, prefill_b=8, prefill_s=448,
+               slots=8, max_seq=448, new_tokens=32, n_prefill=3),
+          dict(prefill_len=448, max_seq=448)),
+}
 # Kernel sweeps: the reference's (tests/test_kernels.py:17-62) with head
 # dim 112 added, and the serving paths' own shapes: Qwen3-4B's, Grok-1's
 # (48 query heads over 8 kv heads) and Kimi-K2's (64 over 8 at head dim
 # 112).  Attention (B,H,K,S,D); decode (B,K,G,T,D).
 FLASH_CASES = [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 2, 96, 32),
-               (1, 2, 1, 128, 128), (2, 4, 2, 100, 16), (1, 8, 2, 200, 112)]
+               (1, 2, 1, 128, 128), (2, 4, 2, 100, 16), (1, 8, 2, 200, 112),
+               (1, 10, 2, 160, 64), (2, 5, 1, 100, 32)]
+# Non-causal attention of S queries against T != S keys (cross-attention),
+# (B,H,K,S,T,D), in both dtypes under TOL.
+FLASH_CROSS_CASES = [(2, 4, 4, 37, 100, 64), (1, 6, 6, 130, 75, 32),
+                     (2, 10, 2, 64, 200, 16), (1, 5, 1, 1, 129, 64)]
 FLASH_WINDOWS = (0, 16, 100)
 FLASH_PATH_CASES = [((PREFILL_B, 32, 8, PREFILL_S, 128), torch.bfloat16),
                     ((1, 32, 8, CHECK_PREFILL, 128), torch.float32),
@@ -205,12 +268,34 @@ FLASH_PATH_CASES = [((PREFILL_B, 32, 8, PREFILL_S, 128), torch.bfloat16),
                     ((2, 64, 8, 2048, 112), torch.bfloat16),
                     ((1, 64, 8, CHECK_PREFILL, 112), torch.float32)]
 DECODE_CASES = [(2, 2, 2, 256, 64), (1, 4, 1, 100, 32), (3, 1, 8, 512, 128),
-                (2, 2, 2, 40, 16), (2, 8, 8, 300, 112)]
+                (2, 2, 2, 40, 16), (2, 8, 8, 300, 112), (2, 5, 5, 300, 64),
+                (3, 1, 5, 77, 16)]
 DECODE_PATH_CASES = [((SLOTS, 8, 4, MAX_SEQ, 128), torch.bfloat16),
                      ((SLOTS, 8, 4, CHECK_MAX_SEQ, 128), torch.float32),
                      ((8, 8, 6, 1024, 128), torch.bfloat16),
                      ((8, 8, 8, 1024, 112), torch.bfloat16),
-                     ((8, 8, 8, CHECK_MAX_SEQ, 112), torch.float32)]
+                     ((8, 8, 8, CHECK_MAX_SEQ, 112), torch.float32),
+                     ((8, 5, 5, 1024, 64), torch.bfloat16),
+                     ((1, 5, 5, 1024, 64), torch.float32),
+                     ((8, 6, 1, 448, 64), torch.bfloat16),
+                     ((8, 6, 1, 1500, 64), torch.bfloat16),
+                     ((8, 6, 1, 448, 64), torch.float32),
+                     ((8, 6, 1, 1500, 64), torch.float32)]
+# The other families' attention at their path shapes, where the mask is not
+# Qwen3-4B's causal S = T: (B,H,K,S,T,D), dtype, causal, window.  Hymba's
+# prefill (25 query heads over 5 kv heads, a 1024-token window, S past it)
+# and its f32 check's; Whisper-tiny's encoder (non-causal over 1500
+# frames), decoder self-attention (causal over its 448 tokens) and
+# cross-attention (448 queries against 1500 frames), and its f32 check's.
+FLASH_MASK_PATH_CASES = [
+    ((4, 25, 5, 2048, 2048, 64), torch.bfloat16, True, 1024),
+    ((1, 25, 5, 1050, 1050, 64), torch.float32, True, 1024),
+    ((8, 6, 6, 1500, 1500, 64), torch.bfloat16, False, 0),
+    ((8, 6, 6, 448, 448, 64), torch.bfloat16, True, 0),
+    ((8, 6, 6, 448, 1500, 64), torch.bfloat16, False, 0),
+    ((1, 6, 6, 1500, 1500, 64), torch.float32, False, 0),
+    ((1, 6, 6, 448, 448, 64), torch.float32, True, 0),
+    ((1, 6, 6, 448, 1500, 64), torch.float32, False, 0)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # bf16 at the path shapes, for both attention kernels: |diff| <= rtol *
 # |want| + share * (RMS of want's row over D), as (rtol, share).  TOL's
@@ -234,14 +319,26 @@ TIME_ATTENTION = [("flash_attention", TIME_PREFILL),
 TIME_DECODES = [("flash_decode", TIME_DECODE),
                 ("flash_decode serving", (SLOTS, 8, 4, MAX_SEQ, 128)),
                 ("flash_decode grok", (8, 8, 6, 1024, 128)),
-                ("flash_decode kimi", (8, 8, 8, 1024, 112))]
+                ("flash_decode kimi", (8, 8, 8, 1024, 112)),
+                ("flash_decode hymba", (8, 5, 5, 1024, 64)),
+                ("flash_decode whisper self", (8, 6, 1, 448, 64)),
+                ("flash_decode whisper cross", (8, 6, 1, 1500, 64))]
+# Timed at the other families' bf16 prefill shapes: (name, (B,H,K,S,T,D),
+# causal, window), as FLASH_MASK_PATH_CASES.
+TIME_MASKED_ATTENTION = [
+    (f"flash_attention {name}", shape, causal, window)
+    for name, (shape, dtype, causal, window) in zip(
+        ("hymba", "whisper encoder", "whisper self", "whisper cross"),
+        [c for c in FLASH_MASK_PATH_CASES if c[1] == torch.bfloat16])]
 # The live length of each serving path's cache half way through its engine
 # run (models/attention.py passes min(pos + 1, T) to every slot, pos one
-# shared count of the steps: 318 steps for Qwen3-4B, 158 for Grok-1, 79
-# for Kimi-K2): checked in phase 6 and timed in phase 9 beside the full
-# cache.
+# shared count of the steps: 318 steps for Qwen3-4B and Hymba, 158 for
+# Grok-1, 79 for Kimi-K2, 190 for Whisper-tiny, whose cross-attention
+# always reads all 1500 frames): checked in phase 6 and timed in phase 9
+# beside the full cache.
 DECODE_LIVE = {(SLOTS, 8, 4, MAX_SEQ, 128): 160, (8, 8, 6, 1024, 128): 80,
-               (8, 8, 8, 1024, 112): 40}
+               (8, 8, 8, 1024, 112): 40, (8, 5, 5, 1024, 64): 160,
+               (8, 6, 1, 448, 64): 95, (8, 6, 1, 1500, 64): 1500}
 
 # The MoE serving path: Grok-1 at full width (d_model 6144, 48 query heads
 # over 8 KV heads, d_ff 32768, 8 experts, top-2, vocab 131072), 4 of its 64
@@ -720,6 +817,12 @@ def check_attention(device) -> dict:
             compare(f"flash {dtype} {(B, H, K, S, D)} not causal",
                     ops.flash_attention(q, k, v, causal=False),
                     ref.mha_reference(q, k, v, causal=False), dtype)
+        for B, H, K, S, T, D in FLASH_CROSS_CASES:
+            q, k, v = (randn(s, dtype) for s in ((B, H, S, D), (B, K, T, D),
+                                                  (B, K, T, D)))
+            compare(f"flash {dtype} {(B, H, K, S, T, D)} cross",
+                    ops.flash_attention(q, k, v, causal=False),
+                    ref.mha_reference(q, k, v, causal=False), dtype)
         for B, K, G, T, D in DECODE_CASES:
             q, k, v = (randn(s, dtype) for s in ((B, K, G, D), (B, K, T, D),
                                                   (B, K, T, D)))
@@ -738,6 +841,18 @@ def check_attention(device) -> dict:
                       path_tol(want, dtype))
         if dtype == torch.bfloat16:
             path["flash_attention"] = max(path["flash_attention"], err)
+    for (B, H, K, S, T, D), dtype, causal, window in FLASH_MASK_PATH_CASES:
+        q = randn((B, S, H, D), dtype).transpose(1, 2)
+        k, v = (randn((B, T, K, D), dtype).transpose(1, 2) for _ in "kv")
+        want = ref.mha_reference(q, k, v, causal=causal, window=window)
+        err = compare(f"flash path {dtype} {(B, H, K, S, T, D)} causal "
+                      f"{causal} window {window}",
+                      ops.flash_attention(q, k, v, causal=causal,
+                                          window=window),
+                      want, dtype, path_tol(want, dtype))
+        if dtype == torch.bfloat16:
+            path["flash_attention"] = max(path["flash_attention"], err)
+        del q, k, v, want
     for (B, K, G, T, D), dtype in DECODE_PATH_CASES:
         q = randn((B, K, G, D), dtype)
         k, v = (randn((B, T, K, D), dtype).transpose(1, 2) for _ in "kv")
@@ -804,9 +919,10 @@ def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
     engine = ServingEngine(model, params, ServeConfig(
         batch_slots=slots, max_seq=max_seq, max_new_tokens=new_tokens))
 
+    batch = dict(prefill_extras(model, prefill_b, prefill_s),
+                 tokens=prefill_tokens)
     reset_launches()
     times = []
-    batch = {"tokens": prefill_tokens}
     for i in range(n_prefill):
         sync(device)
         t0 = time.perf_counter()
@@ -830,7 +946,8 @@ def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
     sync(device)
     serve_s = time.perf_counter() - t0
     counts = launch_counts()
-    if model.is_moe:
+    is_moe = getattr(model, "is_moe", False)
+    if is_moe:
         out["prefill_aux"] = {k: float(v) for k, v in aux.items()}
 
     n_tok = sum(len(r.out_tokens) for r in reqs)
@@ -842,7 +959,7 @@ def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
         raise AssertionError(f"engine: {engine.steps} steps (want "
                              f"{want_steps}), {n_tok} tokens")
     out.update({
-        "is_moe": model.is_moe, "after_prefill": after_prefill,
+        "is_moe": is_moe, "after_prefill": after_prefill,
         "launches": counts,
         "prefill_calls": n_prefill, "prefill_s": prefill_s,
         "engine_steps": engine.steps,
@@ -858,21 +975,45 @@ def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
     return out, prompts
 
 
-def check_serving_launches(run: dict, n_layers: int,
-                           on_card: bool) -> None:
+def prefill_extras(model, batch: int, seq: int, seed: int = 1) -> dict:
+    """The prefill batch's inputs other than its tokens, from the model's
+    ``make_batch`` with a seeded generator on its device: Whisper's frames
+    (B, 1500, d_model); nothing for the decoder-only families."""
+    made = model.make_batch(torch.Generator(model.device).manual_seed(seed),
+                            ShapeConfig("prefill", "prefill", seq, batch))
+    return {k: v for k, v in made.items() if k != "tokens"}
+
+
+def launches_per_call(cfg) -> tuple:
+    """(flash-attention launches per prefill call, flash-decode launches
+    per engine step) of a family's serving path: one of each a layer; for
+    Whisper one per encoder layer and two per decoder layer (self and
+    cross) in the prefill and two per decoder layer in decode; none for
+    xLSTM, which reaches no kernel."""
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "audio":
+        return cfg.enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    return cfg.n_layers, cfg.n_layers
+
+
+def check_serving_launches(run: dict, n_layers: int, on_card: bool,
+                           per_call: tuple = None) -> None:
     """The kernels of the path ran: ``n_layers`` flash-attention launches
     per prefill call and ``n_layers`` flash-decode launches per engine
-    step (none on the CPU), and no crop launch; for an MoE model also 3
-    grouped-matmul launches per layer and MoE chunk of a prefill call and
-    per layer of an engine step."""
+    step (``per_call`` gives the two counts where they differ, as
+    ``launches_per_call``; none on the CPU), and no crop launch; for an
+    MoE model also 3 grouped-matmul launches per layer and MoE chunk of a
+    prefill call and per layer of an engine step."""
     per = n_layers if on_card else 0
+    attn_per, decode_per = per_call if per_call and on_card else (per, per)
     gmm = 3 * per if run["is_moe"] else 0
     calls, steps = run["prefill_calls"], run["engine_steps"]
     want_prefill = {"crop_mirror_normalize": 0,
-                    "flash_attention": per * calls, "flash_decode": 0,
+                    "flash_attention": attn_per * calls, "flash_decode": 0,
                     "grouped_matmul": gmm * n_chunks(run["prefill_s"])
                     * calls}
-    want = dict(want_prefill, flash_decode=per * steps,
+    want = dict(want_prefill, flash_decode=decode_per * steps,
                 grouped_matmul=want_prefill["grouped_matmul"] + gmm * steps)
     if run["after_prefill"] != want_prefill or run["launches"] != want:
         raise AssertionError(f"launches {run['after_prefill']} after the "
@@ -882,24 +1023,30 @@ def check_serving_launches(run: dict, n_layers: int,
 
 def check_f32_path(device, cfg, prompts, *, prefill_len: int = CHECK_PREFILL,
                    n_steps: int = CHECK_STEPS, slots: int = SLOTS,
-                   max_seq: int = CHECK_MAX_SEQ) -> dict:
+                   max_seq: int = CHECK_MAX_SEQ,
+                   new_tokens: int = NEW_TOKENS) -> dict:
     """Phase 8: the serving path in f32 on the same weights, once on
     ``device`` and once through the port on the CPU (the kernels' plain
-    versions): logits of a 1 x prefill_len prefill and of the first
+    versions): logits of a 1 x prefill_len prefill (with the
+    ``prefill_extras`` the family takes, made once) and of the first
     ``n_steps`` engine steps.  TF32 is off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     params = build_model(cfg, device=device).init(
         torch.Generator(device).manual_seed(0))
-    tokens = torch.from_numpy(np.concatenate(prompts)[:prefill_len][None])
     cpu = torch.device("cpu")
+    batch = dict(prefill_extras(build_model(cfg, device=cpu), 1,
+                                prefill_len),
+                 tokens=torch.from_numpy(
+                     np.concatenate(prompts)[:prefill_len][None]))
     runs = []
     for dev, p in ((device, params),
                    (cpu, tree_map(lambda t: t.to(cpu), params))):
         model = build_model(cfg, device=dev)
-        logits = make_prefill_step(model)(p, {"tokens": tokens.to(dev)})
+        logits = make_prefill_step(model)(
+            p, {k: v.to(dev) for k, v in batch.items()})
         engine = ServingEngine(model, p, ServeConfig(
-            batch_slots=slots, max_seq=max_seq, max_new_tokens=NEW_TOKENS))
+            batch_slots=slots, max_seq=max_seq, max_new_tokens=new_tokens))
         for prompt in prompts:
             engine.submit(prompt)
         steps = []
@@ -918,20 +1065,49 @@ def check_f32_path(device, cfg, prompts, *, prefill_len: int = CHECK_PREFILL,
     return out
 
 
-def causal_pairs(S: int, T: int, window: int = 0) -> int:
-    """(query, key) pairs a causal (and windowed) attention keeps."""
+def drive_family(device, cfg, serve: dict, check: dict) -> dict:
+    """Phases D, E and F: a family's serving path through
+    ``drive_serving`` with ``launches_per_call``'s exact launch counts
+    (none on the CPU), then ``check_f32_path`` on ``cfg`` in f32 with
+    ``check``'s cuts and sizes (``n_layers``, and ``prompt``: one prompt
+    of that many of the served prompts' tokens); the card is freed after
+    each.  Prints and returns the phase's seconds with both results."""
+    t0 = time.perf_counter()
+    run, prompts = drive_serving(device, cfg, **serve)
+    check_serving_launches(run, cfg.n_layers, device.type == "cuda",
+                           launches_per_call(cfg))
+    free_card()
+    sizes = dict(check)
+    cut = {"n_layers": sizes.pop("n_layers")} if "n_layers" in sizes else {}
+    if "prompt" in sizes:
+        prompts = [np.concatenate(prompts)[:sizes.pop("prompt")]]
+    f32 = check_f32_path(device, cfg.scaled(dtype="float32", **cut),
+                         prompts, **sizes)
+    free_card()
+    out = {"run": run, "f32": f32, "seconds": time.perf_counter() - t0}
+    print(f"phase {cfg.name}: {out['seconds']!r} s")
+    return out
+
+
+def causal_pairs(S: int, T: int, window: int = 0,
+                 causal: bool = True) -> int:
+    """(query, key) pairs a causal (and windowed) attention keeps; with
+    ``causal=False`` the pairs the window alone keeps (all S*T without
+    one)."""
     i = np.arange(S)
     lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
-    return int(np.maximum(0, np.minimum(T, i + 1) - lo).sum())
+    hi = np.minimum(T, i + 1) if causal else np.full_like(i, T)
+    return int(np.maximum(0, hi - lo).sum())
 
 
 def attention_bound(kind: str, B: int, H: int, K: int, S: int, T: int,
-                    D: int, elsize: int):
-    """Least time for a causal flash-attention call: q, k, v read once and
-    o written once, against 4*D flops per kept (query, key) pair per head
+                    D: int, elsize: int, causal: bool = True,
+                    window: int = 0):
+    """Least time for a flash-attention call: q, k, v read once and o
+    written once, against 4*D flops per kept (query, key) pair per head
     at the inputs' type's peak."""
     nbytes = elsize * D * (2 * B * H * S + 2 * B * K * T)
-    flops = 4 * B * H * D * causal_pairs(S, T)
+    flops = 4 * B * H * D * causal_pairs(S, T, window, causal)
     return _bound(kind, nbytes, flops, elsize)
 
 
@@ -960,8 +1136,9 @@ def time_attention(device, kind: str) -> dict:
     per call, its plain version's ms and one PyTorch call's ms
     (``scaled_dot_product_attention``, timed only) at the timed shapes:
     ``TIME_ATTENTION`` in bf16 (and Qwen3-4B's in f32 as well) and
-    ``TIME_DECODES`` in bf16, at the full cache and at ``DECODE_LIVE``'s
-    live lengths.  Each decode row also times the CUDA-core decode kernel
+    ``TIME_MASKED_ATTENTION`` in bf16 with their masks (SDPA given the
+    same mask as a boolean ``attn_mask``), and ``TIME_DECODES`` in bf16,
+    at the full cache and at ``DECODE_LIVE``'s live lengths.  Each decode row also times the CUDA-core decode kernel
     on the same bf16 inputs (``cuda_core_ms``), gives the tensor-core
     kernel's split and how many of its clusters the card holds at once, and
     times the kernel, the CUDA-core kernel and SDPA replayed from a CUDA
@@ -998,10 +1175,39 @@ def time_attention(device, kind: str) -> dict:
                 "bound_by": bound_by}
             del q, k, v
     dtype = torch.bfloat16
+    for label, (B, H, K, S, T, D), causal, window in TIME_MASKED_ATTENTION:
+        q = randn((B, S, H, D), dtype).transpose(1, 2)
+        k, v = (randn((B, T, K, D), dtype).transpose(1, 2) for _ in "kv")
+        keep = (torch.arange(S, device=device)[:, None]
+                - torch.arange(T, device=device)[None, :])
+        mask = ((keep >= 0) if causal else torch.ones_like(keep, dtype=bool))
+        if window:
+            mask &= keep < window
+
+        def kernel(q=q, k=k, v=v, causal=causal, window=window):
+            return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+        def sdpa(q=q, k=k, v=v, mask=mask):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        nbytes, flops, bound_ms, bound_by = attention_bound(
+            kind, B, H, K, S, T, D, 2, causal, window)
+        out[label] = {
+            "shape": [B, H, K, S, T, D], "causal": causal, "window": window,
+            "ms": median_event_ms(kernel, n=5, repeats=10),
+            "host_ms_per_call": median_host_ms(kernel, n=5, repeats=10),
+            "plain_ms": median_event_ms(
+                lambda: ref.mha_reference(q, k, v, causal=causal,
+                                          window=window), n=2, repeats=3),
+            "library_ms": median_event_ms(sdpa, n=5, repeats=10),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        del q, k, v, mask
     decode_rows = [(name, shape, shape[3]) for name, shape in TIME_DECODES]
     decode_rows += [(f"{name} live {DECODE_LIVE[shape]}", shape,
                      DECODE_LIVE[shape]) for name, shape in TIME_DECODES
-                    if shape in DECODE_LIVE]
+                    if DECODE_LIVE.get(shape, shape[3]) != shape[3]]
     for name, (b, K, G, t, D), n in decode_rows:
         q = randn((b, K, G, D), dtype)
         k, v = (randn((b, t, K, D), dtype).transpose(1, 2) for _ in "kv")
@@ -1469,6 +1675,10 @@ def main() -> int:
     check_f32_path(device, kimi_cfg.scaled(
         d_ff=KIMI_CHECK_D_FF, dtype="float32"), kimi_prompts)
     free_card()
+    families = {phase: drive_family(device, get_arch(arch),   # phases D-F
+                                    serve_kw, check_kw)
+                for phase, (arch, serve_kw, check_kw)
+                in FAMILY_PHASES.items()}
     drive_training(device, kind, cfg.scaled(remat=True))      # phase 14
     free_card()
     check_f32_training(device, cfg.scaled(                    # phase 15
@@ -1484,17 +1694,19 @@ def main() -> int:
         "max_abs_err": checks["main_f32_max_abs_err"], "ms": f32["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": None}}
+    # Launches on the serving paths, each counted from 0 over its own run.
+    served = [serve, moe, kimi] + [f["run"] for f in families.values()]
     for name, key in (("flash_attention", "flash_attention torch.bfloat16"),
                       ("flash_decode", "flash_decode")):
         t = attn_time[key]
-        rows[name] = {"launches": serve["launches"][name],
+        rows[name] = {"launches": sum(r["launches"][name] for r in served),
                       "max_abs_err": attn_err[name], "ms": t["ms"],
                       "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                       "bound_by": t["bound_by"],
                       "library_ms": t["library_ms"]}
     t = gmm_time["decode"]
     rows["grouped_matmul"] = {
-        "launches": moe["launches"]["grouped_matmul"],
+        "launches": sum(r["launches"]["grouped_matmul"] for r in served),
         "max_abs_err": gmm_err[GMM_DECODE, torch.bfloat16], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}

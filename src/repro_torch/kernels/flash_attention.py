@@ -141,9 +141,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches
     check_args(q, k, v, causal, window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention has no backward kernel: training "
-                           "attention comes with the trainer slice of the "
-                           "port (ROADMAP Queue A, 3); call it under "
+        raise RuntimeError("flash_attention has no backward kernel: "
+                           "training runs the plain attention "
+                           "(models.attention.sequence_attention(..., "
+                           "train=True)); call the kernel under "
                            "torch.no_grad()")
     _build.require_card(q.device)
     q, k, v = (kernel_layout(t) for t in (q, k, v))

@@ -10,7 +10,9 @@ default) or on the CPU (``--device cpu``)::
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu
 
 ``--demo`` is accepted and changes nothing: this is the only mode, as in
-the reference.
+the reference.  ``--arch whisper_tiny`` raises ``KeyError('frames')``, as
+the reference's launcher does: the training loop feeds each step tokens
+and a loss mask only, and Whisper's forward needs frame embeddings.
 """
 
 from __future__ import annotations

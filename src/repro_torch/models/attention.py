@@ -1,12 +1,15 @@
-"""GQA attention for the dense decoder: projections, the plain attention
-path, the memory-efficient (chunked) attention that trains long sequences,
-and the one-token decode step against a KV cache.
+"""GQA attention: projections (with Whisper's biases and cross-attention),
+the plain attention path, the memory-efficient (chunked) attention that
+trains long sequences, the full-sequence dispatch between those and the
+flash-attention kernel, and the one-token decode step against a KV cache
+or an encoder's keys.
 
-The port of the dense family's part of ``repro.models.attention``, in its
-layouts: q (B,S,H,Dh) with H = K*G, k and v (B,T,K,Dh), and a KV cache of
-(B,T,K,Dh).  On a CUDA tensor, decode attention runs the hand-written
-flash-decode kernel (``kernels.ops.flash_decode``), which reads the cache
-in place through strides; on the CPU it runs the kernel's plain version.
+The port of ``repro.models.attention``, in its layouts: q (B,S,H,Dh) with
+H = K*G, k and v (B,T,K,Dh), and a KV cache of (B,T,K,Dh).  On a CUDA
+tensor, prefill attention runs the hand-written flash-attention kernel
+(``kernels.ops.flash_attention``) and decode attention the flash-decode
+kernel (``kernels.ops.flash_decode``), both reading the model's tensors in
+place through strides; on the CPU each runs its plain version.
 ``dense_attention`` and ``chunked_attention`` are plain torch with
 autograd: they are what training runs, as the reference trains with XLA
 ops (no kernel has a backward).
@@ -21,14 +24,15 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
-from .layers import apply_rope
+from .layers import apply_rope, project_heads
 from .params import P
 
 NEG_INF = -1e30
+DENSE_ATTN_MAX_SEQ = 2048   # above this, train with chunked attention
 
 
 def gqa_spec(d: int, n_heads: int, n_kv: int, head_dim: int,
-             qk_norm: bool = False) -> Dict:
+             qk_norm: bool = False, bias: bool = False) -> Dict:
     spec = {
         "wq": P((d, n_heads, head_dim), ("d_model", "heads", "head_dim")),
         "wk": P((d, n_kv, head_dim), ("d_model", "kv_heads", "head_dim")),
@@ -38,6 +42,12 @@ def gqa_spec(d: int, n_heads: int, n_kv: int, head_dim: int,
     if qk_norm:  # Qwen3-style per-head RMSNorm on q and k
         spec["q_norm"] = P((head_dim,), ("head_dim",), init="ones")
         spec["k_norm"] = P((head_dim,), ("head_dim",), init="ones")
+    if bias:     # whisper-style projection biases (no bias on k)
+        spec["bq"] = P((n_heads, head_dim), ("heads", "head_dim"),
+                       init="zeros")
+        spec["bv"] = P((n_kv, head_dim), ("kv_heads", "head_dim"),
+                       init="zeros")
+        spec["bo"] = P((d,), ("d_model",), init="zeros")
     return spec
 
 
@@ -49,17 +59,26 @@ def _head_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return (x * torch.rsqrt(var + eps) * scale.float()).to(dt)
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(..., d) @ (d, heads, Dh) -> (..., heads, Dh)."""
-    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+def project_q(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """x (B,S,d) -> q (B,S,H,Dh), with its bias where the spec has one."""
+    q = project_heads(x, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"].to(q.dtype)
+    return q
 
 
-def project_qkv(params: Dict, x: torch.Tensor
+def project_qkv(params: Dict, x: torch.Tensor,
+                x_kv: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x (B,S,d) -> q (B,S,H,Dh), k (B,S,K,Dh), v (B,S,K,Dh)."""
-    q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    """x (B,S,d) -> q (B,S,H,Dh); k and v (B,T,K,Dh) from ``x_kv``
+    (B,T,d), by default ``x`` (cross-attention gives the encoder's
+    output)."""
+    x_kv = x if x_kv is None else x_kv
+    q = project_q(params, x)
+    k = project_heads(x_kv, params["wk"])
+    v = project_heads(x_kv, params["wv"])
+    if "bv" in params:
+        v = v + params["bv"].to(v.dtype)
     if "q_norm" in params:
         q = _head_rmsnorm(q, params["q_norm"])
         k = _head_rmsnorm(k, params["k_norm"])
@@ -69,7 +88,10 @@ def project_qkv(params: Dict, x: torch.Tensor
 def project_out(params: Dict, o: torch.Tensor) -> torch.Tensor:
     """o (B,S,H,Dh) -> (B,S,d)."""
     wo = params["wo"]
-    return o.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+    out = o.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+    if "bo" in params:
+        out = out + params["bo"].to(out.dtype)
+    return out
 
 
 def _mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
@@ -290,6 +312,30 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :S]
 
 
+def sequence_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, causal: bool = True, window: int = 0,
+                       train: bool = False) -> torch.Tensor:
+    """Full-sequence attention, q (B,S,H,Dh) against k/v (B,T,K,Dh) with
+    positions arange(S) and arange(T) -> (B,S,H,Dh).
+
+    ``train=False`` (prefill) runs the flash-attention kernel over the
+    unexpanded k and v (it folds head h onto kv head h // G), through
+    (B,H,S,D) views that it reads in place; its output comes back in q's
+    layout, so the transpose back is free.  ``train=True`` follows the
+    reference's rule: ``chunked_attention`` for causal attention over more
+    than ``DENSE_ATTN_MAX_SEQ`` tokens, ``dense_attention`` otherwise."""
+    if not train:
+        return ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window).transpose(1, 2)
+    if causal and q.shape[1] > DENSE_ATTN_MAX_SEQ:
+        return chunked_attention(q, k, v, causal=True, window=window)
+    q_pos = torch.arange(q.shape[1], device=q.device)
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    return dense_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                           window=window)
+
+
 # ---------------------------------------------------------------------------
 # KV caches (decode)
 # ---------------------------------------------------------------------------
@@ -313,8 +359,8 @@ def cache_slot(pos: int, T: int, window: int) -> int:
 
 
 def decode_attention(params: Dict, cache: Dict, x: torch.Tensor, *,
-                     window: int = 0, rope_theta: float = 10_000.0
-                     ) -> Tuple[torch.Tensor, Dict]:
+                     window: int = 0, rope_theta: float = 10_000.0,
+                     use_rope: bool = True) -> Tuple[torch.Tensor, Dict]:
     """One-token step: x (B,1,d) -> (out (B,1,d), cache with pos + 1).
 
     Writes the token's k and v into ``cache`` in place (the reference
@@ -322,28 +368,41 @@ def decode_attention(params: Dict, cache: Dict, x: torch.Tensor, *,
     ``min(pos+1, T)`` valid positions, which is the reference's mask for a
     linear cache (``kv_idx <= pos``) and for a ring (``age < min(pos+1,
     T)``); decode has no causal mask, so ring order does not matter.
+    ``use_rope=False`` (Whisper) leaves q and k unrotated.
     """
-    B = x.shape[0]
     q, k_new, v_new = project_qkv(params, x)
     pos = cache["pos"]
-    posv = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, posv, rope_theta)
-    k_new = apply_rope(k_new, posv, rope_theta)
+    if use_rope:
+        posv = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, posv, rope_theta)
+        k_new = apply_rope(k_new, posv, rope_theta)
     k, v = cache["k"], cache["v"]
-    T, K, D = k.shape[1], k.shape[2], k.shape[3]
+    T = k.shape[1]
     slot = cache_slot(pos, T, window)
     k[:, slot] = k_new[:, 0]
     v[:, slot] = v_new[:, 0]
-    lengths = torch.full((B,), min(pos + 1, T), dtype=torch.int32,
-                         device=x.device)
-    H = q.shape[2]
-    o = ops.flash_decode(q.reshape(B, K, H // K, D), k.transpose(1, 2),
-                         v.transpose(1, 2), lengths)
-    out = project_out(params, o.reshape(B, 1, H, D))
+    out = cache_attention(params, q, k, v, min(pos + 1, T))
     return out, {"k": k, "v": v, "pos": pos + 1}
 
 
-__all__ = ["gqa_spec", "project_qkv", "project_out", "expand_kv",
-           "dense_attention", "chunked_attention", "init_kv_cache",
-           "cache_slot",
-           "decode_attention", "NEG_INF"]
+def cache_attention(params: Dict, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, length: int) -> torch.Tensor:
+    """q (B,1,H,D) against the first ``length`` rows of every slot's k and
+    v (B,T,K,D), through the flash-decode kernel (which reads the cache
+    as a (B,K,T,D) view in place), then the out projection: (B,1,d).
+    Decode self-attention passes ``min(pos + 1, T)``; Whisper's decode
+    cross-attention passes every encoder frame, which is the reference's
+    non-causal ``dense_attention`` over them."""
+    B, _, H, D = q.shape
+    K = k.shape[2]
+    lengths = torch.full((B,), length, dtype=torch.int32, device=q.device)
+    o = ops.flash_decode(q.reshape(B, K, H // K, D), k.transpose(1, 2),
+                         v.transpose(1, 2), lengths)
+    return project_out(params, o.reshape(B, 1, H, D))
+
+
+__all__ = ["gqa_spec", "project_q", "project_qkv", "project_out",
+           "expand_kv", "dense_attention", "chunked_attention",
+           "sequence_attention", "init_kv_cache", "cache_slot",
+           "decode_attention", "cache_attention", "NEG_INF",
+           "DENSE_ATTN_MAX_SEQ"]

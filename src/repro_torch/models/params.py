@@ -62,6 +62,15 @@ def tree_unflatten(tree: Any, leaves: list) -> Any:
     return build(tree)
 
 
+def unstack(stacked: Any, n: int) -> list:
+    """A tree whose leaves have a leading axis of ``n`` (stacked layers) as
+    ``n`` trees, one per layer.  Each leaf is split once with ``unbind``,
+    whose backward is one ``stack`` (indexing ``p[i]`` per layer would
+    write a zero-filled gradient of the whole stack for every layer)."""
+    parts = tree_map(lambda p: torch.unbind(p, 0), stacked)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
 def count_params(tree: Any) -> int:
     """Elements in a tree of specs or of tensors."""
     return sum(int(np.prod(leaf.shape)) for leaf in tree_leaves(tree))
@@ -117,4 +126,5 @@ def stack_layer_specs(spec_tree: Any, n_layers: int) -> Any:
 
 
 __all__ = ["P", "init_params", "logical_axes", "stack_layer_specs",
-           "tree_map", "tree_leaves", "tree_unflatten", "count_params"]
+           "tree_map", "tree_leaves", "tree_unflatten", "unstack",
+           "count_params"]

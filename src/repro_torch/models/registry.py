@@ -1,24 +1,31 @@
-"""Model registry: ArchConfig -> model instance.  The dense, MoE and VLM
-families are ported (``DecoderLM``); the others raise and name the ROADMAP
-item that brings them."""
+"""Model registry: ArchConfig -> model instance, on ``device``."""
 
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
 
-from .transformer import FAMILIES, DecoderLM
+from .hybrid import HymbaModel
+from .transformer import DecoderLM
+from .whisper import WhisperModel
+from .xlstm import XLSTMModel
 
-_QUEUED = {"audio": "ROADMAP A7", "hybrid": "ROADMAP A7",
-           "ssm": "ROADMAP A7"}
+_FAMILY_TO_MODEL = {
+    "dense": DecoderLM,
+    "moe": DecoderLM,
+    "vlm": DecoderLM,
+    "audio": WhisperModel,
+    "hybrid": HymbaModel,
+    "ssm": XLSTMModel,
+}
 
 
 def build_model(cfg: ArchConfig, device="cuda"):
-    if cfg.family in FAMILIES:
-        return DecoderLM(cfg, device=device)
-    if cfg.family in _QUEUED:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
-                                  f"not ported yet ({_QUEUED[cfg.family]})")
-    raise ValueError(f"unknown family {cfg.family!r} for {cfg.name}")
+    try:
+        cls = _FAMILY_TO_MODEL[cfg.family]
+    except KeyError:
+        raise ValueError(f"unknown family {cfg.family!r} for {cfg.name}") \
+            from None
+    return cls(cfg, device=device)
 
 
 __all__ = ["build_model"]

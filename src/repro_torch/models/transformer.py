@@ -13,7 +13,8 @@ head h // G); decode attention runs the flash-decode kernel; the MoE
 family's expert FFNs run the grouped-matmul kernel (``models.moe``).  On
 the CPU each runs its plain version.  The VLM family writes its projected
 patch embeddings (``extras["patch_embeds"]``) over the first positions.
-The audio, hybrid and ssm families are queued (ROADMAP A7).
+The hybrid, ssm and audio families have models of their own
+(``models.hybrid``, ``models.xlstm``, ``models.whisper``).
 
 Training (``forward(..., train=True)``, ``train_loss``) runs plain torch
 with autograd, as the reference trains with XLA ops: no kernel has a
@@ -34,18 +35,17 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.data.pipeline import resolve_device
-from repro_torch.kernels import ops
 
 from . import attention as attn
 from . import moe as moe_mod
+from .attention import DENSE_ATTN_MAX_SEQ
 from .layers import (apply_rope, embed, embed_spec, rmsnorm, rmsnorm_spec,
                      softmax_xent, swiglu, swiglu_spec, unembed)
-from .params import P, init_params, stack_layer_specs, tree_map
+from .params import P, init_params, stack_layer_specs, unstack
 
 FAMILIES = ("dense", "moe", "vlm")
-DENSE_ATTN_MAX_SEQ = 2048   # above this, train with chunked attention
 
 
 class DecoderLM:
@@ -55,10 +55,9 @@ class DecoderLM:
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet; "
-                f"the port's DecoderLM takes {FAMILIES} (the rest: ROADMAP "
-                "A7)")
+            raise ValueError(
+                f"{cfg.name}: DecoderLM takes the families {FAMILIES}, not "
+                f"{cfg.family!r} (build it with models.build_model)")
         self.cfg = cfg
         self.is_moe = cfg.n_experts > 0
         self.is_vlm = cfg.n_patches > 0
@@ -100,15 +99,6 @@ class DecoderLM:
                            dtype or self.dtype, self.device)
 
     # -- forward -------------------------------------------------------------
-    def _layers(self, params: Dict) -> list:
-        """The stacked ``blocks`` as one parameter dict per layer.  Each
-        leaf is split once with ``unbind``, whose backward is one ``stack``
-        (indexing ``p[i]`` per layer would write a zero-filled gradient of
-        the whole stack for every layer)."""
-        parts = tree_map(lambda p: torch.unbind(p, 0), params["blocks"])
-        return [tree_map(lambda t: t[i], parts)
-                for i in range(self.cfg.n_layers)]
-
     def _ffn(self, lp: Dict, h: torch.Tensor, train: bool = False
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         c = self.cfg
@@ -118,22 +108,6 @@ class DecoderLM:
                                      train=train)
         return swiglu(lp["mlp"], h), {}
 
-    def _attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   positions: torch.Tensor, train: bool) -> torch.Tensor:
-        c = self.cfg
-        if not train:
-            # (B,S,H,D) -> (B,H,S,D) views: the kernel reads them in place
-            # and returns q's layout, so the transpose back is free.
-            return ops.flash_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=True, window=c.window).transpose(1, 2)
-        # Both expand k and v to the query heads, as the reference does
-        # before either.
-        if q.shape[1] <= DENSE_ATTN_MAX_SEQ:
-            return attn.dense_attention(q, k, v, positions[0], positions[0],
-                                        causal=True, window=c.window)
-        return attn.chunked_attention(q, k, v, causal=True, window=c.window)
-
     def _block(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
                train: bool
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -142,7 +116,8 @@ class DecoderLM:
         q, k, v = attn.project_qkv(lp["attn"], h)
         q = apply_rope(q, positions, c.rope_theta)
         k = apply_rope(k, positions, c.rope_theta)
-        o = self._attention(q, k, v, positions, train)
+        o = attn.sequence_attention(q, k, v, causal=True, window=c.window,
+                                    train=train)
         x = x + attn.project_out(lp["attn"], o)
         h = rmsnorm(lp["ln2"], x, c.norm_eps)
         y, aux = self._ffn(lp, h, train)
@@ -172,7 +147,7 @@ class DecoderLM:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
         aux = {}
-        for lp in self._layers(params):
+        for lp in unstack(params["blocks"], c.n_layers):
             if train and c.remat:
                 x, layer_aux = checkpoint(self._block, lp, x, positions, True,
                                           use_reentrant=False)
@@ -231,7 +206,7 @@ class DecoderLM:
         c = self.cfg
         x = embed(params["embed"], tokens, self.dtype)
         pos = cache["pos"]
-        for i, lp in enumerate(self._layers(params)):
+        for i, lp in enumerate(unstack(params["blocks"], c.n_layers)):
             h = rmsnorm(lp["ln1"], x, c.norm_eps)
             o, _ = attn.decode_attention(
                 lp["attn"], {"k": cache["k"][i], "v": cache["v"][i],
@@ -244,5 +219,33 @@ class DecoderLM:
         return unembed(params["embed"], x), {"k": cache["k"],
                                              "v": cache["v"], "pos": pos + 1}
 
+    # -- batches -------------------------------------------------------------
+    def make_batch(self, generator: torch.Generator, shape: ShapeConfig
+                   ) -> Dict:
+        """Random inputs of ``shape`` on this model's device, drawn from
+        ``generator``: decode gives (B,1) tokens and a fresh cache of
+        ``shape.seq_len``; the other kinds (B,S) tokens and, for a VLM,
+        patch embeddings at the token embedding's scale."""
+        batch = random_tokens(self, generator, shape)
+        if self.is_vlm and shape.kind != "decode":
+            c = self.cfg
+            batch["patch_embeds"] = 0.02 * torch.randn(
+                (shape.global_batch, c.n_patches, c.d_model),
+                generator=generator, device=self.device).to(self.dtype)
+        return batch
 
-__all__ = ["DecoderLM", "DENSE_ATTN_MAX_SEQ"]
+
+def random_tokens(model, generator: torch.Generator,
+                  shape: ShapeConfig) -> Dict:
+    """The tokens every family's ``make_batch`` draws: (B,1) and a fresh
+    cache for a decode shape, else (B,S)."""
+    B, S = shape.global_batch, shape.seq_len
+    n = 1 if shape.kind == "decode" else S
+    tokens = torch.randint(0, model.cfg.vocab, (B, n), generator=generator,
+                           device=model.device, dtype=torch.int32)
+    if shape.kind == "decode":
+        return {"tokens": tokens, "cache": model.init_cache(B, S)}
+    return {"tokens": tokens}
+
+
+__all__ = ["DecoderLM", "DENSE_ATTN_MAX_SEQ", "random_tokens"]

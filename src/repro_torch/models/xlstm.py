@@ -1,0 +1,144 @@
+"""xLSTM stack, alternating mLSTM (matrix memory) and sLSTM (scalar memory)
+blocks: the port of ``repro.models.xlstm``'s ``XLSTMModel``.  The
+24-layer config runs as 12 (mLSTM, sLSTM) pairs under the stacked
+``pairs`` tree; d_ff = 0, the cells carry their own projections.
+
+Every path is plain torch (``models.ssm``) and reaches no kernel: the
+reference runs these cells as XLA ops.  Decode carries O(1) states per
+pair: mLSTM's C (B,H,Dh,Dh) and n (B,H,Dh), sLSTM's c, n, m, h (B,d), all
+f32, updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.data.pipeline import resolve_device
+
+from . import ssm as ssm_mod
+from .layers import (embed, embed_spec, rmsnorm, rmsnorm_spec, softmax_xent,
+                     unembed)
+from .params import init_params, stack_layer_specs, unstack
+from .transformer import random_tokens
+
+
+class XLSTMModel:
+    """xLSTM built from an ArchConfig; parameters and states live on
+    ``device`` (``"cuda"`` by default; raises without a card)."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.dtype)
+        self.device = resolve_device(device)
+        self.n_pairs = cfg.n_layers // 2
+        self.head_dim = cfg.resolved_head_dim
+
+    # -- specs ---------------------------------------------------------------
+    def pair_spec(self) -> Dict:
+        c = self.cfg
+        return {
+            "ln_m": rmsnorm_spec(c.d_model),
+            "mlstm": ssm_mod.mlstm_spec(c.d_model, c.n_heads, self.head_dim),
+            "ln_s": rmsnorm_spec(c.d_model),
+            "slstm": ssm_mod.slstm_spec(c.d_model, c.n_heads),
+        }
+
+    def param_specs(self) -> Dict:
+        c = self.cfg
+        return {"embed": embed_spec(c.vocab, c.d_model),
+                "pairs": stack_layer_specs(self.pair_spec(), self.n_pairs),
+                "ln_f": rmsnorm_spec(c.d_model)}
+
+    def init(self, generator: torch.Generator,
+             dtype: Optional[torch.dtype] = None) -> Dict:
+        """Random parameters from ``generator`` (on this model's device) in
+        ``dtype`` (the config's by default)."""
+        return init_params(self.param_specs(), generator,
+                           dtype or self.dtype, self.device)
+
+    # -- forward -------------------------------------------------------------
+    def _pair(self, pp: Dict, x: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        mo, _ = ssm_mod.mlstm_apply(pp["mlstm"], rmsnorm(pp["ln_m"], x,
+                                                         c.norm_eps))
+        x = x + mo
+        so, _ = ssm_mod.slstm_apply(pp["slstm"], rmsnorm(pp["ln_s"], x,
+                                                         c.norm_eps))
+        return x + so
+
+    def forward(self, params: Dict, tokens: torch.Tensor,
+                extras: Optional[Dict] = None, train: bool = False
+                ) -> Tuple[torch.Tensor, Dict]:
+        """tokens (B,S) -> (logits (B,S,V) f32, {}).  Training and prefill
+        compute the same; ``train=True`` recomputes each pair in the
+        backward under ``cfg.remat``."""
+        c = self.cfg
+        x = embed(params["embed"], tokens, self.dtype)
+        for pp in unstack(params["pairs"], self.n_pairs):
+            if train and c.remat:
+                x = checkpoint(self._pair, pp, x, use_reentrant=False)
+            else:
+                x = self._pair(pp, x)
+        x = rmsnorm(params["ln_f"], x, c.norm_eps)
+        return unembed(params["embed"], x), {}
+
+    def train_loss(self, params: Dict, batch: Dict
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross-entropy of ``batch["tokens"]`` under
+        ``batch["loss_mask"]`` where given: (loss, {"loss", "xent"})."""
+        tokens = batch["tokens"]
+        logits, _ = self.forward(params, tokens, batch, train=True)
+        mask = batch.get("loss_mask")
+        loss = softmax_xent(logits[:, :-1], tokens[:, 1:],
+                            mask[:, 1:] if mask is not None else None)
+        return loss, {"loss": loss, "xent": loss}
+
+    # -- decode --------------------------------------------------------------
+    def init_cache(self, batch: int, seq_len: int) -> Dict:
+        """{"mlstm": C, n; "slstm": c, n, m, h}, each stacked over the
+        pairs; ``seq_len`` sizes nothing (the states are O(1))."""
+        c = self.cfg
+        m = ssm_mod.mlstm_init_state(batch, c.n_heads, self.head_dim,
+                                     self.device)
+        s = ssm_mod.slstm_init_state(batch, c.d_model, self.device)
+
+        def stack(t):
+            return {k: v.repeat(self.n_pairs, *([1] * v.dim()))
+                    for k, v in t.items()}
+
+        return {"mlstm": stack(m), "slstm": stack(s)}
+
+    def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Dict]:
+        """tokens (B,1) -> logits (B,1,V), cache (its states written in
+        place)."""
+        c = self.cfg
+        x = embed(params["embed"], tokens, self.dtype)
+        ms, ss = cache["mlstm"], cache["slstm"]
+        for i, pp in enumerate(unstack(params["pairs"], self.n_pairs)):
+            y = rmsnorm(pp["ln_m"], x, c.norm_eps)
+            mo, new_m = ssm_mod.mlstm_apply(
+                pp["mlstm"], y, {k: v[i] for k, v in ms.items()})
+            x = x + mo
+            y = rmsnorm(pp["ln_s"], x, c.norm_eps)
+            so, new_s = ssm_mod.slstm_apply(
+                pp["slstm"], y, {k: v[i] for k, v in ss.items()})
+            x = x + so
+            for states, new in ((ms, new_m), (ss, new_s)):
+                for k, v in new.items():
+                    states[k][i] = v
+        x = rmsnorm(params["ln_f"], x, c.norm_eps)
+        return unembed(params["embed"], x), cache
+
+    def make_batch(self, generator: torch.Generator, shape: ShapeConfig
+                   ) -> Dict:
+        """Random tokens of ``shape`` from ``generator``, and for a decode
+        shape fresh states."""
+        return random_tokens(self, generator, shape)
+
+
+__all__ = ["XLSTMModel"]

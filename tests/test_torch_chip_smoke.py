@@ -100,6 +100,9 @@ def small_attention(monkeypatch):
         ((4, 2, 2, 48, 16), torch.bfloat16), ((4, 2, 2, 33, 16),
                                               torch.float32)])
     monkeypatch.setattr(chip_smoke, "DECODE_LIVE", {(4, 2, 2, 48, 16): 20})
+    monkeypatch.setattr(chip_smoke, "FLASH_MASK_PATH_CASES", [
+        ((2, 10, 2, 70, 70, 16), torch.bfloat16, True, 24),
+        ((1, 6, 6, 30, 50, 16), torch.float32, False, 0)])
 
 
 def test_attention_checks_rehearse_on_cpu(small_attention):
@@ -630,3 +633,137 @@ def test_moe_training_phase_rehearses_on_cpu():
     assert out["serving"]["chunks"] == 2
     assert out["serving"]["max_abs_diff"] <= chip_smoke.CHECK_TOL
     assert "restart" not in out
+
+
+# ---- phases D, E and F: the hybrid, ssm and audio families --------------
+
+FAMILY_SMOKE = {
+    "D": (dict(n_prompts=5, prompt_len=10, prefill_b=2, prefill_s=40,
+               slots=4, max_seq=64, new_tokens=4, n_prefill=2),
+          dict(prompt=30, prefill_len=30, n_steps=30 + 4 - 1, slots=1,
+               max_seq=64, new_tokens=4)),
+    "E": (dict(n_prompts=5, prompt_len=10, prefill_b=2, prefill_s=300,
+               slots=4, max_seq=16, new_tokens=4, n_prefill=2),
+          dict(n_layers=2, prefill_len=24, n_steps=4, slots=4, max_seq=16)),
+    "F": (dict(n_prompts=5, prompt_len=10, prefill_b=2, prefill_s=20,
+               slots=4, max_seq=32, new_tokens=4, n_prefill=3),
+          dict(prefill_len=20, n_steps=4, slots=4, max_seq=32)),
+}
+
+
+@pytest.mark.parametrize("phase", sorted(FAMILY_SMOKE))
+def test_family_serving_paths_rehearse_on_cpu(phase):
+    """Phases D, E and F on the CPU at each family's smoke config: prompts
+    over the simulated WAN, the prefill (Whisper's with make_batch's
+    frames), two waves of continuous batching, no kernel launched, and the
+    f32 check (CPU against CPU) at zero; Hymba's check decodes one slot
+    past its 16-token window."""
+    arch = chip_smoke.FAMILY_PHASES[phase][0]
+    serve, check = FAMILY_SMOKE[phase]
+    cfg = chip_smoke.get_arch(arch).smoke_config()
+    out = chip_smoke.drive_family(torch.device("cpu"), cfg, serve, check)
+    run = out["run"]
+    assert run["engine_steps"] == 2 * (10 + 4 - 1) and run["tokens"] == 20
+    assert not any(run["launches"].values()) and not run["is_moe"]
+    assert out["f32"] == {"prefill_max_abs_diff": 0.0,
+                          "decode_max_abs_diff": 0.0}
+    assert out["seconds"] > 0
+
+
+def test_family_launch_counts_are_exact():
+    """Per prefill call and per engine step: Hymba one flash attention and
+    one flash decode a layer (32, 32); Whisper-tiny 4 encoder + 2 x 4
+    decoder flash attentions (12) and 2 x 4 flash decodes (8); xLSTM
+    none, and any launch fails its phase."""
+    per = {phase: chip_smoke.launches_per_call(chip_smoke.get_arch(arch))
+           for phase, (arch, _, _) in chip_smoke.FAMILY_PHASES.items()}
+    assert per == {"D": (32, 32), "E": (0, 0), "F": (12, 8)}
+    zero = {name: 0 for name in chip_smoke.KERNELS}
+    for phase, (attn, dec) in per.items():
+        run = {"is_moe": False, "prefill_calls": 3, "prefill_s": 448,
+               "engine_steps": 190,
+               "after_prefill": dict(zero, flash_attention=3 * attn),
+               "launches": dict(zero, flash_attention=3 * attn,
+                                flash_decode=190 * dec)}
+        cfg = chip_smoke.get_arch(chip_smoke.FAMILY_PHASES[phase][0])
+        chip_smoke.check_serving_launches(run, cfg.n_layers, True,
+                                          per[phase])
+        for bad in ({"flash_decode": 190 * dec + 1},
+                    {"grouped_matmul": 1}, {"crop_mirror_normalize": 1}):
+            with pytest.raises(AssertionError, match="launches"):
+                chip_smoke.check_serving_launches(
+                    dict(run, launches=dict(run["launches"], **bad)),
+                    cfg.n_layers, True, per[phase])
+
+
+def test_family_phases_run_each_config_at_full_width_and_depth():
+    """Each phase serves its config file's model whole: widths, heads,
+    window, state and vocabulary as published, every layer, bf16; with
+    Hymba's 1.424e9, xLSTM's 1.90e8 and Whisper-tiny's 3.65e7 parameters.
+    Its kernels' path shapes are checked in both dtypes and timed in
+    bf16."""
+    fields = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+              "resolved_head_dim", "vocab", "dtype")
+    want = {"D": ("hybrid", 32, 1600, 25, 5, 64, 32001, "bfloat16"),
+            "E": ("ssm", 24, 1024, 4, 4, 256, 50304, "bfloat16"),
+            "F": ("audio", 4, 384, 6, 6, 64, 51865, "bfloat16")}
+    params = {"D": 1_423_772_832, "E": 190_096_480, "F": 36_477_312}
+    for phase, (arch, serve, check) in chip_smoke.FAMILY_PHASES.items():
+        cfg = chip_smoke.get_arch(arch)
+        assert tuple(getattr(cfg, f) for f in fields) == want[phase]
+        n = sum(math.prod(shape) for shape in _leaf_shapes(
+            chip_smoke.build_model(cfg, device="cpu").param_specs()))
+        assert n == params[phase]
+        assert serve["new_tokens"] == 32 and serve["n_prompts"] == 16
+    hymba = chip_smoke.get_arch("hymba_1_5b")
+    assert (hymba.window, hymba.ssm_state) == (1024, 16)
+    serve, check = chip_smoke.FAMILY_PHASES["D"][1:]
+    assert serve["prefill_s"] > hymba.window            # past the window
+    assert check["n_steps"] == check["prompt"] + check["new_tokens"] - 1
+    assert check["prompt"] > hymba.window and check["slots"] == 1
+    whisper = chip_smoke.get_arch("whisper_tiny")
+    assert (whisper.enc_layers, whisper.enc_frames) == (4, 1500)
+    assert chip_smoke.FAMILY_PHASES["F"][1]["prefill_s"] == 448
+    # The path shapes: Hymba's windowed prefill and ring, Whisper's
+    # encoder, decoder and cross-attention and its two decode caches.
+    H, K, D = hymba.n_heads, hymba.n_kv_heads, 64
+    serve = chip_smoke.FAMILY_PHASES["D"][1]
+    masked = {(c[0], c[2], c[3]) for c in chip_smoke.FLASH_MASK_PATH_CASES
+              if c[1] == torch.bfloat16}
+    S = serve["prefill_s"]
+    assert ((serve["prefill_b"], H, K, S, S, D), True, 1024) in masked
+    serve = chip_smoke.FAMILY_PHASES["F"][1]
+    B, S, F = serve["prefill_b"], serve["prefill_s"], whisper.enc_frames
+    assert {((B, 6, 6, F, F, D), False, 0), ((B, 6, 6, S, S, D), True, 0),
+            ((B, 6, 6, S, F, D), False, 0)} <= masked
+    assert {s for _, s, _, _ in chip_smoke.TIME_MASKED_ATTENTION} == {
+        c[0] for c in chip_smoke.FLASH_MASK_PATH_CASES
+        if c[1] == torch.bfloat16}
+    decode = {s for s, dtype in chip_smoke.DECODE_PATH_CASES
+              if dtype == torch.bfloat16}
+    assert {(8, K, H // K, 1024, D), (8, 6, 1, S, D),
+            (8, 6, 1, F, D)} <= decode
+    assert chip_smoke.DECODE_LIVE[(8, 6, 1, F, D)] == F
+    # G = 5 and S != T are in the sweeps.
+    assert any(H // K == 5 for _, H, K, _, _ in chip_smoke.FLASH_CASES)
+    assert any(G == 5 for _, _, G, _, _ in chip_smoke.DECODE_CASES)
+    assert all(S != T for _, _, _, S, T, _ in chip_smoke.FLASH_CROSS_CASES)
+
+
+def test_bounds_of_the_masked_attention_shapes():
+    """Hymba's prefill keeps 1024 keys a row past the window: 4 x 25 x 64
+    x 4 flops for each of 1,573,376 pairs; Whisper's encoder all 1500^2,
+    its cross-attention 448 x 1500."""
+    kind = "NVIDIA H100 80GB HBM3"
+    assert chip_smoke.causal_pairs(2048, 2048, 1024) == 1_573_376
+    assert chip_smoke.causal_pairs(448, 1500, 0, causal=False) == 448 * 1500
+    i, j = np.meshgrid(np.arange(10), np.arange(12), indexing="ij")
+    assert chip_smoke.causal_pairs(10, 12, 3, causal=False) == int(
+        (i - j < 3).sum())
+    nbytes, flops, ms, by = chip_smoke.attention_bound(
+        kind, 4, 25, 5, 2048, 2048, 64, 2, True, 1024)
+    assert flops == 4 * 4 * 25 * 64 * 1_573_376 and by == "operations"
+    nbytes, flops, ms, by = chip_smoke.attention_bound(
+        kind, 8, 6, 6, 448, 1500, 64, 2, False, 0)
+    assert nbytes == 2 * 64 * (2 * 8 * 6 * 448 + 2 * 8 * 6 * 1500)
+    assert flops == 4 * 8 * 6 * 64 * 448 * 1500
