@@ -3,8 +3,9 @@ H100: builds the port's CUDA kernels, holds each against its plain PyTorch
 version, drives the image lane (and its arena bench), the dense Qwen3-4B
 serving path, the Grok-1 and Kimi-K2 MoE serving paths, the Hymba-1.5B,
 xLSTM-350M and Whisper-tiny serving paths, the Qwen3-4B and Grok-1
-training paths and the 1000-host multi-host loader end to end, and times
-the kernels.
+training paths (Grok-1 also on int8 AdamW moments, with the state
+restored onto a device mesh) and the 1000-host multi-host loader end to
+end, and times the kernels.
 
     python3 chip_smoke.py
 
@@ -116,6 +117,22 @@ Phases, in order; any failure raises and exits non-zero:
      against its serving forward (the f32 grouped-matmul and
      flash-attention kernels): logits within 1e-3 and exactly
      3 x layers x chunks grouped-matmul launches;
+  G. the int8 training path at full width: Grok-1 (2 of its 64 layers,
+     bf16, remat, AdamW with int8 m and v, the reference's memory policy
+     for Grok-1; the earlier phases' tensors freed first), 8 steps of
+     ``run_training`` at 2 x 2048 tokens as phase C, printing the same
+     numbers and raising as phase 14 does; then phase C's f32 check (1
+     layer, d_ff 256, vocabulary 32768, 1 x 1024 tokens, 3 steps, card
+     against CPU) for
+     ``int8`` and ``int8_factored``, with the moments after the first
+     update held too (each int8 value within one quantization step of
+     its row plus 1e-3 of its leaf's max, each f32 moment within 1e-3);
+     then, on a
+     one-rank NCCL group, the int8 state saved and restored with
+     ``shardings`` onto a 1 x 1 ``DeviceMesh`` (every leaf a DTensor on
+     the card, bit-exact) and ``compressed_psum_grads`` on the first
+     step's gradients equal to the CPU port's over gloo; no kernel
+     launches; it prints its seconds;
  16. the grouped matmul's times at the Grok-1 and Kimi-K2 decode and
      prefill shapes, and at the two chunks off the path, against its
      bound, plain version and ``torch.bmm``;
@@ -136,6 +153,7 @@ from __future__ import annotations
 import concurrent.futures
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -145,6 +163,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -164,11 +183,16 @@ from repro_torch.models.moe import n_chunks  # noqa: E402
 from repro_torch.models.params import (count_params, tree_leaves,  # noqa: E402
                                       tree_map, tree_unflatten)
 from repro_torch.serve import ServeConfig, ServingEngine  # noqa: E402
+from repro_torch.sharding.rules import tree_shardings  # noqa: E402
+from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.train.compression import (  # noqa: E402
+    compressed_psum_grads, init_error_feedback)
 from repro_torch.train.loop import TrainLoopConfig, run_training  # noqa: E402
 from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
                                          adamw_update)
 from repro_torch.train.step import (  # noqa: E402
-    init_state, make_prefill_step, make_train_step)
+    abstract_state, init_state, make_prefill_step, make_train_step,
+    state_logical_axes)
 
 # The main path: LoaderConfig's default batch, 256x256x3 uint8 frames,
 # 224x224 crops.
@@ -430,6 +454,25 @@ MOE_TRAIN_LAYERS = 1
 MOE_TRAIN_B, MOE_TRAIN_S = 2, 2048
 MOE_TRAIN_CHECK_D_FF = 256
 MOE_TRAIN_CHECK_B, MOE_TRAIN_CHECK_S = 1, 1024
+# The int8 training path (phase G): Grok-1 at full width, 2 of its 64
+# layers, with int8 AdamW moments, the reference's memory policy for
+# Grok-1 (``repro/launch/dryrun_lib.py``): 10.64e9 parameters at 6 B each
+# (bf16 parameters and gradients, int8 m and v; the f32 scales add 4 B a
+# row) 63.9 GB before activations, where the f32 moments of phase C fit 1
+# layer; 2 x 2048 tokens as phase C.  Its f32 check is
+# phase C's (1 layer, d_ff 256, 1 x 1024 tokens, 3 steps) for each
+# quantized state dtype, with the vocabulary cut to 32768: at Grok-1's
+# 131072 the CPU side took 220.6 s for one state dtype (the unembedding
+# and the update of the 0.8e9-element embedding), and 32768 x 6144 still
+# exceeds ``CHUNK_ELEMS``, so the embedding's row blocks (and the
+# factored moment's two passes over them) run on both sides.  Then the
+# int8 state saved and restored onto a 1 x 1 mesh over a one-rank NCCL
+# group, and ``compressed_psum_grads`` over that group on the first
+# step's gradients.
+INT8_TRAIN_LAYERS = 2
+INT8_STATE = "int8"
+INT8_CHECK_STATES = ("int8", "int8_factored")
+INT8_CHECK_VOCAB = 32768
 
 
 def make_inputs(seed: int, b: int, h: int, w: int, c: int, oh: int, ow: int,
@@ -1376,9 +1419,11 @@ def train_flops(cfg, n_params: int, B: int, S: int) -> int:
 
 
 def drive_training(device, kind: str, cfg, *, batch: int = TRAIN_B,
-                   seq: int = TRAIN_S, steps: int = TRAIN_STEPS) -> dict:
-    """Phases 14 and C: the training path through the entry points a user
-    calls: ``init_state``, then ``run_training`` over the simulated WAN
+                   seq: int = TRAIN_S, steps: int = TRAIN_STEPS,
+                   state_dtype: str = "float32") -> dict:
+    """Phases 14, C and G: the training path through the entry points a
+    user calls: ``init_state`` (AdamW moments of ``state_dtype``), then
+    ``run_training`` over the simulated WAN
     (token records fetched by ``build_stack``'s DeviceFeed on route high),
     with the kernels' launches counted (training runs none: it uses the
     plain attention and, for MoE, the expert einsums, as the reference
@@ -1387,13 +1432,17 @@ def drive_training(device, kind: str, cfg, *, batch: int = TRAIN_B,
     expert's weight among them), fewer steps than asked, or a peak above
     the card's memory."""
     model = build_model(cfg, device=device)
-    opt_cfg = OptimizerConfig(total_steps=steps, **TRAIN_OPT)
+    opt_cfg = OptimizerConfig(total_steps=steps, state_dtype=state_dtype,
+                              **TRAIN_OPT)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     state = init_state(model, opt_cfg, torch.Generator(device).manual_seed(0))
     sync(device)
-    out = {"init_s": time.perf_counter() - t0, "batch": batch, "seq": seq}
+    out = {"init_s": time.perf_counter() - t0, "batch": batch, "seq": seq,
+           "layers": cfg.n_layers, "state_dtype": state_dtype,
+           "opt_state_GB": sum(t.numel() * t.element_size() for t in
+                               tree_leaves(state["opt"])) / 1e9}
     params = state["params"]
     n_params = count_params(params)
     # Views of weight matrices, updated in place.  (A norm scale of
@@ -1504,28 +1553,42 @@ def check_train_vs_serving(model, params, tokens) -> dict:
 def check_f32_training(device, cfg, *, batch: int = TRAIN_CHECK_B,
                        seq: int = TRAIN_CHECK_S,
                        steps: int = TRAIN_CHECK_STEPS,
-                       restart: bool = True, serving: bool = False) -> dict:
-    """Phases 15 and C: the train step in f32 on one state, once on
+                       restart: bool = True, serving: bool = False,
+                       state_dtype: str = "float32",
+                       keep: bool = False) -> dict:
+    """Phases 15, C and G: the train step in f32 on one state, once on
     ``device`` and once through the port on the CPU: the first step's
     gradients (each leaf within ``CHECK_TOL`` of its max |g|) and the loss
-    of each of ``steps`` steps (within ``CHECK_TOL``).  With ``serving``,
-    the card's trained model then goes through
+    of each of ``steps`` steps (within ``CHECK_TOL``).  With quantized
+    moments (``state_dtype``), the moments after the first update too,
+    where the two sides differ only by the gradients' last bits: each
+    dequantized int8 value within one quantization step of its row plus
+    ``CHECK_TOL`` of its leaf's max (the gradients' own allowance), an
+    f32 moment (a factored ``vr``/``vc``, a vector's v) within
+    ``CHECK_TOL`` of its max (``moment_err``).  The moments after the last step are reported
+    (``moment_err_last``), not judged: an int8 v code that rounds to 0
+    under a live m makes a step of about ``lr * m_hat / eps``, so codes
+    one apart at the first update grow apart by the third.
+    With ``serving``, the card's trained model then goes through
     ``check_train_vs_serving``.  With ``restart``, a restart on the card:
     ``run_training`` to a checkpoint and on from it gives the loss curve
-    of the run without a stop.  TF32 is off."""
+    of the run without a stop.  With ``keep``, the result also holds the
+    card's final state and both sides' first-step gradients (as CPU
+    tensors), under ``"state"`` and ``"grads"``.  TF32 is off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     opt_cfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
-                              total_steps=steps)
+                              total_steps=steps, state_dtype=state_dtype)
     state = init_state(build_model(cfg, device=device), opt_cfg,
                        torch.Generator(device).manual_seed(0))
     tokens, _ = fetch_tokens(4 * batch, seq, cfg.vocab, batch, device,
                              seed=3)
     cpu = torch.device("cpu")
-    runs = []
+    runs, side_s = [], []
     for dev, st in ((device, state),
                     (cpu, tree_map(lambda t: t.to(cpu, copy=True), state))):
+        t_side = time.perf_counter()
         model = build_model(cfg, device=dev)
         b = {"tokens": tokens.to(dev),
              "loss_mask": torch.ones(tokens.shape, device=dev)}
@@ -1540,23 +1603,34 @@ def check_f32_training(device, cfg, *, batch: int = TRAIN_CHECK_B,
         st["params"], st["opt"], _ = adamw_update(
             tree_unflatten(st["params"], list(grads)), st["opt"],
             st["params"], opt_cfg)
+        first_opt = tree_map(lambda t: t.to(cpu, copy=True), st["opt"])
         grads = [g.to(cpu) for g in grads]
         step = make_train_step(model, opt_cfg)
         for _ in range(steps - 1):
             st, metrics = step(st, b)
             losses.append(float(metrics["loss"]))
-        runs.append((losses, grads))
+        runs.append((losses, grads, first_opt,
+                     tree_map(lambda t: t.to(cpu), st["opt"])))
         if serving and dev == device:
             served = check_train_vs_serving(model, st["params"], b["tokens"])
+        if keep and dev == device:
+            kept = st
         del st, leaves
-    (card_losses, card_grads), (cpu_losses, cpu_grads) = runs
+        side_s.append(time.perf_counter() - t_side)
+    (card_losses, card_grads, card_first, card_opt), \
+        (cpu_losses, cpu_grads, cpu_first, cpu_opt) = runs
     grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                    for a, b in zip(card_grads, cpu_grads))
     out = {"card_losses": card_losses, "cpu_losses": cpu_losses,
            "loss_max_abs_diff": max(abs(a - b) for a, b in
                                     zip(card_losses, cpu_losses)),
            "grad_max_rel_diff": grad_err,
-           "seconds": time.perf_counter() - t0}
+           "seconds": time.perf_counter() - t0,
+           "card_s": side_s[0], "cpu_s": side_s[1]}
+    if state_dtype != "float32":
+        out["state_dtype"] = state_dtype
+        out["moment_err"] = moment_err(card_first, cpu_first)
+        out["moment_err_last"] = moment_err(card_opt, cpu_opt)
     if restart:
         with tempfile.TemporaryDirectory() as tmp:
             out["restart"] = check_restart(device, tmp)
@@ -1569,9 +1643,46 @@ def check_f32_training(device, cfg, *, batch: int = TRAIN_CHECK_B,
     if restart and out["restart"]["max_abs_diff"] > CHECK_TOL:
         raise AssertionError(f"restart from a checkpoint changed the loss "
                              f"curve: {out['restart']}")
+    err = out.get("moment_err")
+    if err and not (err["int8_excess"] <= CHECK_TOL
+                    and err["f32_rel"] <= CHECK_TOL):
+        raise AssertionError(f"the card's {state_dtype} moments differ from "
+                             f"the CPU port's: {out['moment_err']}")
     if serving:
         out["serving"] = served
+    if keep:
+        out.update(state=kept, grads=(card_grads, cpu_grads))
     return out
+
+
+def moment_err(a: dict, b: dict) -> dict:
+    """How far two optimizer states' moments are apart: for the int8
+    ones, the largest difference of codes and the largest excess of a
+    dequantized value's difference over one quantization step of its row
+    (the larger scale), relative to its leaf's max; for the f32 ones (a
+    factored ``vr``/``vc``, a vector's v), the largest difference
+    relative to its leaf's max."""
+    err = {"int8_codes": 0, "int8_excess": 0.0, "f32_rel": 0.0}
+
+    def walk(x, y):
+        if isinstance(x, dict) and set(x) == {"q", "scale"}:
+            da, db = (t["q"].float() * t["scale"] for t in (x, y))
+            step = torch.maximum(x["scale"], y["scale"])
+            err["int8_codes"] = max(err["int8_codes"], int(
+                (x["q"].int() - y["q"].int()).abs().max()))
+            err["int8_excess"] = max(err["int8_excess"], float(
+                ((da - db).abs() - step).clamp_min(0).max()
+                / db.abs().max().clamp_min(1e-30)))
+        elif isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k])
+        else:
+            err["f32_rel"] = max(err["f32_rel"], float(
+                (x - y).abs().max() / y.abs().max().clamp_min(1e-30)))
+
+    walk(a["m"], b["m"])
+    walk(a["v"], b["v"])
+    return err
 
 
 def drive_moe_training(device, kind: str) -> dict:
@@ -1588,6 +1699,119 @@ def drive_moe_training(device, kind: str) -> dict:
         batch=MOE_TRAIN_CHECK_B, seq=MOE_TRAIN_CHECK_S, restart=False,
         serving=True)
     return {"run": run, "check": check}
+
+
+def int8_train_config() -> ArchConfig:
+    """Phase G's model: Grok-1 at full width, ``INT8_TRAIN_LAYERS`` of its
+    layers, with remat."""
+    return get_arch(MOE_ARCH).scaled(n_layers=INT8_TRAIN_LAYERS, remat=True)
+
+
+def drive_int8_training(device, kind: str, cfg, *,
+                        batch: int = MOE_TRAIN_B, seq: int = MOE_TRAIN_S,
+                        steps: int = TRAIN_STEPS, check_cfg=None,
+                        check_batch: int = MOE_TRAIN_CHECK_B,
+                        check_seq: int = MOE_TRAIN_CHECK_S) -> dict:
+    """Phase G: ``cfg`` (``int8_train_config()``) trained through
+    ``drive_training`` on ``INT8_STATE`` moments; then, for each of
+    ``INT8_CHECK_STATES``, the f32 check of phase C (``check_cfg``: 1
+    layer at ``MOE_TRAIN_CHECK_D_FF`` and ``INT8_CHECK_VOCAB`` by
+    default) with the moments held too; then ``check_mesh_state`` on the
+    int8 check's state and gradients.  No kernel may launch in any of
+    it."""
+    t0 = time.perf_counter()
+    run = drive_training(device, kind, cfg, batch=batch, seq=seq,
+                         steps=steps, state_dtype=INT8_STATE)
+    free_card()
+    check_cfg = check_cfg or cfg.scaled(
+        n_layers=1, d_ff=MOE_TRAIN_CHECK_D_FF, vocab=INT8_CHECK_VOCAB,
+        dtype="float32")
+    reset_launches()
+    checks = {sd: check_f32_training(device, check_cfg, batch=check_batch,
+                                     seq=check_seq, restart=False,
+                                     state_dtype=sd, keep=sd == "int8")
+              for sd in INT8_CHECK_STATES}
+    kept = checks["int8"]
+    state, grads = kept.pop("state"), kept.pop("grads")
+    free_card()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = check_mesh_state(device, build_model(check_cfg, device=device),
+                                state, grads[0], tmp)
+    launches = launch_counts()
+    out = {"run": run, "checks": checks, "mesh": mesh, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    print(f"phase G: {out['seconds']!r} s, launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase G launched kernels: {launches}")
+    return out
+
+
+def check_mesh_state(device, model, state: dict, grads: list,
+                     directory: str) -> dict:
+    """Phase G on a one-rank process group over ``device`` (NCCL on the
+    card, gloo on the CPU): ``state`` (an int8 training state) saved,
+    then restored with ``tree_shardings`` of ``abstract_state`` onto a
+    1 x 1 ``("data", "model")`` mesh under ``fsdp_tp`` (every leaf a
+    DTensor on ``device``, bit-equal to the saved one); and
+    ``compressed_psum_grads`` over the group on ``grads`` (CPU tensors,
+    moved to ``device``) against the CPU port's over a gloo group on the
+    same gradients.  The groups are destroyed before it returns."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f"file://{directory}/pg",
+                            rank=0, world_size=1)
+    try:
+        out = {"backend": dist.get_backend()}
+        if out["backend"] != backend:
+            raise AssertionError(f"process group on {out['backend']}, "
+                                 f"asked for {backend}")
+        opt_cfg = OptimizerConfig(state_dtype=INT8_STATE)
+        CheckpointManager(directory).save(3, state)
+        mesh = init_device_mesh(device.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        template = abstract_state(model, opt_cfg)
+        shardings = tree_shardings(template, state_logical_axes(
+            model, opt_cfg), mesh, "fsdp_tp")
+        t0 = time.perf_counter()
+        restored, manifest = CheckpointManager(directory).restore(
+            template, shardings=shardings)
+        sync(device)
+        out["restore_s"] = time.perf_counter() - t0
+        got, want = tree_leaves(restored), tree_leaves(state)
+        out["leaves"] = len(got)
+        out["restore_bit_exact"] = all(
+            isinstance(a, DTensor) and a.device.type == device.type
+            and a.to_local().dtype == b.dtype
+            and torch.equal(a.to_local(), b) for a, b in zip(got, want))
+        del restored, got
+        card_g = tree_unflatten(state["params"],
+                                [g.to(device) for g in grads])
+        t0 = time.perf_counter()
+        card, card_err = compressed_psum_grads(
+            card_g, init_error_feedback(card_g))
+        sync(device)
+        out["compress_s"] = time.perf_counter() - t0
+        cpu_g = tree_unflatten(state["params"], list(grads))
+        gloo = dist.new_group(backend="gloo")
+        cpu, cpu_err = compressed_psum_grads(
+            cpu_g, init_error_feedback(cpu_g), group=gloo)
+        out["compress_max_abs_diff"] = max(
+            float((a.cpu() - b).abs().max())
+            for a, b in zip(tree_leaves(card) + tree_leaves(card_err),
+                            tree_leaves(cpu) + tree_leaves(cpu_err)))
+    finally:
+        dist.destroy_process_group()
+    out["step"] = manifest["step"]
+    print(f"int8 state on a 1 x 1 {backend} mesh:", json.dumps(out))
+    if not (out["restore_bit_exact"] and out["step"] == 3):
+        raise AssertionError(f"restore onto the mesh was not exact: {out}")
+    if out["compress_max_abs_diff"] != 0.0:
+        raise AssertionError(f"compressed_psum_grads on {device} differs "
+                             f"from the CPU port's: {out}")
+    return out
 
 
 def check_restart(device, directory: str, steps: int = 8) -> dict:
@@ -1637,6 +1861,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs one card",
               file=sys.stderr)
         return 1
+    # Before the first allocation: the caching allocator reads it once.
+    # Phase G's 2 layers need it: with fixed segments its backward found
+    # 13.7 GiB reserved but free in pieces and no 6 GiB block for the
+    # stacked experts' gradient.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     print(nvidia_smi())                                       # phase 1
@@ -1685,6 +1915,8 @@ def main() -> int:
         n_layers=CHECK_LAYERS, dtype="float32"))
     free_card()
     drive_moe_training(device, kind)                          # phase C
+    free_card()
+    drive_int8_training(device, kind, int8_train_config())    # phase G
     free_card()
     gmm_time = time_gmm(device, kind)                         # phase 16
     drive_multihost_scale()                                   # phase B

@@ -11,7 +11,9 @@ Model weights cross as numpy, leaf by leaf under the same key paths:
 parameter tree after ``np.asarray`` on each leaf) and ``params_to_numpy``
 gives one back.  A training state, ``{"params", "opt": {"m", "v",
 "step"}}``, crosses the same way through ``state_from_reference`` and
-``state_to_numpy``.
+``state_to_numpy``, whatever its ``state_dtype``: an int8 moment is a
+``{"q", "scale"}`` dict (int8 codes stay int8) and a factored second
+moment a ``{"vr", "vc"}`` dict, each leaf under its own key path.
 """
 
 from __future__ import annotations
@@ -98,14 +100,15 @@ def _check_state(state: Any) -> None:
                          f"{got}")
     if not isinstance(state["opt"], Mapping) or \
             set(state["opt"]) != {"m", "v", "step"}:
-        raise ValueError("the optimizer state is {'m', 'v', 'step'} "
-                         "(float32 moments; the int8 states are ROADMAP A8)")
+        raise ValueError("the optimizer state is {'m', 'v', 'step'} (each "
+                         "moment f32, {'q', 'scale'} or {'vr', 'vc'})")
 
 
 def state_from_reference(state: Any, device="cuda") -> Any:
     """``repro``'s training state as numpy (``jax.tree.map(np.asarray,
-    state)``) -> the port's, on ``device``: parameters, f32 moments and
-    the int32 ``step``, dtypes kept."""
+    state)``) -> the port's, on ``device``: parameters, the moments (f32,
+    or int8 codes with f32 scales, or f32 ``vr``/``vc``) and the int32
+    ``step``, dtypes kept."""
     _check_state(state)
     return params_from_reference(dict(state), device)
 

@@ -10,8 +10,10 @@ to tensors on one device:
     per-step waits to ``StepStats`` on the loader's clock.
 
 ``device`` defaults to ``"cuda"`` and raises without a card; ``"cpu"``
-runs the kernels' plain versions.  Multi-host layouts (``shardings``,
-``mesh``) are not ported yet.
+runs the kernels' plain versions.  ``DeviceFeed`` also lays batches out
+on a device mesh (``shardings``, ``mesh``) as DTensors: the whole global
+batch in a world of one process, each process's own rows in a larger
+one.
 """
 
 from __future__ import annotations
@@ -22,12 +24,15 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.core.loader import CassandraLoader
 from repro_torch.core.stats import StepStats
 from repro_torch.data.datasets import decode_token_record
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import crop_mirror_normalize_np
+from repro_torch.sharding.rules import shard_batch_spec
 
 
 def resolve_device(device) -> torch.device:
@@ -125,22 +130,44 @@ class _DoubleBufferedFeed:
 
 
 class DeviceFeed(_DoubleBufferedFeed):
-    """Iterator of device-resident token batches with double buffering."""
+    """Iterator of device-resident token batches with double buffering.
+
+    ``shardings`` (optional) maps a batch key (``tokens``, ``loss_mask``,
+    ``labels``) to a ``sharding.rules.NamedSharding``; with ``mesh``, a
+    key it does not name gets ``shard_batch_spec(mesh, ndim)``, the
+    data-parallel default.  Such a key comes as a DTensor: in a world of
+    one process the loader's batch is the global batch, placed with
+    ``distribute_tensor`` (the reference's ``jax.device_put(v, sh)``); in
+    a larger world it is this process's rows, and ``DTensor.from_local``
+    joins them (``jax.make_array_from_process_local_data``)."""
 
     def __init__(self, loader: CassandraLoader, seq_len: int,
                  prefetch: int = 2,
                  step_stats: Optional[StepStats] = None,
-                 device="cuda") -> None:
+                 device="cuda", shardings: Optional[Dict] = None,
+                 mesh=None) -> None:
         super().__init__(loader, prefetch, step_stats, device)
         self.seq_len = seq_len
+        self.shardings = shardings or {}
+        self.mesh = mesh
+
+    def _put(self, key: str, value: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(value).to(self.device)
+        sh = self.shardings.get(key)
+        if sh is None and self.mesh is not None:
+            sh = shard_batch_spec(self.mesh, t.dim())
+        if sh is None:
+            return t
+        if dist.get_world_size() > 1:
+            return DTensor.from_local(t, sh.mesh, sh.placements)
+        return distribute_tensor(t, sh.mesh, sh.placements)
 
     def _form(self, batch) -> Dict[str, torch.Tensor]:
         host = batch_to_numpy(batch, self.seq_len)
         # The decoded arrays own their bytes: recycle the arena slab (no-op
         # without one).
         batch.release()
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in host.items()}
+        return {k: self._put(k, v) for k, v in host.items()}
 
 
 class ImageFeed(_DoubleBufferedFeed):

@@ -35,7 +35,8 @@ from . import attention as attn
 from . import ssm as ssm_mod
 from .layers import (apply_rope, embed, embed_spec, rmsnorm, rmsnorm_spec,
                      softmax_xent, swiglu, swiglu_spec, unembed)
-from .params import P, init_params, stack_layer_specs, unstack
+from .params import (P, abstract_params, init_params, logical_axes,
+                     stack_layer_specs, unstack)
 from .transformer import random_tokens
 
 
@@ -48,6 +49,11 @@ class HymbaModel:
         self.dtype = getattr(torch, cfg.dtype)
         self.device = resolve_device(device)
         self.d_inner = cfg.d_model          # the Mamba path's inner width
+        # optional sharding constrainers (``sharding.rules``); None
+        # computes as without them
+        self.constrain_act = None
+        self.constrain_q = None
+        self.constrain_kv = None
 
     # -- specs ---------------------------------------------------------------
     def block_spec(self) -> Dict:
@@ -75,6 +81,13 @@ class HymbaModel:
         return init_params(self.param_specs(), generator,
                            dtype or self.dtype, self.device)
 
+    def abstract_params(self) -> Dict:
+        """The parameter tree as ``meta`` tensors in the config's dtype."""
+        return abstract_params(self.param_specs(), self.dtype)
+
+    def param_logical_axes(self) -> Dict:
+        return logical_axes(self.param_specs())
+
     # -- forward -------------------------------------------------------------
     @staticmethod
     def _fuse(lp: Dict, ao: torch.Tensor, mo: torch.Tensor,
@@ -89,6 +102,10 @@ class HymbaModel:
         q, k, v = attn.project_qkv(lp["attn"], y)
         q = apply_rope(q, positions, c.rope_theta)
         k = apply_rope(k, positions, c.rope_theta)
+        if self.constrain_q is not None:    # k, v unexpanded (B,S,K,D)
+            q = self.constrain_q(q)
+            k = self.constrain_kv(k)
+            v = self.constrain_kv(v)
         ao = attn.sequence_attention(q, k, v, causal=True, window=c.window,
                                      train=train)
         ao = attn.project_out(lp["attn"], ao)
@@ -109,12 +126,15 @@ class HymbaModel:
         x = embed(params["embed"], tokens, self.dtype)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
+        cst = self.constrain_act or (lambda t: t)
+        x = cst(x)
         for lp in unstack(params["blocks"], c.n_layers):
             if train and c.remat:
                 x = checkpoint(self._block, lp, x, positions, True,
                                use_reentrant=False)
             else:
                 x = self._block(lp, x, positions, train)
+            x = cst(x)
         x = rmsnorm(params["ln_f"], x, c.norm_eps)
         return unembed(params["embed"], x), {}
 

@@ -29,8 +29,9 @@ What differs from the reference in form, not in result:
   chunk and then averaged, as in ``repro``;
 - top-k is a stable descending sort, so equal probabilities pick the
   lower expert index first, as ``jax.lax.top_k`` does;
-- ``constrain`` (a sharding constrainer) is not taken: sharding is not
-  ported.
+- ``constrain`` (a sharding constrainer, ``sharding.rules``) sees each
+  expert buffer in the reference's ``(B, E, C, X)`` layout, a view of
+  the expert-major one; None leaves the buffers as they are.
 """
 
 from __future__ import annotations
@@ -64,18 +65,20 @@ def n_chunks(S: int, seq_chunk: int = SEQ_CHUNK) -> int:
 
 def moe_apply(params: Dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, seq_chunk: int = SEQ_CHUNK,
-              train: bool = False
+              train: bool = False, constrain=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (B, S, d), aux metrics (``moe_aux_loss``,
     ``moe_z_loss``, ``moe_dropped_frac``: 0-d f32, the mean over chunks).
     ``train`` picks the expert products: the einsums (differentiable,
     each chunk checkpointed when there are several and gradients are on)
-    or the grouped-matmul kernel."""
+    or the grouped-matmul kernel.  ``constrain`` (optional) is applied to
+    the dispatch and expert buffers, as in the reference."""
     n = n_chunks(x.shape[1], seq_chunk)
 
     def chunk(xc):
         return _moe_chunk(params, xc, top_k=top_k,
-                          capacity_factor=capacity_factor, train=train)
+                          capacity_factor=capacity_factor, train=train,
+                          constrain=constrain)
 
     remat = train and n > 1 and torch.is_grad_enabled()
     outs, auxs = zip(*(checkpoint(chunk, xc, use_reentrant=False) if remat
@@ -94,23 +97,37 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int):
     return logits, probs, gate_vals[..., :top_k], expert_idx[..., :top_k]
 
 
-def _experts_einsum(h: torch.Tensor, params: Dict) -> torch.Tensor:
+def _experts_einsum(h: torch.Tensor, params: Dict, cst) -> torch.Tensor:
     """The expert FFNs as the reference trains them: ``becd,edf->becf``
     and ``becf,efd->becd``, here over the expert-major (E, N, d) buffer."""
-    g = torch.einsum("end,edf->enf", h, params["w_gate"])
-    u = torch.einsum("end,edf->enf", h, params["w_up"])
-    return torch.einsum("enf,efd->end", F.silu(g) * u, params["w_down"])
+    g = cst(torch.einsum("end,edf->enf", h, params["w_gate"]))
+    u = cst(torch.einsum("end,edf->enf", h, params["w_up"]))
+    return cst(torch.einsum("enf,efd->end", F.silu(g) * u,
+                            params["w_down"]))
 
 
-def _experts_kernel(h: torch.Tensor, params: Dict) -> torch.Tensor:
+def _experts_kernel(h: torch.Tensor, params: Dict, cst) -> torch.Tensor:
     """The expert FFNs for serving: three grouped-matmul launches."""
-    g = ops.grouped_matmul(h, params["w_gate"])
-    u = ops.grouped_matmul(h, params["w_up"])
-    return ops.grouped_matmul(F.silu(g) * u, params["w_down"])
+    g = cst(ops.grouped_matmul(h, params["w_gate"]))
+    u = cst(ops.grouped_matmul(h, params["w_up"]))
+    return cst(ops.grouped_matmul(F.silu(g) * u, params["w_down"]))
+
+
+def _batch_major(constrain, E: int, B: int, C: int):
+    """``constrain`` applied to an expert-major (E, B*C, X) buffer through
+    its (B, E, C, X) view, the reference's layout; identity for None."""
+    if constrain is None:
+        return lambda t: t
+
+    def cst(t):
+        t = constrain(t.view(E, B, C, -1).transpose(0, 1))
+        return t.transpose(0, 1).reshape(E, B * C, -1)
+
+    return cst
 
 
 def _moe_chunk(params: Dict, x: torch.Tensor, *, top_k: int,
-               capacity_factor: float, train: bool = False
+               capacity_factor: float, train: bool = False, constrain=None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     B, S, d = x.shape
     E = params["router"].shape[-1]
@@ -161,10 +178,11 @@ def _moe_chunk(params: Dict, x: torch.Tensor, *, top_k: int,
     token = (expert_major(src)
              + S * torch.arange(B, device=dev)[None, :, None]).reshape(-1)
     mask = expert_major(filled).reshape(E, B * C, 1)
-    h = x.reshape(B * S, d)[token].view(E, B * C, d) * mask.to(x.dtype)
+    cst = _batch_major(constrain, E, B, C)
+    h = cst(x.reshape(B * S, d)[token].view(E, B * C, d) * mask.to(x.dtype))
 
     experts = _experts_einsum if train else _experts_kernel
-    y = experts(h, params)                                     # (E, B*C, d)
+    y = experts(h, params, cst)                                # (E, B*C, d)
 
     weight = (expert_major(gate_slot).reshape(E, B * C, 1) * mask)
     updates = (y * weight.to(x.dtype)).reshape(E * B * C, d)

@@ -2,10 +2,12 @@
 
 The port of ``repro.models.params``.  Models declare parameters as
 ``P(shape, axes)`` trees (nested dicts); ``init_params`` materializes them
-as tensors and ``logical_axes`` yields the matching tree of logical-axis
-tuples.  Stacked layers prepend a ``"layers"`` axis.  Trees are plain
-dicts of tensors, keyed exactly as the reference's, so a parameter tree
-converts leaf by leaf (``repro_torch.convert``).
+as tensors, ``abstract_params`` as ``meta`` tensors, and ``logical_axes``
+yields the matching tree of logical-axis tuples that
+``repro_torch.sharding.rules`` maps onto a device mesh.  Stacked layers
+prepend a ``"layers"`` axis.  Trees are plain dicts of tensors, keyed
+exactly as the reference's, so a parameter tree converts leaf by leaf
+(``repro_torch.convert``).
 """
 
 from __future__ import annotations
@@ -113,6 +115,14 @@ def init_params(spec_tree: Any, generator: torch.Generator,
     return build(spec_tree)
 
 
+def abstract_params(spec_tree: Any, dtype: torch.dtype = torch.bfloat16
+                    ) -> Any:
+    """The spec tree as tensors on the ``meta`` device: shapes and a dtype,
+    no storage (the reference's ``ShapeDtypeStruct`` tree)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), spec_tree)
+
+
 def logical_axes(spec_tree: Any) -> Any:
     """Tree of logical-axis tuples matching the param tree."""
     return tree_map(lambda s: s.axes, spec_tree)
@@ -125,6 +135,6 @@ def stack_layer_specs(spec_tree: Any, n_layers: int) -> Any:
                     init=s.init, scale=s.scale), spec_tree)
 
 
-__all__ = ["P", "init_params", "logical_axes", "stack_layer_specs",
-           "tree_map", "tree_leaves", "tree_unflatten", "unstack",
-           "count_params"]
+__all__ = ["P", "init_params", "abstract_params", "logical_axes",
+           "stack_layer_specs", "tree_map", "tree_leaves", "tree_unflatten",
+           "unstack", "count_params"]

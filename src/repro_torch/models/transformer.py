@@ -43,7 +43,8 @@ from . import moe as moe_mod
 from .attention import DENSE_ATTN_MAX_SEQ
 from .layers import (apply_rope, embed, embed_spec, rmsnorm, rmsnorm_spec,
                      softmax_xent, swiglu, swiglu_spec, unembed)
-from .params import P, init_params, stack_layer_specs, unstack
+from .params import (P, abstract_params, init_params, logical_axes,
+                     stack_layer_specs, unstack)
 
 FAMILIES = ("dense", "moe", "vlm")
 
@@ -63,6 +64,12 @@ class DecoderLM:
         self.is_vlm = cfg.n_patches > 0
         self.dtype = getattr(torch, cfg.dtype)
         self.device = resolve_device(device)
+        # optional sharding constrainers (``sharding.rules``), set by a
+        # caller that trains on a mesh; None computes as without them
+        self.constrain_act = None
+        self.constrain_q = None
+        self.constrain_kv = None
+        self.constrain_moe = None
 
     # -- specs ---------------------------------------------------------------
     def block_spec(self) -> Dict:
@@ -98,6 +105,13 @@ class DecoderLM:
         return init_params(self.param_specs(), generator,
                            dtype or self.dtype, self.device)
 
+    def abstract_params(self) -> Dict:
+        """The parameter tree as ``meta`` tensors in the config's dtype."""
+        return abstract_params(self.param_specs(), self.dtype)
+
+    def param_logical_axes(self) -> Dict:
+        return logical_axes(self.param_specs())
+
     # -- forward -------------------------------------------------------------
     def _ffn(self, lp: Dict, h: torch.Tensor, train: bool = False
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -105,7 +119,8 @@ class DecoderLM:
         if self.is_moe:
             return moe_mod.moe_apply(lp["moe"], h, top_k=c.top_k,
                                      capacity_factor=c.capacity_factor,
-                                     train=train)
+                                     train=train,
+                                     constrain=self.constrain_moe)
         return swiglu(lp["mlp"], h), {}
 
     def _block(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
@@ -116,6 +131,12 @@ class DecoderLM:
         q, k, v = attn.project_qkv(lp["attn"], h)
         q = apply_rope(q, positions, c.rope_theta)
         k = apply_rope(k, positions, c.rope_theta)
+        if self.constrain_q is not None:
+            # k and v are the unexpanded (B,S,K,D): the port never
+            # expands kv heads
+            q = self.constrain_q(q)
+            k = self.constrain_kv(k)
+            v = self.constrain_kv(v)
         o = attn.sequence_attention(q, k, v, causal=True, window=c.window,
                                     train=train)
         x = x + attn.project_out(lp["attn"], o)
@@ -146,6 +167,8 @@ class DecoderLM:
             x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
+        cst = self.constrain_act or (lambda t: t)
+        x = cst(x)
         aux = {}
         for lp in unstack(params["blocks"], c.n_layers):
             if train and c.remat:
@@ -153,6 +176,7 @@ class DecoderLM:
                                           use_reentrant=False)
             else:
                 x, layer_aux = self._block(lp, x, positions, train)
+            x = cst(x)
             for k, v in layer_aux.items():
                 aux[k] = aux.get(k, 0.0) + v.float()
         aux = {k: v / c.n_layers for k, v in aux.items()}

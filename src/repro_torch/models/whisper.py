@@ -36,7 +36,8 @@ from . import attention as attn
 from .layers import (embed, embed_spec, gelu_mlp, gelu_mlp_spec, layernorm,
                      layernorm_spec, sinusoidal_positions, softmax_xent,
                      unembed)
-from .params import init_params, stack_layer_specs, unstack
+from .params import (abstract_params, init_params, logical_axes,
+                     stack_layer_specs, unstack)
 from .transformer import random_tokens
 
 
@@ -50,6 +51,11 @@ class WhisperModel:
         self.device = resolve_device(device)
         self.n_enc = cfg.enc_layers or cfg.n_layers
         self.n_dec = cfg.n_layers
+        # optional sharding constrainers (``sharding.rules``); None
+        # computes as without them
+        self.constrain_act = None
+        self.constrain_q = None
+        self.constrain_kv = None
 
     # -- specs ---------------------------------------------------------------
     def _gqa_spec(self) -> Dict:
@@ -80,6 +86,13 @@ class WhisperModel:
         ``dtype`` (the config's by default)."""
         return init_params(self.param_specs(), generator,
                            dtype or self.dtype, self.device)
+
+    def abstract_params(self) -> Dict:
+        """The parameter tree as ``meta`` tensors in the config's dtype."""
+        return abstract_params(self.param_specs(), self.dtype)
+
+    def param_logical_axes(self) -> Dict:
+        return logical_axes(self.param_specs())
 
     def _layer(self, fn, lp: Dict, *args):
         """One block, recomputed in the backward when training under
@@ -132,8 +145,10 @@ class WhisperModel:
         enc_out = self.encode(params, extras["frames"], train)
         x = embed(params["embed"], tokens, self.dtype) + sinusoidal_positions(
             S, c.d_model, tokens.device).to(self.dtype)[None]
+        cst = self.constrain_act or (lambda t: t)
+        x = cst(x)
         for lp in unstack(params["dec_blocks"], self.n_dec):
-            x = self._layer(self._dec_block, lp, x, enc_out, train)
+            x = cst(self._layer(self._dec_block, lp, x, enc_out, train))
         x = layernorm(params["dec_ln"], x, c.norm_eps)
         return unembed(params["embed"], x), {}
 

@@ -22,7 +22,8 @@ from repro_torch.data.pipeline import resolve_device
 from . import ssm as ssm_mod
 from .layers import (embed, embed_spec, rmsnorm, rmsnorm_spec, softmax_xent,
                      unembed)
-from .params import init_params, stack_layer_specs, unstack
+from .params import (abstract_params, init_params, logical_axes,
+                     stack_layer_specs, unstack)
 from .transformer import random_tokens
 
 
@@ -36,6 +37,11 @@ class XLSTMModel:
         self.device = resolve_device(device)
         self.n_pairs = cfg.n_layers // 2
         self.head_dim = cfg.resolved_head_dim
+        # optional sharding constrainers (``sharding.rules``); None
+        # computes as without them
+        self.constrain_act = None
+        self.constrain_q = None
+        self.constrain_kv = None
 
     # -- specs ---------------------------------------------------------------
     def pair_spec(self) -> Dict:
@@ -60,6 +66,13 @@ class XLSTMModel:
         return init_params(self.param_specs(), generator,
                            dtype or self.dtype, self.device)
 
+    def abstract_params(self) -> Dict:
+        """The parameter tree as ``meta`` tensors in the config's dtype."""
+        return abstract_params(self.param_specs(), self.dtype)
+
+    def param_logical_axes(self) -> Dict:
+        return logical_axes(self.param_specs())
+
     # -- forward -------------------------------------------------------------
     def _pair(self, pp: Dict, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -78,11 +91,14 @@ class XLSTMModel:
         backward under ``cfg.remat``."""
         c = self.cfg
         x = embed(params["embed"], tokens, self.dtype)
+        cst = self.constrain_act or (lambda t: t)
+        x = cst(x)
         for pp in unstack(params["pairs"], self.n_pairs):
             if train and c.remat:
                 x = checkpoint(self._pair, pp, x, use_reentrant=False)
             else:
                 x = self._pair(pp, x)
+            x = cst(x)
         x = rmsnorm(params["ln_f"], x, c.norm_eps)
         return unembed(params["embed"], x), {}
 

@@ -11,8 +11,13 @@ mid-epoch restart exact at batch granularity.
 numpy has no bfloat16: a bf16 leaf is stored as the reference stores one
 (``ml_dtypes`` bfloat16 lands in the file as raw 2-byte ``V2`` records)
 and read back by viewing those bytes as bfloat16, so a bf16 checkpoint
-crosses between the packages without ``ml_dtypes``.  Restoring onto a
-different mesh (the reference's ``shardings``) comes with ROADMAP A8.
+crosses between the packages without ``ml_dtypes``.  int8 codes stay
+int8; an int8 moment's ``q`` and ``scale`` and a factored moment's ``vr``
+and ``vc`` are leaves under their own paths, as in the reference.
+
+``restore(..., shardings=)`` loads onto a device mesh, which may differ
+from the one the checkpoint was saved from (elastic rescale): each leaf
+comes back as a DTensor placed by its ``sharding.rules.NamedSharding``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.models.params import tree_map
 
@@ -50,11 +56,14 @@ def _to_numpy(leaf: torch.Tensor) -> np.ndarray:
 
 
 def _to_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """``arr`` as a tensor of ``like``'s dtype on its device (on the host
+    for a ``meta`` template, e.g. ``abstract_state``'s)."""
     if arr.dtype == _BF16_RECORD:
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr, copy=True))
-    return t.to(device=like.device, dtype=like.dtype)
+    device = torch.device("cpu") if like.is_meta else like.device
+    return t.to(device=device, dtype=like.dtype)
 
 
 class CheckpointManager:
@@ -116,12 +125,18 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: Optional[int] = None
-                ) -> Tuple[Any, Dict]:
-        """Load into the structure of ``template`` (a tree of tensors):
-        each leaf comes back with the template leaf's dtype and device.
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Optional[Any] = None) -> Tuple[Any, Dict]:
+        """Load into the structure of ``template`` (a tree of tensors, or
+        of ``meta`` tensors from ``abstract_state``): each leaf comes back
+        with the template leaf's dtype and device (the host for ``meta``).
         Returns (state, manifest); raises on a missing key or a shape
-        mismatch."""
+        mismatch.
+
+        ``shardings``: optional matching tree of
+        ``sharding.rules.NamedSharding`` for the target mesh; each leaf
+        then comes back as a DTensor on that mesh's devices
+        (``distribute_tensor``), every rank reading the whole file."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -139,6 +154,14 @@ class CheckpointManager:
                     raise ValueError(f"shape mismatch for {key}: "
                                      f"{arr.shape} vs {tuple(tmpl.shape)}")
                 loaded[key] = _to_tensor(arr, tmpl)
+        if shardings is not None:
+            placed = _paths(shardings)
+            if set(placed) != set(loaded):
+                raise ValueError(f"shardings do not match the template: "
+                                 f"{sorted(set(placed) ^ set(loaded))}")
+            for key, sh in placed.items():
+                loaded[key] = distribute_tensor(loaded[key], sh.mesh,
+                                                sh.placements)
         keys = iter(_paths(template))
         return tree_map(lambda _: loaded[next(keys)], template), manifest
 

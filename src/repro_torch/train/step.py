@@ -4,8 +4,9 @@ a plain dict tree: ``{"params", "opt"}``.
 The train step computes gradients with autograd through
 ``model.train_loss`` (plain torch; no kernel has a backward) and updates
 the state in place with AdamW.  The serve and prefill steps run without
-autograd and through the kernels.  ``abstract_state`` and
-``state_logical_axes`` come with the sharding work (ROADMAP A8/A9).
+autograd and through the kernels.  ``abstract_state`` (``meta`` tensors)
+and ``state_logical_axes`` describe the state without building it, for
+``sharding.rules.tree_shardings``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch
 
 from repro_torch.models.params import tree_leaves, tree_unflatten
 
-from .optimizer import OptimizerConfig, adamw_init, adamw_update
+from .optimizer import (OptimizerConfig, abstract_opt_state, adamw_init,
+                        adamw_update, opt_state_logical_axes)
 
 
 def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1,
@@ -98,5 +100,17 @@ def init_state(model, opt_cfg: OptimizerConfig,
     return {"params": params, "opt": adamw_init(params, opt_cfg)}
 
 
+def abstract_state(model, opt_cfg: OptimizerConfig) -> Dict:
+    """``init_state``'s tree as ``meta`` tensors (shapes and dtypes)."""
+    ap = model.abstract_params()
+    return {"params": ap, "opt": abstract_opt_state(ap, opt_cfg)}
+
+
+def state_logical_axes(model, opt_cfg: OptimizerConfig) -> Dict:
+    """The logical-axis tuples of every leaf of ``init_state``'s tree."""
+    pa = model.param_logical_axes()
+    return {"params": pa, "opt": opt_state_logical_axes(pa, opt_cfg)}
+
+
 __all__ = ["make_train_step", "make_serve_step", "make_prefill_step",
-           "init_state"]
+           "init_state", "abstract_state", "state_logical_axes"]

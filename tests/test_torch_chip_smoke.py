@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import chip_smoke
+from repro_torch.train.optimizer import CHUNK_ELEMS
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -767,3 +768,79 @@ def test_bounds_of_the_masked_attention_shapes():
         kind, 8, 6, 6, 448, 1500, 64, 2, False, 0)
     assert nbytes == 2 * 64 * (2 * 8 * 6 * 448 + 2 * 8 * 6 * 1500)
     assert flops == 4 * 8 * 6 * 64 * 448 * 1500
+
+
+# ---- phase G: Grok-1 on int8 AdamW moments --------------------------------
+
+def test_int8_training_config_is_grok_at_full_width():
+    """Phase G trains Grok-1 at its published widths, all 8 experts top-2
+    and its vocabulary, cut to 2 of 64 layers, on ``int8`` moments (the
+    reference's memory policy for Grok-1): 10.64e9 parameters, at 6 B
+    each (bf16 parameters and gradients, int8 m and v) 63.9 GB, where
+    phase C's 12 B a parameter fit only 1 layer; its checks cover both
+    quantized state dtypes at phase C's check size."""
+    cfg = chip_smoke.int8_train_config()
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+            cfg.n_experts, cfg.top_k, cfg.vocab, cfg.n_layers, cfg.dtype,
+            cfg.remat) == (6144, 48, 8, 32768, 8, 2, 131072, 2, "bfloat16",
+                           True)
+    assert chip_smoke.INT8_STATE == "int8"
+    assert chip_smoke.INT8_CHECK_STATES == ("int8", "int8_factored")
+    n = sum(math.prod(shape) for shape in _leaf_shapes(
+        chip_smoke.build_model(cfg, device="cpu").param_specs()))
+    assert n == 10_645_272_576 and 6 * n < 63.9e9
+    assert 12 * n > 80e9                    # f32 moments would not fit
+    assert (chip_smoke.MOE_TRAIN_B, chip_smoke.MOE_TRAIN_S) == (2, 2048)
+    # the check's embedding still takes the update's row blocks
+    vocab = chip_smoke.INT8_CHECK_VOCAB
+    assert vocab * cfg.d_model > CHUNK_ELEMS
+
+
+def test_int8_training_phase_rehearses_on_cpu():
+    """Phase G on the CPU at Grok-1's smoke config: run_training on int8
+    moments with the probes moved and no kernel launched; the f32 check
+    (CPU against CPU) at zero for both quantized state dtypes, moments
+    included; the int8 state restored onto a 1 x 1 mesh over a one-rank
+    gloo group bit for bit, and compressed_psum_grads equal to itself."""
+    cpu = torch.device("cpu")
+    cfg = chip_smoke.get_arch(chip_smoke.MOE_ARCH).smoke_config().scaled(
+        n_layers=2, remat=True)
+    out = chip_smoke.drive_int8_training(
+        cpu, "cpu", cfg, batch=2, seq=1024, steps=3,
+        check_cfg=cfg.scaled(n_layers=1, dtype="float32"), check_seq=1024)
+    run = out["run"]
+    assert run["steps"] == 3 and run["state_dtype"] == "int8"
+    assert run["layers"] == 2 and len(run["moe_aux_loss"]) == 3
+    assert all(v > 0 for v in run["changed"].values())
+    for sd in chip_smoke.INT8_CHECK_STATES:
+        check = out["checks"][sd]
+        assert check["state_dtype"] == sd
+        assert check["loss_max_abs_diff"] == 0.0
+        assert check["grad_max_rel_diff"] == 0
+        zero = {"int8_codes": 0, "int8_excess": 0.0, "f32_rel": 0.0}
+        assert check["moment_err"] == check["moment_err_last"] == zero
+        assert "state" not in check and "grads" not in check
+    mesh = out["mesh"]
+    assert mesh["backend"] == "gloo" and mesh["restore_bit_exact"]
+    assert mesh["compress_max_abs_diff"] == 0.0 and mesh["step"] == 3
+    assert not any(out["launches"].values())
+    assert not torch.distributed.is_initialized()
+
+
+def test_moment_err_counts_quantization_steps():
+    a = {"m": {"w": {"q": torch.tensor([[3, -2]], dtype=torch.int8),
+                     "scale": torch.tensor([[0.4]])}},
+         "v": {"w": {"vr": torch.tensor([[1.0]]),
+                     "vc": torch.tensor([[2.0, 4.0]])}}}
+    b = {"m": {"w": {"q": torch.tensor([[2, -2]], dtype=torch.int8),
+                     "scale": torch.tensor([[0.5]])}},
+         "v": {"w": {"vr": torch.tensor([[1.0]]),
+                     "vc": torch.tensor([[2.0, 3.0]])}}}
+    err = chip_smoke.moment_err(a, b)
+    # 3 * 0.4 - 2 * 0.5 = 0.2, under one step (0.5): no excess
+    assert err["int8_codes"] == 1 and err["int8_excess"] == 0.0
+    assert err["f32_rel"] == pytest.approx(1 / 3, rel=1e-6)
+    a["m"]["w"]["q"][0, 0] = 5                   # 2.0 - 1.0 = 1.0: 0.5 over
+    err = chip_smoke.moment_err(a, b)
+    assert err["int8_codes"] == 3
+    assert err["int8_excess"] == pytest.approx(0.5, rel=1e-6)

@@ -91,6 +91,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
             "benchmarks.bench_torch_wirefmt",
             "benchmarks.bench_torch_multihost"} <= set(benches)
     mods = _port_modules() + benches + ["chip_smoke"]
+    assert {"repro_torch.sharding", "repro_torch.sharding.rules",
+            "repro_torch.train.compression",
+            "repro_torch.train.pipeline_parallel"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

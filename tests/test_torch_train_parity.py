@@ -334,18 +334,52 @@ def test_per_layer_update_equals_whole_leaf_update(monkeypatch):
 
 
 def test_int8_state_is_queued():
-    with pytest.raises(NotImplementedError, match="A8"):
-        optimizer.adamw_init({"w": torch.zeros(3)},
-                             optimizer.OptimizerConfig(state_dtype="int8"))
+    """The int8 states, queued until the port had them, now train on the
+    quickstart config against ``repro``: each step's metrics, and the
+    parameters, within ``TOL`` while the two runs stay comparable
+    (``tests/test_torch_optimizer_int8.py`` holds the update itself on
+    equal gradients).
+
+    ``int8_factored``: three steps.  ``int8``: two steps' metrics and the
+    parameters after one update.  Its second update is ill-conditioned
+    in both packages: where an element's v code rounds to 0 while its m
+    code does not, and its new gradient is near 0, the step nears
+    ``lr * m_hat / eps``, so a code one apart (the gradients differ in
+    their last bits) moves a parameter by far more than ``TOL``.  Both
+    runs take such steps: the third step's gradient norm is above 50 in
+    each."""
+    jstate, pstate, jmet, pmet = _steps_both("quickstart", 3,
+                                             state_dtype="int8_factored")
+    for j, p in zip(jmet, pmet):
+        for key in j:
+            np.testing.assert_allclose(p[key], j[key], **TOL)
+    _assert_trees_close(pstate["params"], jstate["params"], **TOL)
+    v = pstate["opt"]["v"]["embed"]["embedding"]
+    assert set(v) == {"vr", "vc"} and v["vr"].dtype == torch.float32
+    jstate, pstate, jmet, pmet = _steps_both("quickstart", 1,
+                                             state_dtype="int8")
+    _assert_trees_close(pstate["params"], jstate["params"], **TOL)
+    m, want = (s["opt"]["m"]["embed"]["embedding"] for s in (pstate, jstate))
+    assert m["q"].dtype == torch.int8
+    assert np.abs(m["q"].numpy().astype(int)
+                  - want["q"].astype(int)).max() <= 1
+    jstate, pstate, jmet, pmet = _steps_both("quickstart", 3,
+                                             state_dtype="int8")
+    for j, p in zip(jmet[:2], pmet[:2]):
+        for key in j:
+            np.testing.assert_allclose(p[key], j[key], **TOL)
+    assert jmet[2]["grad_norm"] > 50 and pmet[2]["grad_norm"] > 50
 
 
 # ---------------------------------------------------------------------------
 # train step: 5 AdamW steps, microbatches
 # ---------------------------------------------------------------------------
 
-def _steps_both(name, n_steps, microbatches=1, B=4, S=32):
+def _steps_both(name, n_steps, microbatches=1, B=4, S=32,
+                state_dtype="float32"):
     jm, pm = _pair(name)
-    kw = dict(peak_lr=3e-3, warmup_steps=2, total_steps=20)
+    kw = dict(peak_lr=3e-3, warmup_steps=2, total_steps=20,
+              state_dtype=state_dtype)
     jcfg = jax_opt.OptimizerConfig(**kw)
     pcfg = optimizer.OptimizerConfig(**kw)
     jstate = jax_init_state(jm, jcfg, jax.random.PRNGKey(0))
