@@ -5,7 +5,7 @@ serving path, the Grok-1 and Kimi-K2 MoE serving paths, the Hymba-1.5B,
 xLSTM-350M and Whisper-tiny serving paths, the Qwen3-4B and Grok-1
 training paths (Grok-1 also on int8 AdamW moments, with the state
 restored onto a device mesh) and the 1000-host multi-host loader end to
-end, and times the kernels.
+end, times the kernels, and holds the dry run's counts against the card.
 
     python3 chip_smoke.py
 
@@ -93,8 +93,10 @@ Phases, in order; any failure raises and exits non-zero:
      bf16, remat, seeded random weights; phase F's tensors freed first),
      token records fetched over the simulated WAN by ``build_stack``'s
      DeviceFeed, 8 steps of ``run_training`` (AdamW) at 2 x 4096 tokens,
-     with ms per step, tokens/s, peak memory, each step's loss and grad
-     norm, stall and goodput, and a derived share of the bf16 peak; it
+     with ms per step (the median of steps 2-7: the 8th runs under
+     ``FlopCounterMode`` for phase H), tokens/s, peak memory, each step's
+     loss and grad norm, stall and goodput, and a derived share of the
+     bf16 peak; it
      raises on a loss or norm that is not finite, unchanged parameters,
      missing steps or any kernel launch (training runs none);
  15. the train step in f32 at 2 layers, full width, 1 x 256 tokens, on
@@ -143,6 +145,17 @@ Phases, in order; any failure raises and exits non-zero:
      ``benchmarks/baselines/multihost_scale.json``; its wall-clock checks
      (the CI budget, the events/sec floor) are printed and not judged,
      since they time the host;
+  H. the dry run (``repro_torch.launch.dryrun_lib``, on ``meta`` tensors
+     over a one-rank fake group, on the host) against what phases 7, 11,
+     14, C and G measured: the train step's FLOPs of phases 14 and C equal
+     ``FlopCounterMode``'s count of each run's last step on the card, and
+     its predicted peak (argument + temp + output - alias) is within 20%
+     of the phase's ``max_memory_allocated``; its kernel calls per prefill
+     call and per decode step, times the calls and steps, equal the
+     launches phases 7 and 11 counted; each step and call those phases timed is printed
+     beside its roofline bound on the H100 (the largest of the compute,
+     memory and collective terms, ``launch.mesh.HW``) and the share; it
+     prints its seconds;
  17. one JSON line of kernels, then the result line.
 
 Needs a CUDA card; without one it exits non-zero and prints no result.
@@ -165,10 +178,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from benchmarks import bench_torch_multihost  # noqa: E402
+from benchmarks import bench_torch_multihost, bench_torch_roofline  # noqa: E402
 from benchmarks import bench_torch_wirefmt, torch_gate  # noqa: E402
 from repro_torch.configs.base import (ArchConfig, ShapeConfig,  # noqa: E402
                                       get_arch)
@@ -176,8 +190,13 @@ from repro_torch.core import KVStore, LoaderConfig, build_stack  # noqa: E402
 from repro_torch.data.datasets import (SyntheticPixelDataset,  # noqa: E402
                                        SyntheticTokenDataset, ingest)
 from repro_torch.kernels import build as _build  # noqa: E402
-from repro_torch.kernels import (crop_norm, decode_attention,  # noqa: E402
-                                 flash_attention, grouped_matmul, ops, ref)
+from repro_torch.kernels import (cost, crop_norm,  # noqa: E402
+                                 decode_attention, flash_attention,
+                                 grouped_matmul, ops, ref)
+from repro_torch.kernels.cost import PEAKS, causal_pairs  # noqa: E402
+from repro_torch.launch.dryrun_lib import peak_bytes, run_cell  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.mesh import destroy as destroy_group  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.moe import n_chunks  # noqa: E402
 from repro_torch.models.params import (count_params, tree_leaves,  # noqa: E402
@@ -201,12 +220,6 @@ N_SAMPLES = 4096
 N_BATCHES = 6
 MEAN = (123.675, 116.28, 103.53)
 STD = (58.395, 57.12, 57.375)
-# Device-memory rate, non-tensor-core f32 rate and dense bf16 tensor-core
-# rate from NVIDIA's H100 SXM data sheet; any other card's bound is
-# reported as unknown.
-PEAKS = {"NVIDIA H100 80GB HBM3": {"bytes_per_s": 3.35e12,
-                                   "f32_flops": 67e12,
-                                   "bf16_flops": 989.4e12}}
 SOURCE = "src/repro_torch/kernels/csrc/crop_norm.cu"
 REPLACES = "src/repro/kernels/crop_norm.py:38"
 # name -> (module, source of the kernel the main path runs (bf16 where a
@@ -473,6 +486,9 @@ INT8_TRAIN_LAYERS = 2
 INT8_STATE = "int8"
 INT8_CHECK_STATES = ("int8", "int8_factored")
 INT8_CHECK_VOCAB = 32768
+# Phase H: the dry run's predicted peak (argument + temp + output - alias)
+# against the training phases' max_memory_allocated.
+PEAK_TOL = 0.2
 
 
 def make_inputs(seed: int, b: int, h: int, w: int, c: int, oh: int, ow: int,
@@ -716,18 +732,11 @@ def median_host_ms(fn, n: int = 20, repeats: int = 20) -> float:
 
 
 def bound(kind: str, out_bytes_per_elem: int):
-    """Least time for the main-path call on this card, from its data-sheet
-    peaks: bytes (each needed input byte read once, each output written
-    once) and f32 operations (a subtract and a divide per output)."""
-    elems = B * C * OH * OW
-    nbytes = elems * (1 + out_bytes_per_elem) + 3 * B * 4 + 2 * C * 4
-    peak = PEAKS.get(kind)
-    if peak is None:
-        return nbytes, None, "bytes"
-    bytes_ms = nbytes / peak["bytes_per_s"] * 1e3
-    ops_ms = 2 * elems / peak["f32_flops"] * 1e3
-    return nbytes, max(bytes_ms, ops_ms), \
-        "bytes" if bytes_ms >= ops_ms else "operations"
+    """Least time for the main-path call on this card:
+    ``cost.crop_work`` over its data-sheet peaks (f32 operations)."""
+    flops, nbytes = cost.crop_work(B, C, OH, OW, out_bytes_per_elem)
+    ms, by = cost.roof(kind, nbytes, flops, "f32_flops")
+    return nbytes, ms, by
 
 
 def time_kernel(device, kind: str) -> dict:
@@ -1132,46 +1141,24 @@ def drive_family(device, cfg, serve: dict, check: dict) -> dict:
     return out
 
 
-def causal_pairs(S: int, T: int, window: int = 0,
-                 causal: bool = True) -> int:
-    """(query, key) pairs a causal (and windowed) attention keeps; with
-    ``causal=False`` the pairs the window alone keeps (all S*T without
-    one)."""
-    i = np.arange(S)
-    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
-    hi = np.minimum(T, i + 1) if causal else np.full_like(i, T)
-    return int(np.maximum(0, hi - lo).sum())
-
-
 def attention_bound(kind: str, B: int, H: int, K: int, S: int, T: int,
                     D: int, elsize: int, causal: bool = True,
                     window: int = 0):
-    """Least time for a flash-attention call: q, k, v read once and o
-    written once, against 4*D flops per kept (query, key) pair per head
-    at the inputs' type's peak."""
-    nbytes = elsize * D * (2 * B * H * S + 2 * B * K * T)
-    flops = 4 * B * H * D * causal_pairs(S, T, window, causal)
+    """Least time for a flash-attention call (``cost.attention_work``)."""
+    flops, nbytes = cost.attention_work(B, H, K, S, T, D, elsize, causal,
+                                        window)
     return _bound(kind, nbytes, flops, elsize)
 
 
 def decode_bound(kind: str, lengths, K: int, G: int, D: int, elsize: int):
-    """Least time for a flash-decode call: the valid K and V rows, q and o
-    and the lengths moved once, against 4*G*D flops per valid key and kv
-    head."""
-    B, L = len(lengths), int(sum(lengths))
-    nbytes = elsize * (2 * K * D * L + 2 * B * K * G * D) + 4 * B
-    flops = 4 * K * G * D * L
+    """Least time for a flash-decode call (``cost.decode_work``)."""
+    flops, nbytes = cost.decode_work(lengths, K, G, D, elsize)
     return _bound(kind, nbytes, flops, elsize)
 
 
 def _bound(kind: str, nbytes: int, flops: int, elsize: int):
-    peak = PEAKS.get(kind)
-    if peak is None:
-        return nbytes, flops, None, "bytes"
-    bytes_ms = nbytes / peak["bytes_per_s"] * 1e3
-    ops_ms = flops / peak["bf16_flops" if elsize == 2 else "f32_flops"] * 1e3
-    return nbytes, flops, max(bytes_ms, ops_ms), \
-        "bytes" if bytes_ms >= ops_ms else "operations"
+    ms, by = cost.roof(kind, nbytes, flops, cost.elsize_key(elsize))
+    return nbytes, flops, ms, by
 
 
 def time_attention(device, kind: str) -> dict:
@@ -1350,11 +1337,9 @@ def check_gmm(device) -> dict:
 
 
 def gmm_bound(kind: str, E: int, C: int, d: int, f: int, elsize: int):
-    """Least time for a grouped-matmul call: x and w read once and the
-    output written once, against 2*d flops per output element at the
-    inputs' type's peak."""
-    nbytes = elsize * (E * C * d + E * d * f + E * C * f)
-    return _bound(kind, nbytes, 2 * E * C * d * f, elsize)
+    """Least time for a grouped-matmul call (``cost.gmm_work``)."""
+    flops, nbytes = cost.gmm_work(E, C, d, f, elsize)
+    return _bound(kind, nbytes, flops, elsize)
 
 
 def time_gmm(device, kind: str) -> dict:
@@ -1464,15 +1449,19 @@ def drive_training(device, kind: str, cfg, *, batch: int = TRAIN_B,
     loader_cfg = LoaderConfig(batch_size=batch, route="high",
                               materialize=True, seed=2)
     reset_launches()
+    counted = LastStepFlops(steps)
     t0 = time.perf_counter()
     res = run_training(model, store, uuids, loader_cfg,
                        TrainLoopConfig(total_steps=steps, seq_len=seq,
-                                       log_every=1), opt_cfg, state=state)
+                                       log_every=1), opt_cfg, state=state,
+                       on_metrics=counted)
     sync(device)
     out["run_s"] = time.perf_counter() - t0
     out["launches"] = launch_counts()
+    out["step_flops"] = counted.flops
     ss, hist = res["step_stats"], res["history"]
-    step_s = statistics.median(ss.compute_s[1:])
+    # the first step warms up; the last runs under the flop counter
+    step_s = statistics.median(ss.compute_s[1:-1])
     n_active = active_params(cfg, params)
     flops = train_flops(cfg, n_active, batch, seq)
     peak = PEAKS.get(kind)
@@ -1513,6 +1502,24 @@ def drive_training(device, kind: str, cfg, *, batch: int = TRAIN_B,
             raise AssertionError(f"training peaked at {out['peak_GB']} GB "
                                  f"of the card's {total} GB")
     return out
+
+
+class LastStepFlops:
+    """``run_training``'s ``on_metrics`` hook: ``FlopCounterMode`` over
+    the last of ``steps`` steps (entered after the record of the step
+    before, left after its own); ``flops`` is its count (phase H)."""
+
+    def __init__(self, steps: int) -> None:
+        self.steps = steps
+        self.mode = FlopCounterMode(display=False)
+        self.flops = None
+
+    def __call__(self, rec: dict) -> None:
+        if rec["step"] == self.steps - 1:
+            self.mode.__enter__()
+        elif rec["step"] == self.steps:
+            self.mode.__exit__(None, None, None)
+            self.flops = self.mode.get_total_flops()
 
 
 def check_train_vs_serving(model, params, tokens) -> dict:
@@ -1842,6 +1849,126 @@ def check_restart(device, directory: str, steps: int = 8) -> dict:
             "bit_exact": whole == resumed}
 
 
+def dry_cell(cfg, kind: str, seq: int, batch: int, **kw) -> dict:
+    """Phase H: the dry run's record of ``cfg``'s step of ``kind`` at
+    (batch, seq) on a 1 x 1 mesh (a one-rank fake group; ``meta``
+    tensors, nothing on the card)."""
+    mesh = make_mesh((1, 1), ("data", "model"))
+    try:
+        return run_cell(cfg.name, kind, mesh, verbose=False, cfg=cfg,
+                        shape=ShapeConfig(kind, kind, seq, batch), **kw)
+    finally:
+        destroy_group()
+
+
+def roofline_ms(rec: dict) -> dict:
+    """The three terms of ``rec`` on one H100 in ms
+    (``bench_torch_roofline.time_terms``), its bound (the largest) and
+    which term it is."""
+    terms = {k: v * 1e3 for k, v in
+             bench_torch_roofline.time_terms(rec).items()}
+    dominant = max(terms, key=terms.get)
+    return {**terms, "bound": terms[dominant], "dominant": dominant}
+
+
+def calls_match(calls: dict, totals: dict, runs: int) -> bool:
+    """Whether ``runs`` runs of the dry run's kernel ``calls`` (per run)
+    make exactly the launch ``totals`` the card counted."""
+    return ({k: n * runs for k, n in calls.items() if n}
+            == {k: n for k, n in totals.items() if n})
+
+
+def check_dryrun(serve: dict, moe: dict, train: dict, moe_train: dict,
+                 int8_train: dict) -> dict:
+    """Phase H: the dry run (``launch.dryrun_lib``) held against what the
+    earlier phases measured on the card.  (a) Phases 14 and C: the dry
+    run's FLOPs of the train step equal ``FlopCounterMode``'s count of
+    the run's last step (``LastStepFlops``), and its predicted peak
+    (argument + temp + output - alias) is within ``PEAK_TOL`` of the
+    phase's ``max_memory_allocated``.  (b) Phases 7 and 11: its kernel
+    calls of a prefill call and of a decode step equal the launches those
+    phases counted per call and per engine step.  (c) Each step and call
+    that phases 7, 11, 14, C and G timed, as a share of its roofline
+    bound on the H100 (the largest of the compute, memory and collective
+    terms).  Prints its seconds; raises on a miss."""
+    t0 = time.perf_counter()
+    out = {}
+    opt = dict(total_steps=TRAIN_STEPS, **TRAIN_OPT)
+    cells = {
+        "phase 14 train step": (
+            train, dry_cell(get_arch(ARCH).scaled(remat=True), "train",
+                            TRAIN_S, TRAIN_B, microbatches=1,
+                            opt_cfg=OptimizerConfig(**opt))),
+        "phase C train step": (
+            moe_train["run"], dry_cell(
+                get_arch(MOE_ARCH).scaled(n_layers=MOE_TRAIN_LAYERS,
+                                          remat=True), "train",
+                MOE_TRAIN_S, MOE_TRAIN_B, microbatches=1,
+                opt_cfg=OptimizerConfig(**opt)))}
+    for name, (run, rec) in cells.items():
+        peak = peak_bytes(rec)
+        row = {"dry_flops": rec["flops_per_device"],
+               "card_flops": run["step_flops"],
+               "predicted_peak_GB": peak / 1e9,
+               "card_peak_GB": run["peak_GB"],
+               "peak_ratio": peak / 1e9 / run["peak_GB"]}
+        out[name] = row
+        print(f"phase H, {name}:", json.dumps(row))
+        if int(rec["flops_per_device"]) != run["step_flops"]:
+            raise AssertionError(f"{name}: the dry run counts "
+                                 f"{rec['flops_per_device']} flops, the "
+                                 f"card's step {run['step_flops']}")
+        if not abs(row["peak_ratio"] - 1) <= PEAK_TOL:
+            raise AssertionError(f"{name}: predicted peak "
+                                 f"{row['predicted_peak_GB']} GB against "
+                                 f"{run['peak_GB']} GB on the card")
+    moe_cfg = get_arch(MOE_ARCH).scaled(n_layers=MOE_LAYERS)
+    served = {
+        "phase 7": (serve, get_arch(ARCH), PREFILL_B, PREFILL_S, SLOTS,
+                    MAX_SEQ, DECODE_LIVE[SLOTS, 8, 4, MAX_SEQ, 128]),
+        "phase 11": (moe, moe_cfg, MOE_SERVE["prefill_b"],
+                     MOE_SERVE["prefill_s"], MOE_SERVE["slots"],
+                     MOE_SERVE["max_seq"], DECODE_LIVE[8, 8, 6, 1024, 128])}
+    timed = {name: (run["ms_per_step"], rec)
+             for name, (run, rec) in cells.items()}
+    for name, (run, cfg, b, seq, slots, max_seq, live) in served.items():
+        prefill = dry_cell(cfg, "prefill", seq, b)
+        step = dry_cell(cfg, "decode", max_seq, slots, decode_pos=live - 1)
+        in_steps = {k: v - run["after_prefill"][k]
+                    for k, v in run["launches"].items()}
+        row = {"prefill_calls": prefill["kernel_calls"],
+               "prefill_launches": run["after_prefill"],
+               "prefill_runs": run["prefill_calls"],
+               "step_calls": step["kernel_calls"],
+               "step_launches": in_steps,
+               "engine_steps": run["engine_steps"]}
+        out[name] = row
+        print(f"phase H, {name} kernel calls:", json.dumps(row))
+        if not (calls_match(prefill["kernel_calls"], run["after_prefill"],
+                            run["prefill_calls"])
+                and calls_match(step["kernel_calls"], in_steps,
+                                run["engine_steps"])):
+            raise AssertionError(f"{name}: dry-run kernel calls differ "
+                                 f"from the launches: {row}")
+        timed[f"{name} prefill call"] = (run["prefill_ms_per_call"], prefill)
+        timed[f"{name} engine step"] = (run["ms_per_engine_step"], step)
+    timed["phase G train step"] = (int8_train["run"]["ms_per_step"], dry_cell(
+        int8_train_config(), "train", MOE_TRAIN_S, MOE_TRAIN_B,
+        microbatches=1, opt_cfg=OptimizerConfig(state_dtype=INT8_STATE,
+                                                **opt)))
+    for name, (ms, rec) in timed.items():
+        roof = roofline_ms(rec)
+        row = {"ms": ms, **{f"{k}_ms": v for k, v in roof.items()
+                            if k != "dominant"},
+               "bound_by": roof["dominant"],
+               "share_of_bound": roof["bound"] / ms}
+        out[f"{name} roofline"] = row
+        print(f"phase H, {name} against its roofline:", json.dumps(row))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase H: {out['seconds']!r} s")
+    return out
+
+
 def free_card() -> None:
     """Drop what an earlier phase left cached, so that the next phase
     starts from an empty card."""
@@ -1909,17 +2036,20 @@ def main() -> int:
                                     serve_kw, check_kw)
                 for phase, (arch, serve_kw, check_kw)
                 in FAMILY_PHASES.items()}
-    drive_training(device, kind, cfg.scaled(remat=True))      # phase 14
+    train = drive_training(device, kind,                      # phase 14
+                           cfg.scaled(remat=True))
     free_card()
     check_f32_training(device, cfg.scaled(                    # phase 15
         n_layers=CHECK_LAYERS, dtype="float32"))
     free_card()
-    drive_moe_training(device, kind)                          # phase C
+    moe_train = drive_moe_training(device, kind)              # phase C
     free_card()
-    drive_int8_training(device, kind, int8_train_config())    # phase G
+    int8_train = drive_int8_training(device, kind,            # phase G
+                                     int8_train_config())
     free_card()
     gmm_time = time_gmm(device, kind)                         # phase 16
     drive_multihost_scale()                                   # phase B
+    check_dryrun(serve, moe, train, moe_train, int8_train)    # phase H
     f32 = timing["f32"]
     rows = {"crop_mirror_normalize": {
         "launches": run["launches"],

@@ -37,10 +37,11 @@ from repro_torch.sharding.rules import shard_batch_spec
 
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises for a CUDA device when no
-    card is present, and for any device type other than cpu and cuda."""
+    card is present, and for any device type other than cpu, cuda and
+    meta (shapes only: the dry run's models)."""
     dev = torch.device(device)
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"device must be cpu or cuda, got {device!r}")
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"device must be cpu, cuda or meta, got {device!r}")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={str(device)!r} needs a CUDA device and "
                            "none is available; pass device='cpu' to run the "

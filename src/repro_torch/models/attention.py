@@ -351,6 +351,33 @@ def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
             "pos": 0}
 
 
+def cache_specs(batch: int, max_len: int, n_kv: int, head_dim: int,
+                dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """The reference's cache spec as ``meta`` tensors: k and v (B,T,K,D)
+    and ``pos`` an int32 scalar (the port keeps it as a host int)."""
+    shape = (batch, max_len, n_kv, head_dim)
+    return {"k": torch.empty(shape, dtype=dtype, device="meta"),
+            "v": torch.empty(shape, dtype=dtype, device="meta"),
+            "pos": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def stack_specs(tree: Dict, n: int) -> Dict:
+    """Each ``meta`` leaf of ``tree`` with a leading axis of ``n``."""
+    return {k: stack_specs(v, n) if isinstance(v, dict) else
+            torch.empty((n,) + tuple(v.shape), dtype=v.dtype, device="meta")
+            for k, v in tree.items()}
+
+
+def token_spec(batch: int, seq: int) -> torch.Tensor:
+    """An int32 (batch, seq) ``meta`` tensor: the tokens' spec."""
+    return torch.empty((batch, seq), dtype=torch.int32, device="meta")
+
+
+KV_CACHE_AXES = {"k": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+                 "v": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+                 "pos": ("layers",)}
+
+
 def cache_slot(pos: int, T: int, window: int) -> int:
     """Where token ``pos`` is written: a ring for sliding-window caches;
     on a linear cache the index is clamped to T-1, as the reference's
@@ -393,16 +420,26 @@ def cache_attention(params: Dict, q: torch.Tensor, k: torch.Tensor,
     Decode self-attention passes ``min(pos + 1, T)``; Whisper's decode
     cross-attention passes every encoder frame, which is the reference's
     non-causal ``dense_attention`` over them."""
+    return project_out(params, _decode(q, k, v, length))
+
+
+def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            length: int) -> torch.Tensor:
+    """``cache_attention``'s kernel call: q (B,1,H,D) against the first
+    ``length`` rows of k and v (B,T,K,D) -> (B,1,H,D)."""
     B, _, H, D = q.shape
     K = k.shape[2]
-    lengths = torch.full((B,), length, dtype=torch.int32, device=q.device)
+    # on ``meta`` (the dry run) the kernel's work is read from the lengths
+    dev = "cpu" if q.device.type == "meta" else q.device
+    lengths = torch.full((B,), length, dtype=torch.int32, device=dev)
     o = ops.flash_decode(q.reshape(B, K, H // K, D), k.transpose(1, 2),
                          v.transpose(1, 2), lengths)
-    return project_out(params, o.reshape(B, 1, H, D))
+    return o.reshape(B, 1, H, D)
 
 
 __all__ = ["gqa_spec", "project_q", "project_qkv", "project_out",
            "expand_kv", "dense_attention", "chunked_attention",
-           "sequence_attention", "init_kv_cache", "cache_slot",
+           "sequence_attention", "init_kv_cache", "cache_specs",
+           "stack_specs", "token_spec", "KV_CACHE_AXES", "cache_slot",
            "decode_attention", "cache_attention", "NEG_INF",
            "DENSE_ATTN_MAX_SEQ"]

@@ -192,6 +192,36 @@ class HymbaModel:
         return unembed(params["embed"], x), {"kv": dict(kv, pos=pos + 1),
                                              "mamba": ms}
 
+    def cache_specs(self, batch: int, seq_len: int) -> Dict:
+        """The reference's cache spec as ``meta`` tensors: "kv" as
+        ``attn.cache_specs`` over min(window, seq_len) slots and "mamba"
+        h (f32) and conv, each stacked over the layers."""
+        c = self.cfg
+        W = min(c.window or seq_len, seq_len)
+        kv = attn.cache_specs(batch, W, c.n_kv_heads, c.resolved_head_dim,
+                              self.dtype)
+        ms = {"h": torch.empty((batch, self.d_inner, c.ssm_state),
+                               dtype=torch.float32, device="meta"),
+              "conv": torch.empty((batch, 3, self.d_inner),
+                                  dtype=self.dtype, device="meta")}
+        return {"kv": attn.stack_specs(kv, c.n_layers),
+                "mamba": attn.stack_specs(ms, c.n_layers)}
+
+    def input_specs(self, shape: ShapeConfig) -> Dict:
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": attn.token_spec(B, 1),
+                    "cache": self.cache_specs(B, S)}
+        return {"tokens": attn.token_spec(B, S)}
+
+    def input_logical_axes(self, shape: ShapeConfig) -> Dict:
+        if shape.kind == "decode":
+            ms = {"h": ("layers", "batch", "d_inner", "state"),
+                  "conv": ("layers", "batch", "conv_k", "d_inner")}
+            return {"tokens": ("batch", None),
+                    "cache": {"kv": dict(attn.KV_CACHE_AXES), "mamba": ms}}
+        return {"tokens": ("batch", "seq")}
+
     def make_batch(self, generator: torch.Generator, shape: ShapeConfig
                    ) -> Dict:
         """Random tokens of ``shape`` from ``generator``, and for a decode

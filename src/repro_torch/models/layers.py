@@ -136,12 +136,18 @@ def output_head(params: Dict, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ params["w_out"].float()
 
 
+def logz_and_target(logits: torch.Tensor, targets: torch.Tensor):
+    """``logsumexp`` of each row of ``logits`` (..., V) and the logit of
+    its target."""
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return logz, ll
+
+
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean cross-entropy over valid positions. logits: (..., V)."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    logz, ll = logz_and_target(logits.float(), targets)
     nll = logz - ll
     if mask is not None:
         mask = mask.float()
@@ -153,4 +159,5 @@ __all__ = ["rmsnorm_spec", "rmsnorm", "layernorm_spec", "layernorm",
            "project_heads", "rope_freqs", "apply_rope",
            "sinusoidal_positions", "swiglu_spec",
            "swiglu", "gelu_mlp_spec", "gelu_mlp", "embed_spec", "embed",
-           "unembed", "output_head_spec", "output_head", "softmax_xent"]
+           "unembed", "output_head_spec", "output_head", "logz_and_target",
+           "softmax_xent"]

@@ -36,7 +36,7 @@ What differs from the reference in form, not in result:
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,14 +73,31 @@ def moe_apply(params: Dict, x: torch.Tensor, *, top_k: int,
     each chunk checkpointed when there are several and gradients are on)
     or the grouped-matmul kernel.  ``constrain`` (optional) is applied to
     the dispatch and expert buffers, as in the reference."""
+    return _moe_chunks(params, x, top_k=top_k,
+                       capacity_factor=capacity_factor, seq_chunk=seq_chunk,
+                       train=train, constrain=constrain)
+
+
+def _moe_chunks(params: Dict, x: torch.Tensor, *, top_k: int,
+                capacity_factor: float, seq_chunk: int, train: bool,
+                constrain, weights: Optional[Callable] = None,
+                first_expert: int = 0
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``moe_apply``'s chunks.  ``weights(params)`` (the params
+    themselves for None) gives the expert weights: made once, or inside
+    each chunk's checkpoint, so that what it builds is rebuilt in the
+    backward rather than kept to it.  Weights that hold Ew of the E
+    experts, from ``first_expert`` on, compute those experts' slots."""
+    weights = weights or (lambda p: p)
     n = n_chunks(x.shape[1], seq_chunk)
+    remat = train and n > 1 and torch.is_grad_enabled()
+    once = None if remat else weights(params)
 
     def chunk(xc):
-        return _moe_chunk(params, xc, top_k=top_k,
-                          capacity_factor=capacity_factor, train=train,
-                          constrain=constrain)
-
-    remat = train and n > 1 and torch.is_grad_enabled()
+        return _moe_chunk(weights(params) if remat else once, xc,
+                          top_k=top_k, capacity_factor=capacity_factor,
+                          train=train, constrain=constrain,
+                          first_expert=first_expert)
     outs, auxs = zip(*(checkpoint(chunk, xc, use_reentrant=False) if remat
                        else chunk(xc) for xc in x.chunk(n, dim=1)))
     metrics = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
@@ -127,7 +144,8 @@ def _batch_major(constrain, E: int, B: int, C: int):
 
 
 def _moe_chunk(params: Dict, x: torch.Tensor, *, top_k: int,
-               capacity_factor: float, train: bool = False, constrain=None
+               capacity_factor: float, train: bool = False, constrain=None,
+               first_expert: int = 0
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     B, S, d = x.shape
     E = params["router"].shape[-1]
@@ -175,17 +193,20 @@ def _moe_chunk(params: Dict, x: torch.Tensor, *, top_k: int,
     def expert_major(t):
         return t.view(B, E, C).transpose(0, 1)
 
-    token = (expert_major(src)
+    # The experts these weights hold: all E, or Ew from ``first_expert``.
+    Ew = params["w_gate"].shape[0]
+    held = slice(first_expert, first_expert + Ew)
+    token = (expert_major(src)[held]
              + S * torch.arange(B, device=dev)[None, :, None]).reshape(-1)
-    mask = expert_major(filled).reshape(E, B * C, 1)
-    cst = _batch_major(constrain, E, B, C)
-    h = cst(x.reshape(B * S, d)[token].view(E, B * C, d) * mask.to(x.dtype))
+    mask = expert_major(filled)[held].reshape(Ew, B * C, 1)
+    cst = _batch_major(constrain, Ew, B, C)
+    h = cst(x.reshape(B * S, d)[token].view(Ew, B * C, d) * mask.to(x.dtype))
 
     experts = _experts_einsum if train else _experts_kernel
-    y = experts(h, params, cst)                                # (E, B*C, d)
+    y = experts(h, params, cst)                                # (Ew, B*C, d)
 
-    weight = (expert_major(gate_slot).reshape(E, B * C, 1) * mask)
-    updates = (y * weight.to(x.dtype)).reshape(E * B * C, d)
+    weight = (expert_major(gate_slot)[held].reshape(Ew, B * C, 1) * mask)
+    updates = (y * weight.to(x.dtype)).reshape(Ew * B * C, d)
     out = torch.zeros((B * S, d), dtype=x.dtype, device=dev).index_add_(
         0, token, updates)
 

@@ -197,6 +197,23 @@ def mlstm_apply(params: Dict, x: torch.Tensor, state: Optional[Dict] = None,
     log_f = -F.softplus(-f_pre)          # log sigmoid: forget in (0, 1)
     log_i = -F.softplus(-i_pre)          # the stabilized input gate
 
+    C = None if state is None else state["C"]
+    n = None if state is None else state["n"]
+    h, (C, n) = _mlstm_scan(q, (k, v, log_f, log_i), (C, n), chunk)
+    o_gate = torch.sigmoid(project_heads(x, params["ogate"]).float())
+    h = (h * o_gate).to(x.dtype)
+    wo = params["wo"]
+    out = h.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+    return out, {"C": C, "n": n}
+
+
+def _mlstm_scan(q, rest, carry, chunk: int):
+    """The chunkwise recurrence: q and ``rest`` = (k, v, the log gates
+    (B,S,H)), q, k, v (B,S,H,Dh), and the carried (C, n) (zeros for None)
+    -> h (B,S,H,Dh) f32 and the last (C, n)."""
+    k, v, log_f, log_i = rest
+    C, n = carry
+    B, S, H, Dh = q.shape
     chunk = min(chunk, S)
     n_chunks = -(-S // chunk)
     pad = n_chunks * chunk - S
@@ -205,11 +222,11 @@ def mlstm_apply(params: Dict, x: torch.Tensor, state: Optional[Dict] = None,
         log_f = F.pad(log_f, (0, 0, 0, pad))
         log_i = F.pad(log_i, (0, 0, 0, pad), value=-30.0)
     mask = torch.ones((chunk, chunk), dtype=torch.bool,
-                      device=x.device).tril()[None, :, :, None]
-    C = (torch.zeros((B, H, Dh, Dh), dtype=torch.float32, device=x.device)
-         if state is None else state["C"])
-    n = (torch.zeros((B, H, Dh), dtype=torch.float32, device=x.device)
-         if state is None else state["n"])
+                      device=q.device).tril()[None, :, :, None]
+    C = (torch.zeros((B, H, Dh, Dh), dtype=torch.float32, device=q.device)
+         if C is None else C)
+    n = (torch.zeros((B, H, Dh), dtype=torch.float32, device=q.device)
+         if n is None else n)
     hs: List[torch.Tensor] = []
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
@@ -237,12 +254,7 @@ def mlstm_apply(params: Dict, x: torch.Tensor, state: Optional[Dict] = None,
         C = C * last[..., None, None] + torch.einsum("bshk,bshv->bhkv", kd,
                                                      vf)
         n = n * last[..., None] + kd.sum(dim=1)
-    h = torch.cat(hs, dim=1)[:, :S]
-    o_gate = torch.sigmoid(project_heads(x, params["ogate"]).float())
-    h = (h * o_gate).to(x.dtype)
-    wo = params["wo"]
-    out = h.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
-    return out, {"C": C, "n": n}
+    return torch.cat(hs, dim=1)[:, :S], (C, n)
 
 
 def mlstm_init_state(batch: int, n_heads: int, head_dim: int,
@@ -270,16 +282,26 @@ def slstm_apply(params: Dict, x: torch.Tensor, state: Optional[Dict] = None
     x (B,S,d) -> (out (B,S,d), {'c', 'n', 'm', 'h'} each (B,d) f32; m is
     the log-space stabilizer).  One step per token, as the reference's
     ``lax.scan``."""
-    B, S, d = x.shape
-    H = params["r_gates"].shape[0]
-    dh = d // H
     zx = (x @ params["w_gates"] + params["b_gates"]).float()
     r = params["r_gates"].float()
-    if state is None:
-        zeros = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+    carry = None if state is None else tuple(state[k] for k in "cnmh")
+    hs, carry = _slstm_scan(zx, r, carry)
+    out = hs.to(x.dtype) @ params["w_out"]
+    return out, dict(zip("cnmh", carry))
+
+
+def _slstm_scan(zx: torch.Tensor, r: torch.Tensor, carry=None):
+    """The sLSTM's steps: the input gates zx (B,S,4d) f32 and the
+    recurrent weights r (H,dh,4dh) -> the hidden states (B,S,d) f32 and
+    the last (c, n, m, h)."""
+    B, S, d = zx.shape[0], zx.shape[1], zx.shape[2] // 4
+    H = r.shape[0]
+    dh = d // H
+    if carry is None:
+        zeros = torch.zeros((B, d), dtype=torch.float32, device=zx.device)
         c, n, m, h = zeros, zeros, zeros - 10.0, zeros
     else:
-        c, n, m, h = state["c"], state["n"], state["m"], state["h"]
+        c, n, m, h = carry
     hs = []
     for t in range(S):
         rec = torch.einsum("bhk,hkg->bhg", h.reshape(B, H, dh), r)
@@ -293,8 +315,7 @@ def slstm_apply(params: Dict, x: torch.Tensor, state: Optional[Dict] = None
         h = torch.sigmoid(zo) * c / n.clamp_min(1.0)
         m = m_new
         hs.append(h)
-    out = torch.stack(hs, dim=1).to(x.dtype) @ params["w_out"]
-    return out, {"c": c, "n": n, "m": m, "h": h}
+    return torch.stack(hs, dim=1), (c, n, m, h)
 
 
 def slstm_init_state(batch: int, d: int, device="cuda") -> Dict:

@@ -243,6 +243,37 @@ class DecoderLM:
         return unembed(params["embed"], x), {"k": cache["k"],
                                              "v": cache["v"], "pos": pos + 1}
 
+    def cache_specs(self, batch: int, seq_len: int) -> Dict:
+        """The reference's stacked cache spec as ``meta`` tensors: k and v
+        (L,B,T,K,D), ``pos`` (L,) int32."""
+        c = self.cfg
+        return attn.stack_specs(attn.cache_specs(
+            batch, self._cache_len(seq_len), c.n_kv_heads,
+            c.resolved_head_dim, self.dtype), c.n_layers)
+
+    # -- shape plumbing ------------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict:
+        """The step's inputs for ``shape`` as ``meta`` tensors."""
+        c = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": attn.token_spec(B, 1),
+                    "cache": self.cache_specs(B, S)}
+        specs = {"tokens": attn.token_spec(B, S)}
+        if self.is_vlm:
+            specs["patch_embeds"] = torch.empty(
+                (B, c.n_patches, c.d_model), dtype=self.dtype, device="meta")
+        return specs
+
+    def input_logical_axes(self, shape: ShapeConfig) -> Dict:
+        if shape.kind == "decode":
+            return {"tokens": ("batch", None),
+                    "cache": dict(attn.KV_CACHE_AXES)}
+        axes = {"tokens": ("batch", "seq")}
+        if self.is_vlm:
+            axes["patch_embeds"] = ("batch", "patches", "d_model")
+        return axes
+
     # -- batches -------------------------------------------------------------
     def make_batch(self, generator: torch.Generator, shape: ShapeConfig
                    ) -> Dict:

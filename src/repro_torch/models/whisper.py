@@ -205,6 +205,38 @@ class WhisperModel:
         return unembed(params["embed"], x), {"self": dict(sc, pos=pos + 1),
                                              "cross": cross}
 
+    def cache_specs(self, batch: int, seq_len: int) -> Dict:
+        """The reference's cache spec as ``meta`` tensors: "self" as
+        ``attn.cache_specs`` over ``seq_len`` and "cross" k and v over the
+        encoder's frames, each stacked over the decoder layers."""
+        c = self.cfg
+        kv = (c.n_kv_heads, c.resolved_head_dim)
+        cross = (self.n_dec, batch, c.enc_frames) + kv
+        return {"self": attn.stack_specs(attn.cache_specs(
+                    batch, seq_len, *kv, self.dtype), self.n_dec),
+                "cross": {k: torch.empty(cross, dtype=self.dtype,
+                                         device="meta") for k in "kv"}}
+
+    def input_specs(self, shape: ShapeConfig) -> Dict:
+        c = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": attn.token_spec(B, 1),
+                    "cache": self.cache_specs(B, S)}
+        return {"tokens": attn.token_spec(B, S),
+                "frames": torch.empty((B, c.enc_frames, c.d_model),
+                                      dtype=self.dtype, device="meta")}
+
+    def input_logical_axes(self, shape: ShapeConfig) -> Dict:
+        if shape.kind == "decode":
+            cross = {k: ("layers", "batch", "frames", "kv_heads",
+                         "head_dim") for k in "kv"}
+            return {"tokens": ("batch", None),
+                    "cache": {"self": dict(attn.KV_CACHE_AXES),
+                              "cross": cross}}
+        return {"tokens": ("batch", "seq"),
+                "frames": ("batch", "frames", "d_model")}
+
     def make_batch(self, generator: torch.Generator, shape: ShapeConfig
                    ) -> Dict:
         """Random tokens of ``shape`` from ``generator``; a decode shape

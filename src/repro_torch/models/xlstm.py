@@ -19,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.data.pipeline import resolve_device
 
+from . import attention as attn
 from . import ssm as ssm_mod
 from .layers import (embed, embed_spec, rmsnorm, rmsnorm_spec, softmax_xent,
                      unembed)
@@ -149,6 +150,39 @@ class XLSTMModel:
                     states[k][i] = v
         x = rmsnorm(params["ln_f"], x, c.norm_eps)
         return unembed(params["embed"], x), cache
+
+    def cache_specs(self, batch: int, seq_len: int) -> Dict:
+        """The reference's state spec as ``meta`` tensors (f32): "mlstm" C
+        (B,H,Dh,Dh) and n, "slstm" c, n, m and h (B,d), each stacked over
+        the pairs; ``seq_len`` sizes nothing."""
+        c = self.cfg
+
+        def f32(*shape):
+            return torch.empty(shape, dtype=torch.float32, device="meta")
+
+        m = {"C": f32(batch, c.n_heads, self.head_dim, self.head_dim),
+             "n": f32(batch, c.n_heads, self.head_dim)}
+        s = {k: f32(batch, c.d_model) for k in ("c", "n", "m", "h")}
+        return {"mlstm": attn.stack_specs(m, self.n_pairs),
+                "slstm": attn.stack_specs(s, self.n_pairs)}
+
+    def input_specs(self, shape: ShapeConfig) -> Dict:
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": attn.token_spec(B, 1),
+                    "cache": self.cache_specs(B, S)}
+        return {"tokens": attn.token_spec(B, S)}
+
+    def input_logical_axes(self, shape: ShapeConfig) -> Dict:
+        if shape.kind == "decode":
+            m = {"C": ("layers", "batch", "heads", "head_dim",
+                       "head_dim_out"),
+                 "n": ("layers", "batch", "heads", "head_dim")}
+            s = {k: ("layers", "batch", "d_model")
+                 for k in ("c", "n", "m", "h")}
+            return {"tokens": ("batch", None),
+                    "cache": {"mlstm": m, "slstm": s}}
+        return {"tokens": ("batch", "seq")}
 
     def make_batch(self, generator: torch.Generator, shape: ShapeConfig
                    ) -> Dict:

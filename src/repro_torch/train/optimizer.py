@@ -346,13 +346,29 @@ def adamw_update(grads: Any, opt_state: Dict, params: Any,
     _check_state_dtype(cfg)
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
+    lr = _update_leaves(_leaf_groups(grads, opt_state, params), gnorm, step,
+                        cfg)
+    stats = {"grad_norm": gnorm, "lr": lr}
+    return params, {"m": opt_state["m"], "v": opt_state["v"],
+                    "step": step}, stats
+
+
+def _leaf_groups(grads: Any, opt_state: Dict, params: Any) -> list:
+    """(param, grad, m, v) of each leaf."""
+    return list(zip(tree_leaves(params), tree_leaves(grads),
+                    _leaves_like(opt_state["m"], params),
+                    _leaves_like(opt_state["v"], params)))
+
+
+def _update_leaves(leaves: list, gnorm: torch.Tensor, step: torch.Tensor,
+                   cfg: OptimizerConfig) -> torch.Tensor:
+    """AdamW on each (param, grad, m, v) of ``leaves`` in place, the
+    gradients clipped by ``gnorm``, at ``step``; returns the lr."""
     clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = lr_at(cfg, step)
     bc1 = 1.0 - cfg.b1 ** step.float()
     bc2 = 1.0 - cfg.b2 ** step.float()
-    ms = _leaves_like(opt_state["m"], params)
-    vs = _leaves_like(opt_state["v"], params)
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), ms, vs):
+    for p, g, m, v in leaves:
         if _is_vfactor(v):
             for i in _lead_index(p.shape):
                 _update_factored(p[i], g[i], _at(m, i), _at(v, i), clip, lr,
@@ -361,9 +377,7 @@ def adamw_update(grads: Any, opt_state: Dict, params: Any,
             for i in _index(p.shape):
                 _update_rows(p[i], g[i], _at(m, i), _at(v, i), clip, lr,
                              bc1, bc2, cfg)
-    stats = {"grad_norm": gnorm, "lr": lr}
-    return params, {"m": opt_state["m"], "v": opt_state["v"],
-                    "step": step}, stats
+    return lr
 
 
 __all__ = ["OptimizerConfig", "lr_at", "adamw_init", "adamw_update",

@@ -48,8 +48,7 @@ def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1,
         else:
             parts = {k: v.chunk(microbatches, dim=0) for k, v in
                      batch.items()}
-            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
-                     for p in leaves]
+            grads = [torch.zeros_like(p, dtype=accum_dtype) for p in leaves]
             per_mb = []
             for i in range(microbatches):
                 g, m = grads_of(leaves, params,

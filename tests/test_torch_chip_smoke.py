@@ -844,3 +844,31 @@ def test_moment_err_counts_quantization_steps():
     err = chip_smoke.moment_err(a, b)
     assert err["int8_codes"] == 3
     assert err["int8_excess"] == pytest.approx(0.5, rel=1e-6)
+
+
+def test_phase_h_calls_match_only_exact_multiples():
+    """Phase H holds the dry run's kernel calls per call (or step), times
+    the calls, equal to the launches the card counted: a stray or missing
+    launch that floor division would hide is a miss."""
+    calls = {"flash_decode": 4, "grouped_matmul": 12}
+    assert chip_smoke.calls_match(calls, {"flash_attention": 0,
+                                          "flash_decode": 28,
+                                          "grouped_matmul": 84}, 7)
+    assert not chip_smoke.calls_match(calls, {"flash_decode": 28,
+                                              "grouped_matmul": 85}, 7)
+    assert not chip_smoke.calls_match(calls, {"flash_decode": 28}, 7)
+    assert not chip_smoke.calls_match(calls, {"flash_decode": 28,
+                                              "grouped_matmul": 84,
+                                              "flash_attention": 1}, 7)
+
+
+def test_phase_h_roofline_is_the_twins_terms():
+    """``roofline_ms`` is ``bench_torch_roofline.time_terms`` in ms with
+    its largest term as the bound."""
+    from benchmarks import bench_torch_roofline as roof
+    rec = roof.load_results()[0]
+    got = chip_smoke.roofline_ms(rec)
+    want = {k: v * 1e3 for k, v in roof.time_terms(rec).items()}
+    assert {k: got[k] for k in want} == want
+    assert got["bound"] == max(want.values())
+    assert got["dominant"] == max(want, key=want.get)

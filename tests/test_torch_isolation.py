@@ -93,7 +93,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     mods = _port_modules() + benches + ["chip_smoke"]
     assert {"repro_torch.sharding", "repro_torch.sharding.rules",
             "repro_torch.train.compression",
-            "repro_torch.train.pipeline_parallel"} <= set(mods)
+            "repro_torch.train.pipeline_parallel",
+            "repro_torch.kernels.cost", "repro_torch.launch.mesh",
+            "repro_torch.launch.op_cost", "repro_torch.launch.dryrun_lib",
+            "repro_torch.launch.per_device",
+            "repro_torch.launch.dryrun",
+            "benchmarks.bench_torch_roofline"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
