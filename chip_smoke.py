@@ -2,9 +2,10 @@
 H100: builds the port's CUDA kernels, holds each against its plain PyTorch
 version, drives the image lane (and its arena bench), the dense Qwen3-4B
 serving path, the Grok-1 and Kimi-K2 MoE serving paths, the Hymba-1.5B,
-xLSTM-350M and Whisper-tiny serving paths, the Qwen3-4B and Grok-1
-training paths (Grok-1 also on int8 AdamW moments, with the state
-restored onto a device mesh) and the 1000-host multi-host loader end to
+xLSTM-350M and Whisper-tiny serving paths, the Qwen3-4B, Grok-1,
+Hymba-1.5B, xLSTM-350M and Whisper-tiny training paths (Grok-1 also on
+int8 AdamW moments, with the state restored onto a device mesh) and the
+1000-host multi-host loader end to
 end, times the kernels, and holds the dry run's counts against the card.
 
     python3 chip_smoke.py
@@ -92,8 +93,8 @@ Phases, in order; any failure raises and exits non-zero:
  14. the training path at full width and depth: Qwen3-4B (36 layers,
      bf16, remat, seeded random weights; phase F's tensors freed first),
      token records fetched over the simulated WAN by ``build_stack``'s
-     DeviceFeed, 8 steps of ``run_training`` (AdamW) at 2 x 4096 tokens,
-     with ms per step (the median of steps 2-7: the 8th runs under
+     DeviceFeed, 3 steps of ``run_training`` (AdamW) at 2 x 4096 tokens,
+     with ms per step (step 2's: the 3rd runs under
      ``FlopCounterMode`` for phase H), tokens/s, peak memory, each step's
      loss and grad norm, stall and goodput, and a derived share of the
      bf16 peak; it
@@ -106,7 +107,7 @@ Phases, in order; any failure raises and exits non-zero:
   C. the MoE training path at full width: Grok-1 (1 of its 64 layers, all
      8 experts, top-2, bf16, f32 AdamW moments, remat, seeded random
      weights; the earlier phases' tensors freed first), token records
-     fetched over the simulated WAN by ``build_stack``'s DeviceFeed, 8
+     fetched over the simulated WAN by ``build_stack``'s DeviceFeed, 3
      steps of ``run_training`` at 2 x 2048 tokens (four 512-token chunks a
      row, each under its checkpoint), with ms per step, tokens/s, peak
      memory, the losses and MoE metrics, the stall share and a derived
@@ -121,7 +122,7 @@ Phases, in order; any failure raises and exits non-zero:
      3 x layers x chunks grouped-matmul launches;
   G. the int8 training path at full width: Grok-1 (2 of its 64 layers,
      bf16, remat, AdamW with int8 m and v, the reference's memory policy
-     for Grok-1; the earlier phases' tensors freed first), 8 steps of
+     for Grok-1; the earlier phases' tensors freed first), 3 steps of
      ``run_training`` at 2 x 2048 tokens as phase C, printing the same
      numbers and raising as phase 14 does; then phase C's f32 check (1
      layer, d_ff 256, vocabulary 32768, 1 x 1024 tokens, 3 steps, card
@@ -135,6 +136,30 @@ Phases, in order; any failure raises and exits non-zero:
      the card, bit-exact) and ``compressed_psum_grads`` on the first
      step's gradients equal to the CPU port's over gloo; no kernel
      launches; it prints its seconds;
+  I. the hybrid training path at full width and depth: Hymba-1.5B (32
+     layers, 25 query heads over 5 kv heads, a 1024-token window, Mamba
+     d_inner 1600 and state 16; bf16, remat, f32 AdamW moments, seeded
+     random weights; the earlier phases' tensors freed first), 3 steps of
+     ``run_training`` at 2 x 4096 tokens over the simulated WAN as phase
+     14, printing and raising as phase 14 does (a Mamba weight must move
+     beside the attention's and the MLP's); then the train step in f32 at
+     2 layers, full width, on 1 x 2080 tokens (chunked attention past the
+     window, 9 Mamba chunks, the last ragged), card against CPU as phase
+     15 without the restart;
+  J. the SSM training path at full width and depth: xLSTM-350M (24
+     layers, 12 mLSTM/sLSTM pairs), 1 step of ``run_training`` at 2 x
+     4096 tokens (timed, warm-up included; the sLSTM walks 4096 steps a
+     layer three times a step), with the derived ms per sLSTM step and
+     layer; the sLSTM's and the mLSTM's weights must move; then the f32
+     check at one pair on 1 x 544 tokens (three mLSTM chunks, the last
+     ragged);
+  K. the audio training path at full width and depth: Whisper-tiny (4
+     encoder and 4 decoder layers), 8 steps of ``make_train_step`` on 2 x
+     4096 tokens fetched over the simulated WAN with (2, 1500, 384) frames
+     from ``make_batch`` (``run_training`` feeds no frames, in either
+     package), the numbers of phase I but the stall share and goodput;
+     then the f32 check of the whole model on 1 x 2080 tokens with frames;
+     each of I, J and K prints its seconds;
  16. the grouped matmul's times at the Grok-1 and Kimi-K2 decode and
      prefill shapes, and at the two chunks off the path, against its
      bound, plain version and ``torch.bmm``;
@@ -146,16 +171,19 @@ Phases, in order; any failure raises and exits non-zero:
      (the CI budget, the events/sec floor) are printed and not judged,
      since they time the host;
   H. the dry run (``repro_torch.launch.dryrun_lib``, on ``meta`` tensors
-     over a one-rank fake group, on the host) against what phases 7, 11,
-     14, C and G measured: the train step's FLOPs of phases 14 and C equal
+     over a one-rank fake group, on the host, in a process of its own
+     started with phase 1) against what phases 7, 11, 14, C, G, I and K
+     measured: the train step's FLOPs of phases 14, C, I and K equal
      ``FlopCounterMode``'s count of each run's last step on the card, and
      its predicted peak (argument + temp + output - alias) is within 20%
-     of the phase's ``max_memory_allocated``; its kernel calls per prefill
+     of the phase's ``max_memory_allocated`` (phase J is not counted: its
+     count walks the sLSTM's 4096 steps a layer in Python on ``meta``
+     tensors, too slow for this run); its kernel calls per prefill
      call and per decode step, times the calls and steps, equal the
-     launches phases 7 and 11 counted; each step and call those phases timed is printed
-     beside its roofline bound on the H100 (the largest of the compute,
-     memory and collective terms, ``launch.mesh.HW``) and the share; it
-     prints its seconds;
+     launches phases 7 and 11 counted; each step and call these phases
+     timed is printed beside its roofline bound on the H100 (the largest
+     of the compute, memory and collective terms, ``launch.mesh.HW``) and
+     the share; it prints its seconds;
  17. one JSON line of kernels, then the result line.
 
 Needs a CUDA card; without one it exits non-zero and prints no result.
@@ -166,6 +194,7 @@ from __future__ import annotations
 import concurrent.futures
 import gc
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -444,13 +473,17 @@ GMM_PATH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -6, 1e-3)}
 
 # The training path (phase 14): Qwen3-4B at full width and depth, bf16,
 # remat, seeded random weights, train_4k's sequence of 4096 tokens at a
-# global batch of 2 (train_4k's 256, cut by one card's memory), 8 steps of
-# run_training over route high (the first is warm-up).  The f32 check
-# (phase 15) runs 2 layers at full width on 1 x 256 tokens for 3 steps on
+# global batch of 2 (train_4k's 256, cut by one card's memory), 3 steps of
+# run_training over route high (the first is warm-up, the second timed,
+# the last runs under the flop counter; 3, not 8, so that the script with
+# phases I-K stays inside its time limit on a slower host: one H100 host
+# took 1287.9 s with 4 steps here and two of xLSTM's; phases C, G and I
+# take the same).  The f32
+# check (phase 15) runs 2 layers at full width on 1 x 256 tokens for 3 steps on
 # the card and on the CPU: losses within CHECK_TOL, and the first step's
 # gradients within CHECK_TOL of each leaf's max |g|; then a restart from a
 # checkpoint on the card at the quickstart config.
-TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 8
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 3
 TRAIN_OPT = dict(peak_lr=3e-4, warmup_steps=2)
 TRAIN_CHECK_B, TRAIN_CHECK_S, TRAIN_CHECK_STEPS = 1, 256, 3
 RESTART_CFG = dict(name="quickstart-lm", family="dense", n_layers=2,
@@ -486,6 +519,28 @@ INT8_TRAIN_LAYERS = 2
 INT8_STATE = "int8"
 INT8_CHECK_STATES = ("int8", "int8_factored")
 INT8_CHECK_VOCAB = 32768
+# The hybrid, SSM and audio training paths (phases I, J and K): each
+# config whole (Hymba-1.5B's 32 layers, xLSTM-350M's 24, Whisper-tiny's
+# 4 + 4), bf16, remat, f32 AdamW moments, seeded random weights, phase
+# 14's 2 x 4096 tokens and its 3 steps (Whisper 8: they take 0.2 s).
+# xLSTM runs 1: its sLSTM is a loop of 4096 steps a layer, walked three
+# times a step (the forward, remat's recompute and the backward), 120-172
+# s a step on the H100, host-bound; that step is timed, warm-up included
+# (5-10% above a second step), without the flop counter (phase H does not
+# count it).  The f32 checks
+# keep the width and cut depth and length only: Hymba 2 layers on 1 x
+# 2080 tokens (past 2048, so attention goes chunked, past the 1024-token
+# window, 9 Mamba chunks, the last ragged), xLSTM one pair on 1 x 544
+# (three mLSTM chunks, the last ragged, and 544 sLSTM steps), Whisper
+# whole on 1 x 2080 with frames.
+# phase -> (config, drive_training's sizes, the f32 check's cut and sizes)
+FAMILY_TRAIN = {
+    "I": ("hymba_1_5b", dict(steps=TRAIN_STEPS),
+          dict(n_layers=2, seq=2080)),
+    "J": ("xlstm_350m", dict(steps=1, count_flops=False),
+          dict(n_layers=2, seq=544)),
+    "K": ("whisper_tiny", dict(steps=8), dict(seq=2080)),
+}
 # Phase H: the dry run's predicted peak (argument + temp + output - alias)
 # against the training phases' max_memory_allocated.
 PEAK_TOL = 0.2
@@ -971,7 +1026,7 @@ def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
     engine = ServingEngine(model, params, ServeConfig(
         batch_slots=slots, max_seq=max_seq, max_new_tokens=new_tokens))
 
-    batch = dict(prefill_extras(model, prefill_b, prefill_s),
+    batch = dict(batch_extras(model, prefill_b, prefill_s),
                  tokens=prefill_tokens)
     reset_launches()
     times = []
@@ -1027,10 +1082,11 @@ def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
     return out, prompts
 
 
-def prefill_extras(model, batch: int, seq: int, seed: int = 1) -> dict:
-    """The prefill batch's inputs other than its tokens, from the model's
-    ``make_batch`` with a seeded generator on its device: Whisper's frames
-    (B, 1500, d_model); nothing for the decoder-only families."""
+def batch_extras(model, batch: int, seq: int, seed: int = 1) -> dict:
+    """A prefill or train batch's inputs other than its tokens, from the
+    model's ``make_batch`` with a seeded generator on its device:
+    Whisper's frames (B, 1500, d_model); nothing for the decoder-only
+    families."""
     made = model.make_batch(torch.Generator(model.device).manual_seed(seed),
                             ShapeConfig("prefill", "prefill", seq, batch))
     return {k: v for k, v in made.items() if k != "tokens"}
@@ -1080,14 +1136,14 @@ def check_f32_path(device, cfg, prompts, *, prefill_len: int = CHECK_PREFILL,
     """Phase 8: the serving path in f32 on the same weights, once on
     ``device`` and once through the port on the CPU (the kernels' plain
     versions): logits of a 1 x prefill_len prefill (with the
-    ``prefill_extras`` the family takes, made once) and of the first
+    ``batch_extras`` the family takes, made once) and of the first
     ``n_steps`` engine steps.  TF32 is off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     params = build_model(cfg, device=device).init(
         torch.Generator(device).manual_seed(0))
     cpu = torch.device("cpu")
-    batch = dict(prefill_extras(build_model(cfg, device=cpu), 1,
+    batch = dict(batch_extras(build_model(cfg, device=cpu), 1,
                                 prefill_len),
                  tokens=torch.from_numpy(
                      np.concatenate(prompts)[:prefill_len][None]))
@@ -1393,29 +1449,88 @@ def active_params(cfg, params: dict) -> int:
     return n - experts + experts * cfg.top_k // cfg.n_experts
 
 
-def train_flops(cfg, n_params: int, B: int, S: int) -> int:
+def train_flops(cfg, params: dict, B: int, S: int) -> int:
     """Operations of one train step, derived: 6 per (active) parameter and
-    token (forward, and a backward of twice the forward) plus the causal
-    attention's 4*D per kept (query, key) pair and head, three times over.
-    Remat's second forward and the experts' capacity slack (their slots
-    are capacity_factor times the routed pairs) are not counted."""
-    attn = 4 * B * cfg.n_heads * cfg.resolved_head_dim * causal_pairs(S, S)
-    return 6 * n_params * B * S + 3 * cfg.n_layers * attn
+    row it multiplies (forward, and a backward of twice the forward) plus
+    each attention's 4*D per kept (query, key) pair and head, three times
+    over.  A row is a token, or for Whisper's encoder and its
+    cross-attention's k and v projections one of the ``enc_frames``
+    frames.  The attention: causal in every layer of the decoder-only
+    families, within the window where there is one (Hymba's 1024); none in
+    xLSTM; in Whisper, the encoder's over all F x F frame pairs, the
+    decoder's causal self-attention and S x F cross-attention.  Not
+    counted: remat's second forward, the experts' capacity slack (their
+    slots are capacity_factor times the routed pairs), the mLSTM's
+    chunkwise products and the recurrences' elementwise work."""
+    n = active_params(cfg, params)
+    per_pair = 3 * 4 * B * cfg.n_heads * cfg.resolved_head_dim
+    if cfg.family == "ssm":
+        return 6 * n * B * S
+    if cfg.family == "audio":
+        F_ = cfg.enc_frames
+        cross = params["dec_blocks"]["cross_attn"]
+        framed = (count_params(params["enc_blocks"])
+                  + count_params(params["enc_ln"])
+                  + sum(cross[k].numel() for k in ("wk", "wv", "bv")))
+        pairs = ((cfg.enc_layers or cfg.n_layers) * F_ * F_
+                 + cfg.n_layers * (causal_pairs(S, S) + S * F_))
+        return (6 * (n - framed) * B * S + 6 * framed * B * F_
+                + per_pair * pairs)
+    return (6 * n * B * S
+            + per_pair * cfg.n_layers * causal_pairs(S, S, cfg.window))
+
+
+def train_probes(params: dict) -> dict:
+    """Views of weight matrices that a train step must move (updated in
+    place), picked from the model's own tree: the embedding; for the
+    families with stacked ``blocks`` the first layer's ``wq`` and the last
+    layer's ``w_down`` (for MoE the router and expert 0's), and Hymba's
+    first Mamba ``w_in``; for xLSTM's ``pairs`` the first mLSTM's ``wq``
+    and the last sLSTM's ``r_gates``; for Whisper the first encoder
+    layer's ``wq``, the last decoder layer's cross-attention ``wq`` and
+    MLP ``w_out``.  (A norm scale of 1.0 may not move: a bf16 parameter
+    keeps no f32 master copy, in the reference as here, and an update
+    under half its ulp rounds away.)"""
+    probes = {"embedding": params["embed"]["embedding"][:8]}
+    if "blocks" in params:
+        blocks = params["blocks"]
+        probes["wq layer 0"] = blocks["attn"]["wq"][0, :8]
+        if "moe" in blocks:
+            probes["router last layer"] = blocks["moe"]["router"][-1]
+            probes["w_down expert 0 last layer"] = \
+                blocks["moe"]["w_down"][-1, 0, :8]
+        else:
+            probes["w_down last layer"] = blocks["mlp"]["w_down"][-1, :8]
+        if "mamba" in blocks:
+            probes["mamba w_in layer 0"] = blocks["mamba"]["w_in"][0, :8]
+    if "pairs" in params:
+        pairs = params["pairs"]
+        probes["mlstm wq pair 0"] = pairs["mlstm"]["wq"][0, :8]
+        probes["slstm r_gates last pair"] = \
+            pairs["slstm"]["r_gates"][-1, 0, :8]
+    if "enc_blocks" in params:
+        enc, dec = params["enc_blocks"], params["dec_blocks"]
+        probes["encoder wq layer 0"] = enc["attn"]["wq"][0, :8]
+        probes["cross wq last layer"] = dec["cross_attn"]["wq"][-1, :8]
+        probes["mlp w_out last layer"] = dec["mlp"]["w_out"][-1, :8]
+    return {k: v.detach() for k, v in probes.items()}
 
 
 def drive_training(device, kind: str, cfg, *, batch: int = TRAIN_B,
                    seq: int = TRAIN_S, steps: int = TRAIN_STEPS,
-                   state_dtype: str = "float32") -> dict:
-    """Phases 14, C and G: the training path through the entry points a
-    user calls: ``init_state`` (AdamW moments of ``state_dtype``), then
-    ``run_training`` over the simulated WAN
-    (token records fetched by ``build_stack``'s DeviceFeed on route high),
-    with the kernels' launches counted (training runs none: it uses the
-    plain attention and, for MoE, the expert einsums, as the reference
-    trains with XLA ops).  Raises on a loss or gradient norm that is not
-    finite, parameters that did not change (for MoE the router and an
-    expert's weight among them), fewer steps than asked, or a peak above
-    the card's memory."""
+                   state_dtype: str = "float32",
+                   count_flops: bool = True) -> dict:
+    """Phases 14, C, G, I, J and K: the training path through the entry
+    points a user calls: ``init_state`` (AdamW moments of
+    ``state_dtype``), then ``run_training`` over the simulated WAN (token
+    records fetched by ``build_stack``'s DeviceFeed on route high), or
+    for Whisper ``train_with_frames``, with the kernels' launches counted
+    (training runs none: it uses the plain attention and, for MoE, the
+    expert einsums, as the reference trains with XLA ops).  With
+    ``count_flops`` the last step runs under ``FlopCounterMode`` (phase
+    H).  Raises on a loss or gradient norm that is not finite,
+    ``train_probes`` that did not change, fewer steps than asked, or a
+    peak above the card's memory."""
     model = build_model(cfg, device=device)
     opt_cfg = OptimizerConfig(total_steps=steps, state_dtype=state_dtype,
                               **TRAIN_OPT)
@@ -1430,53 +1545,52 @@ def drive_training(device, kind: str, cfg, *, batch: int = TRAIN_B,
                                tree_leaves(state["opt"])) / 1e9}
     params = state["params"]
     n_params = count_params(params)
-    # Views of weight matrices, updated in place.  (A norm scale of
-    # 1.0 may not move: a bf16 parameter keeps no f32 master copy, in the
-    # reference as here, and an update under half its ulp rounds away.)
-    blocks = params["blocks"]
-    probes = {"embedding": params["embed"]["embedding"][:8].detach(),
-              "wq layer 0": blocks["attn"]["wq"][0, :8].detach()}
-    if "moe" in blocks:
-        probes["router last layer"] = blocks["moe"]["router"][-1].detach()
-        probes["w_down expert 0 last layer"] = \
-            blocks["moe"]["w_down"][-1, 0, :8].detach()
-    else:
-        probes["w_down last layer"] = blocks["mlp"]["w_down"][-1, :8].detach()
+    probes = train_probes(params)
     before = {k: v.clone() for k, v in probes.items()}
-    store = KVStore()
-    uuids = ingest(store, SyntheticTokenDataset(
-        n_samples=16 * batch, seq_len=seq, vocab=cfg.vocab, seed=2))
-    loader_cfg = LoaderConfig(batch_size=batch, route="high",
-                              materialize=True, seed=2)
     reset_launches()
-    counted = LastStepFlops(steps)
+    counted = LastStepFlops(steps) if count_flops else None
     t0 = time.perf_counter()
-    res = run_training(model, store, uuids, loader_cfg,
-                       TrainLoopConfig(total_steps=steps, seq_len=seq,
-                                       log_every=1), opt_cfg, state=state,
-                       on_metrics=counted)
+    if cfg.family == "audio":
+        res = train_with_frames(model, state, opt_cfg, batch, seq, steps,
+                                counted)
+        compute_s = res["compute_s"]
+        out["loader_MBps_virtual"] = res["loader_MBps_virtual"]
+    else:
+        store = KVStore()
+        uuids = ingest(store, SyntheticTokenDataset(
+            n_samples=16 * batch, seq_len=seq, vocab=cfg.vocab, seed=2))
+        loader_cfg = LoaderConfig(batch_size=batch, route="high",
+                                  materialize=True, seed=2)
+        res = run_training(model, store, uuids, loader_cfg,
+                           TrainLoopConfig(total_steps=steps, seq_len=seq,
+                                           log_every=1), opt_cfg,
+                           state=state, on_metrics=counted)
+        compute_s = res["step_stats"].compute_s
+        out.update(stall_frac=res["stats"]["stall_frac"],
+                   goodput_sps=res["stats"]["goodput_sps"],
+                   loader_MBps_virtual=res["loader_stats"].throughput(
+                       skip=1) / 1e6)
     sync(device)
     out["run_s"] = time.perf_counter() - t0
     out["launches"] = launch_counts()
-    out["step_flops"] = counted.flops
-    ss, hist = res["step_stats"], res["history"]
-    # the first step warms up; the last runs under the flop counter
-    step_s = statistics.median(ss.compute_s[1:-1])
+    out["step_flops"] = counted.flops if counted else None
+    hist = res["history"]
+    # the first step warms up and the last runs under the flop counter;
+    # a single uncounted step is timed, warm-up and all
+    timed = compute_s[1:-1] if counted else compute_s[1:]
+    step_s = statistics.median(timed or compute_s)
     n_active = active_params(cfg, params)
-    flops = train_flops(cfg, n_active, batch, seq)
+    flops = train_flops(cfg, params, batch, seq)
     peak = PEAKS.get(kind)
     out.update({
-        "params": n_params, "active_params": n_active, "steps": ss.steps,
-        "ms_per_step": step_s * 1e3,
-        "ms_per_step_all": [c * 1e3 for c in ss.compute_s],
+        "params": n_params, "active_params": n_active,
+        "steps": len(compute_s), "ms_per_step": step_s * 1e3,
+        "ms_per_step_all": [c * 1e3 for c in compute_s],
         "tokens_per_s": batch * seq / step_s,
         "peak_GB": (torch.cuda.max_memory_allocated(device) / 1e9
                     if device.type == "cuda" else None),
         "losses": [r["loss"] for r in hist],
         "grad_norms": [r["grad_norm"] for r in hist],
-        "stall_frac": res["stats"]["stall_frac"],
-        "goodput_sps": res["stats"]["goodput_sps"],
-        "loader_MBps_virtual": res["loader_stats"].throughput(skip=1) / 1e6,
         "flops_per_step_derived": flops,
         "bf16_peak_share_derived":
             flops / step_s / peak["bf16_flops"] if peak else None,
@@ -1488,9 +1602,10 @@ def drive_training(device, kind: str, cfg, *, batch: int = TRAIN_B,
     print(f"training path, {cfg.name}:", json.dumps(out))
     bad = [r for r in hist if not (np.isfinite(r["loss"])
                                    and np.isfinite(r["grad_norm"]))]
-    if bad or len(hist) != steps or ss.steps != steps:
+    if bad or len(hist) != steps or out["steps"] != steps:
         raise AssertionError(f"training: {len(hist)} of {steps} steps "
-                             f"logged, {ss.steps} run, not finite: {bad}")
+                             f"logged, {out['steps']} run, not finite: "
+                             f"{bad}")
     if not all(v > 0 for v in out["changed"].values()):
         raise AssertionError(f"training left parameters unchanged: "
                              f"{out['changed']}")
@@ -1502,6 +1617,38 @@ def drive_training(device, kind: str, cfg, *, batch: int = TRAIN_B,
             raise AssertionError(f"training peaked at {out['peak_GB']} GB "
                                  f"of the card's {total} GB")
     return out
+
+
+def train_with_frames(model, state: dict, opt_cfg, batch: int, seq: int,
+                      steps: int, on_metrics=None) -> dict:
+    """Phase K's loop, for a model that reads ``frames`` (Whisper), which
+    ``run_training`` does not feed in either package: ``steps`` batches
+    of (batch, seq) tokens fetched over the simulated WAN in one loader
+    batch (``fetch_tokens``), each with the same frames from the model's
+    ``make_batch`` (``batch_extras``), through ``make_train_step``.
+    Returns the history (``step``, ``loss``, ``grad_norm``; each record
+    passed to ``on_metrics`` as ``run_training`` passes it), each step's
+    seconds (host clock around the synchronised step) and the loader's
+    MB/s on the virtual clock."""
+    device = model.device
+    tokens, mbps = fetch_tokens(16 * batch, seq, model.cfg.vocab,
+                                steps * batch, device, seed=2)
+    extras = batch_extras(model, batch, seq, seed=2)
+    step_fn = make_train_step(model, opt_cfg)
+    history, compute_s = [], []
+    for i, rows in enumerate(tokens.split(batch)):
+        sync(device)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, dict(extras, tokens=rows))
+        sync(device)
+        compute_s.append(time.perf_counter() - t0)
+        rec = {"step": i + 1, "loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"])}
+        history.append(rec)
+        if on_metrics:
+            on_metrics(rec)
+    return {"history": history, "compute_s": compute_s,
+            "loader_MBps_virtual": mbps}
 
 
 class LastStepFlops:
@@ -1563,8 +1710,9 @@ def check_f32_training(device, cfg, *, batch: int = TRAIN_CHECK_B,
                        restart: bool = True, serving: bool = False,
                        state_dtype: str = "float32",
                        keep: bool = False) -> dict:
-    """Phases 15, C and G: the train step in f32 on one state, once on
-    ``device`` and once through the port on the CPU: the first step's
+    """Phases 15, C, G, I, J and K: the train step in f32 on one state,
+    once on ``device`` and once through the port on the CPU (with the
+    ``batch_extras`` the family takes, Whisper's frames): the first step's
     gradients (each leaf within ``CHECK_TOL`` of its max |g|) and the loss
     of each of ``steps`` steps (within ``CHECK_TOL``).  With quantized
     moments (``state_dtype``), the moments after the first update too,
@@ -1592,13 +1740,15 @@ def check_f32_training(device, cfg, *, batch: int = TRAIN_CHECK_B,
     tokens, _ = fetch_tokens(4 * batch, seq, cfg.vocab, batch, device,
                              seed=3)
     cpu = torch.device("cpu")
+    extras = batch_extras(build_model(cfg, device=cpu), batch, seq, seed=3)
     runs, side_s = [], []
     for dev, st in ((device, state),
                     (cpu, tree_map(lambda t: t.to(cpu, copy=True), state))):
         t_side = time.perf_counter()
         model = build_model(cfg, device=dev)
         b = {"tokens": tokens.to(dev),
-             "loss_mask": torch.ones(tokens.shape, device=dev)}
+             "loss_mask": torch.ones(tokens.shape, device=dev),
+             **{k: v.to(dev) for k, v in extras.items()}}
         leaves = tree_leaves(st["params"])
         for leaf in leaves:
             leaf.requires_grad_(True)
@@ -1706,6 +1856,38 @@ def drive_moe_training(device, kind: str) -> dict:
         batch=MOE_TRAIN_CHECK_B, seq=MOE_TRAIN_CHECK_S, restart=False,
         serving=True)
     return {"run": run, "check": check}
+
+
+def family_train_config(arch: str) -> ArchConfig:
+    """A phase I-K model: ``arch``'s config whole, with remat."""
+    return get_arch(arch).scaled(remat=True)
+
+
+def drive_family_training(device, kind: str, cfg, sizes: dict,
+                          check: dict) -> dict:
+    """Phases I, J and K: ``cfg`` trained through ``drive_training`` with
+    ``sizes``; for xLSTM also the derived ms per sLSTM step and layer (ms
+    per step over seq x pairs: an upper bound, as it holds the rest of
+    the step too); the card freed; then ``check_f32_training`` on ``cfg``
+    in f32 with ``check``'s cut (``n_layers``) on one row of ``check``'s
+    ``seq`` tokens, without the restart.  Prints and returns the phase's
+    seconds with both results."""
+    t0 = time.perf_counter()
+    run = drive_training(device, kind, cfg, **sizes)
+    if cfg.family == "ssm":
+        run["ms_per_slstm_step_layer_derived"] = run["ms_per_step"] / (
+            run["seq"] * (cfg.n_layers // 2))
+        print(f"training path, {cfg.name}: ms per sLSTM step and layer "
+              f"(derived) {run['ms_per_slstm_step_layer_derived']!r}")
+    free_card()
+    cut = dict(check)
+    seq = cut.pop("seq")
+    f32 = check_f32_training(device, cfg.scaled(dtype="float32", **cut),
+                             batch=1, seq=seq, restart=False)
+    free_card()
+    out = {"run": run, "check": f32, "seconds": time.perf_counter() - t0}
+    print(f"phase {cfg.name} training: {out['seconds']!r} s")
+    return out
 
 
 def int8_train_config() -> ArchConfig:
@@ -1878,34 +2060,76 @@ def calls_match(calls: dict, totals: dict, runs: int) -> bool:
             == {k: n for k, n in totals.items() if n})
 
 
+def dry_records() -> dict:
+    """Phase H's dry-run records (``dry_cell``) of what phases 7, 11, 14,
+    C, G, I and K run on the card: each train step at its phase's config
+    and sizes (not phase J's: its count walks the sLSTM's 4096 steps a
+    layer in Python on ``meta`` tensors, tens of minutes), and each
+    serving path's prefill call and decode step at the engine's live
+    length.  Host work only, so ``main`` runs it in a process of its own
+    beside the card's phases: Hymba's train step alone takes about two
+    minutes of Python (its Mamba scan's tree of small ops)."""
+    opt = dict(total_steps=TRAIN_STEPS, **TRAIN_OPT)
+    train = {
+        "phase 14": (get_arch(ARCH).scaled(remat=True), TRAIN_B, TRAIN_S,
+                     "float32"),
+        "phase C": (get_arch(MOE_ARCH).scaled(n_layers=MOE_TRAIN_LAYERS,
+                                              remat=True),
+                    MOE_TRAIN_B, MOE_TRAIN_S, "float32"),
+        "phase G": (int8_train_config(), MOE_TRAIN_B, MOE_TRAIN_S,
+                    INT8_STATE)}
+    for phase, (arch, sizes, _) in FAMILY_TRAIN.items():
+        if sizes.get("count_flops", True):
+            train[f"phase {phase}"] = (family_train_config(arch),
+                                       sizes.get("batch", TRAIN_B),
+                                       sizes.get("seq", TRAIN_S), "float32")
+    recs = {f"{name} train step": dry_cell(
+        cfg, "train", seq, b, microbatches=1,
+        opt_cfg=OptimizerConfig(state_dtype=sd, **opt))
+        for name, (cfg, b, seq, sd) in train.items()}
+    served = {
+        "phase 7": (get_arch(ARCH), PREFILL_B, PREFILL_S, SLOTS, MAX_SEQ,
+                    DECODE_LIVE[SLOTS, 8, 4, MAX_SEQ, 128]),
+        "phase 11": (get_arch(MOE_ARCH).scaled(n_layers=MOE_LAYERS),
+                     MOE_SERVE["prefill_b"], MOE_SERVE["prefill_s"],
+                     MOE_SERVE["slots"], MOE_SERVE["max_seq"],
+                     DECODE_LIVE[8, 8, 6, 1024, 128])}
+    for name, (cfg, b, seq, slots, max_seq, live) in served.items():
+        recs[f"{name} prefill call"] = dry_cell(cfg, "prefill", seq, b)
+        recs[f"{name} engine step"] = dry_cell(cfg, "decode", max_seq,
+                                               slots, decode_pos=live - 1)
+    return recs
+
+
 def check_dryrun(serve: dict, moe: dict, train: dict, moe_train: dict,
-                 int8_train: dict) -> dict:
-    """Phase H: the dry run (``launch.dryrun_lib``) held against what the
-    earlier phases measured on the card.  (a) Phases 14 and C: the dry
-    run's FLOPs of the train step equal ``FlopCounterMode``'s count of
-    the run's last step (``LastStepFlops``), and its predicted peak
-    (argument + temp + output - alias) is within ``PEAK_TOL`` of the
+                 int8_train: dict, family_train: dict, recs: dict) -> dict:
+    """Phase H: the dry run's records (``dry_records``) held against what
+    the earlier phases measured on the card.  (a) Phases 14, C, I and K:
+    the dry run's FLOPs of the train step equal ``FlopCounterMode``'s
+    count of the run's last step (``LastStepFlops``), and its predicted
+    peak (argument + temp + output - alias) is within ``PEAK_TOL`` of the
     phase's ``max_memory_allocated``.  (b) Phases 7 and 11: its kernel
     calls of a prefill call and of a decode step equal the launches those
     phases counted per call and per engine step.  (c) Each step and call
-    that phases 7, 11, 14, C and G timed, as a share of its roofline
+    that phases 7, 11, 14, C, G, I and K timed, as a share of its roofline
     bound on the H100 (the largest of the compute, memory and collective
-    terms).  Prints its seconds; raises on a miss."""
+    terms).  Phase J has no record (``dry_records``): it is reported as
+    skipped.  Prints its seconds; raises on a miss."""
     t0 = time.perf_counter()
     out = {}
-    opt = dict(total_steps=TRAIN_STEPS, **TRAIN_OPT)
-    cells = {
-        "phase 14 train step": (
-            train, dry_cell(get_arch(ARCH).scaled(remat=True), "train",
-                            TRAIN_S, TRAIN_B, microbatches=1,
-                            opt_cfg=OptimizerConfig(**opt))),
-        "phase C train step": (
-            moe_train["run"], dry_cell(
-                get_arch(MOE_ARCH).scaled(n_layers=MOE_TRAIN_LAYERS,
-                                          remat=True), "train",
-                MOE_TRAIN_S, MOE_TRAIN_B, microbatches=1,
-                opt_cfg=OptimizerConfig(**opt)))}
-    for name, (run, rec) in cells.items():
+    runs = {"phase 14": train, "phase C": moe_train["run"],
+            **{f"phase {p}": f["run"] for p, f in family_train.items()}}
+    timed = {}
+    for phase, run in runs.items():
+        name = f"{phase} train step"
+        if name not in recs:
+            out[name] = "not counted"
+            print(f"phase H, {name}: skipped: the dry run walks its "
+                  f"sLSTM's {run['seq']} steps a layer in Python on meta "
+                  f"tensors, too slow for this run")
+            continue
+        rec = recs[name]
+        timed[name] = (run["ms_per_step"], rec)
         peak = peak_bytes(rec)
         row = {"dry_flops": rec["flops_per_device"],
                "card_flops": run["step_flops"],
@@ -1922,18 +2146,9 @@ def check_dryrun(serve: dict, moe: dict, train: dict, moe_train: dict,
             raise AssertionError(f"{name}: predicted peak "
                                  f"{row['predicted_peak_GB']} GB against "
                                  f"{run['peak_GB']} GB on the card")
-    moe_cfg = get_arch(MOE_ARCH).scaled(n_layers=MOE_LAYERS)
-    served = {
-        "phase 7": (serve, get_arch(ARCH), PREFILL_B, PREFILL_S, SLOTS,
-                    MAX_SEQ, DECODE_LIVE[SLOTS, 8, 4, MAX_SEQ, 128]),
-        "phase 11": (moe, moe_cfg, MOE_SERVE["prefill_b"],
-                     MOE_SERVE["prefill_s"], MOE_SERVE["slots"],
-                     MOE_SERVE["max_seq"], DECODE_LIVE[8, 8, 6, 1024, 128])}
-    timed = {name: (run["ms_per_step"], rec)
-             for name, (run, rec) in cells.items()}
-    for name, (run, cfg, b, seq, slots, max_seq, live) in served.items():
-        prefill = dry_cell(cfg, "prefill", seq, b)
-        step = dry_cell(cfg, "decode", max_seq, slots, decode_pos=live - 1)
+    for name, run in (("phase 7", serve), ("phase 11", moe)):
+        prefill = recs[f"{name} prefill call"]
+        step = recs[f"{name} engine step"]
         in_steps = {k: v - run["after_prefill"][k]
                     for k, v in run["launches"].items()}
         row = {"prefill_calls": prefill["kernel_calls"],
@@ -1952,10 +2167,8 @@ def check_dryrun(serve: dict, moe: dict, train: dict, moe_train: dict,
                                  f"from the launches: {row}")
         timed[f"{name} prefill call"] = (run["prefill_ms_per_call"], prefill)
         timed[f"{name} engine step"] = (run["ms_per_engine_step"], step)
-    timed["phase G train step"] = (int8_train["run"]["ms_per_step"], dry_cell(
-        int8_train_config(), "train", MOE_TRAIN_S, MOE_TRAIN_B,
-        microbatches=1, opt_cfg=OptimizerConfig(state_dtype=INT8_STATE,
-                                                **opt)))
+    timed["phase G train step"] = (int8_train["run"]["ms_per_step"],
+                                   recs["phase G train step"])
     for name, (ms, rec) in timed.items():
         roof = roofline_ms(rec)
         row = {"ms": ms, **{f"{k}_ms": v for k, v in roof.items()
@@ -1965,7 +2178,9 @@ def check_dryrun(serve: dict, moe: dict, train: dict, moe_train: dict,
         out[f"{name} roofline"] = row
         print(f"phase H, {name} against its roofline:", json.dumps(row))
     out["seconds"] = time.perf_counter() - t0
-    print(f"phase H: {out['seconds']!r} s")
+    out["count_s"] = sum(r["lower_s"] + r["compile_s"] for r in recs.values())
+    print(f"phase H: {out['seconds']!r} s, its counts {out['count_s']!r} s "
+          f"in their own process")
     return out
 
 
@@ -1983,6 +2198,14 @@ def nvidia_smi() -> str:
         check=True, timeout=60).stdout.strip()
 
 
+def host_only() -> None:
+    """A worker process for host work (phase H's counts): it hides the
+    card from itself, before anything there initialises CUDA, so that it
+    takes none of the card's memory, and runs one thread."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    torch.set_num_threads(1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card",
@@ -1994,27 +2217,49 @@ def main() -> int:
     # stacked experts' gradient.
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
+    # Phase H's counts (minutes of Python on meta tensors) run in a process
+    # of their own beside the card's phases; leaving the block ends it.
+    with multiprocessing.get_context("spawn").Pool(
+            1, initializer=host_only) as pool:
+        return run_phases(pool.apply_async(dry_records))
+
+
+def run_phases(dry) -> int:
+    """Phases 1-17 in order; ``dry`` is the pending result of
+    ``dry_records``, which phase H takes.  After each phase it prints the
+    seconds since the first."""
+    t_start = time.perf_counter()
+
+    def done(phase: str) -> None:
+        print(f"[{time.perf_counter() - t_start:.1f} s] phase {phase} done",
+              flush=True)
+
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     print(nvidia_smi())                                       # phase 1
     for name, secs in build_kernels().items():                # phase 2
         print(f"built {name} in {secs:.1f} s")
+    done("2")
     checks = check_kernel(device)                             # phase 3
     run = drive_main_path(device)                             # phase 4
     check_main_path(run)
     timing = time_kernel(device, kind)                        # phase 5
     drive_arena_bench(device)                                 # phase A
+    done("A")
     attn_err = check_attention(device)                        # phase 6
+    done("6")
     cfg = get_arch(ARCH)
     serve, prompts = drive_serving(device, cfg)               # phase 7
     check_serving_launches(serve, cfg.n_layers, on_card=True)
     torch.cuda.empty_cache()
     check_f32_path(device, cfg.scaled(n_layers=CHECK_LAYERS,  # phase 8
                                       dtype="float32"), prompts)
+    done("8")
     attn_time = time_attention(device, kind)                  # phase 9
     free_card()
     gmm_err = check_gmm(device)                               # phase 10
     free_card()
+    done("10")
     moe_cfg = get_arch(MOE_ARCH).scaled(n_layers=MOE_LAYERS)
     moe, moe_prompts = drive_serving(device, moe_cfg,         # phase 11
                                      **MOE_SERVE)
@@ -2024,6 +2269,7 @@ def main() -> int:
         n_layers=CHECK_LAYERS, d_ff=MOE_CHECK_D_FF, dtype="float32"),
         moe_prompts)
     free_card()
+    done("12")
     kimi_cfg = get_arch(KIMI_ARCH).scaled(n_layers=KIMI_LAYERS)
     kimi, kimi_prompts = drive_serving(device, kimi_cfg,      # phase 13
                                        **KIMI_SERVE)
@@ -2032,24 +2278,37 @@ def main() -> int:
     check_f32_path(device, kimi_cfg.scaled(
         d_ff=KIMI_CHECK_D_FF, dtype="float32"), kimi_prompts)
     free_card()
-    families = {phase: drive_family(device, get_arch(arch),   # phases D-F
-                                    serve_kw, check_kw)
-                for phase, (arch, serve_kw, check_kw)
-                in FAMILY_PHASES.items()}
+    done("13")
+    families = {}
+    for phase, (arch, serve_kw, check_kw) in FAMILY_PHASES.items():
+        families[phase] = drive_family(device, get_arch(arch),  # D-F
+                                       serve_kw, check_kw)
+        done(phase)
     train = drive_training(device, kind,                      # phase 14
                            cfg.scaled(remat=True))
     free_card()
     check_f32_training(device, cfg.scaled(                    # phase 15
         n_layers=CHECK_LAYERS, dtype="float32"))
     free_card()
+    done("15")
     moe_train = drive_moe_training(device, kind)              # phase C
     free_card()
+    done("C")
     int8_train = drive_int8_training(device, kind,            # phase G
                                      int8_train_config())
     free_card()
+    done("G")
+    family_train = {}
+    for phase, (arch, sizes, check) in FAMILY_TRAIN.items():  # I-K
+        family_train[phase] = drive_family_training(
+            device, kind, family_train_config(arch), sizes, check)
+        done(phase)
     gmm_time = time_gmm(device, kind)                         # phase 16
     drive_multihost_scale()                                   # phase B
-    check_dryrun(serve, moe, train, moe_train, int8_train)    # phase H
+    done("B")
+    check_dryrun(serve, moe, train, moe_train, int8_train,    # phase H
+                 family_train, dry.get())
+    done("H")
     f32 = timing["f32"]
     rows = {"crop_mirror_normalize": {
         "launches": run["launches"],

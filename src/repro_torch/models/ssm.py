@@ -14,7 +14,10 @@ The reference's roundings are kept exactly: Mamba's scan elements ``da``
 and ``dbx`` are rounded to bf16 whatever the model's dtype, the prefix
 inside a chunk runs in f32, the per-step states come out in bf16 and are
 widened to f32 for the output contraction; mLSTM pads its input gate with
--30 and sLSTM starts its stabilizer at -10.
+-30 and sLSTM starts its stabilizer at -10.  One departure: the mLSTM masks
+its intra-chunk log weights before the exp, where the reference masks
+after it, so that the same values have a finite gradient over chunks
+longer than about 128 steps (the reference's is NaN there).
 """
 
 from __future__ import annotations
@@ -235,10 +238,15 @@ def _mlstm_scan(q, rest, carry, chunk: int):
         qf, kf, vf = qb.float(), kb.float(), vb.float()
         lf_cum = lf.cumsum(dim=1)        # (B,chunk,H): log prod f_1..t
         dec_in = torch.exp(lf_cum)       # decay of the incoming state at t
-        # a_{t,s} = exp(lf_cum_t - lf_cum_s + li_s) for s <= t
+        # a_{t,s} = exp(lf_cum_t - lf_cum_s + li_s) for s <= t.  Above the
+        # diagonal w_log grows with the forget gates' decay (by about 0.69
+        # a step at gates of 1/2), and its exp overflows past some 128
+        # steps; the reference's where(mask, exp(w_log), 0) then takes
+        # 0 * inf = NaN in the backward.  Masking before the exp gives the
+        # same values and a zero gradient there.
         w_log = (lf_cum[:, :, None, :] - lf_cum[:, None, :, :]
                  + li[:, None, :, :])                            # (B,t,s,H)
-        w = torch.where(mask, torch.exp(w_log), 0.0)
+        w = torch.exp(w_log.masked_fill(~mask, float("-inf")))
         sw = torch.einsum("bthk,bshk->btsh", qb, kb).float() * w
         intra_num = torch.einsum("btsh,bshv->bthv", sw, vf)
         intra_den = sw.sum(dim=2)                                # (B,t,H)

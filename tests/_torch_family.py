@@ -60,19 +60,6 @@ def flat_specs(spec):
     return out
 
 
-def assert_trees_close(port, ref, **tol):
-    """Every leaf of the reference's numpy tree against the port's, by key
-    path."""
-    for path, leaf in jax.tree_util.tree_flatten_with_path(ref)[0]:
-        got = port
-        for p in path:
-            got = got[p.key]
-        got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
-            else np.asarray(got)
-        np.testing.assert_allclose(got, np.asarray(leaf), **tol,
-                                   err_msg=jax.tree_util.keystr(path))
-
-
 def check_specs_and_weights(jm, pm, w):
     """The same parameter specs, and every leaf converts exactly."""
     assert flat_specs(pm.param_specs()) == flat_specs(jm.param_specs())
@@ -133,9 +120,13 @@ def check_engine(jm, pm, w, prompts, slots, max_seq, new_tokens):
     return peng
 
 
-def check_train_loss(jm, pm, w, batch, grad_tol=GRAD_TOL):
+def check_train_loss(jm, pm, w, batch, grad_tol=GRAD_TOL, ref_nan=()):
     """``train_loss`` of both on ``batch`` (numpy): loss and metrics within
-    ``TOL``, each gradient leaf against ``jax.grad`` within ``grad_tol``."""
+    ``TOL``, each gradient leaf finite on both sides and against
+    ``jax.grad`` within ``grad_tol``.  ``ref_nan`` names the leaves (key
+    paths) where the reference's gradient holds a NaN, a fault of the
+    reference the port repairs (ROADMAP Queue C): there the reference's
+    must hold one and the port's must be finite."""
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     (loss, metrics), grads = jax.jit(jax.value_and_grad(
         lambda p: jm.train_loss(p, jbatch), has_aux=True))(w)
@@ -151,7 +142,17 @@ def check_train_loss(jm, pm, w, batch, grad_tol=GRAD_TOL):
     for key in metrics:
         np.testing.assert_allclose(float(p_metrics[key].detach()),
                                    float(metrics[key]), **TOL)
-    assert_trees_close(p_grads, jax.tree.map(np.asarray, grads), **grad_tol)
+    ref, port = ({jax.tree_util.keystr(path): np.asarray(leaf) for path, leaf
+                  in jax.tree_util.tree_flatten_with_path(tree)[0]}
+                 for tree in (grads, convert.params_to_numpy(p_grads)))
+    assert set(port) == set(ref)
+    nan = {k for k, v in ref.items() if not np.isfinite(v).all()}
+    assert nan == set(ref_nan), f"reference gradients not finite: {nan}"
+    for name, leaf in port.items():
+        assert np.isfinite(leaf).all(), f"port gradient {name} not finite"
+        if name not in nan:
+            np.testing.assert_allclose(leaf, ref[name], **grad_tol,
+                                       err_msg=name)
 
 
 def token_batch(vocab, B, S, seed, mask=True):

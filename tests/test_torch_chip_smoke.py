@@ -872,3 +872,193 @@ def test_phase_h_roofline_is_the_twins_terms():
     assert {k: got[k] for k in want} == want
     assert got["bound"] == max(want.values())
     assert got["dominant"] == max(want, key=want.get)
+
+
+# ---- phases I, J and K: training the hybrid, ssm and audio families -----
+
+FAMILY_TRAIN_SMOKE = {"I": ("hymba_1_5b", 40), "J": ("xlstm_350m", 300),
+                      "K": ("whisper_tiny", 40)}
+
+
+@pytest.mark.parametrize("phase", sorted(FAMILY_TRAIN_SMOKE))
+def test_family_training_phases_rehearse_on_cpu(phase):
+    """Phases I, J and K on the CPU at each family's smoke config with
+    remat: 3 steps at 2 x 64 tokens (xLSTM 1, timed; Whisper's
+    through its own loop with make_batch's frames), finite losses and
+    norms, every probe of the
+    family's tree moved, no kernel launched; the last step's flop count
+    equal to the dry run's (phase H) for I and K, none taken for J; then
+    the f32 check (CPU against CPU) at zero, xLSTM's over two mLSTM
+    chunks, where the reference's gradient is NaN."""
+    arch, check_seq = FAMILY_TRAIN_SMOKE[phase]
+    assert chip_smoke.FAMILY_TRAIN[phase][0] == arch
+    sizes, check = chip_smoke.FAMILY_TRAIN[phase][1:]
+    cfg = chip_smoke.get_arch(arch).smoke_config().scaled(remat=True)
+    steps = min(sizes["steps"], 3)
+    out = chip_smoke.drive_family_training(
+        torch.device("cpu"), "cpu", cfg, dict(sizes, batch=2, seq=64,
+                                              steps=steps),
+        dict(check, seq=check_seq))
+    run = out["run"]
+    assert run["steps"] == steps == len(run["losses"])
+    assert all(np.isfinite(run["losses"] + run["grad_norms"]))
+    assert not any(run["launches"].values())
+    want = {"I": {"embedding", "wq layer 0", "w_down last layer",
+                  "mamba w_in layer 0"},
+            "J": {"embedding", "mlstm wq pair 0", "slstm r_gates last pair"},
+            "K": {"embedding", "encoder wq layer 0", "cross wq last layer",
+                  "mlp w_out last layer"}}[phase]
+    assert set(run["changed"]) == want
+    assert all(v > 0 for v in run["changed"].values())
+    if phase == "J":
+        assert run["step_flops"] is None
+        assert run["ms_per_step"] == run["ms_per_step_all"][0]
+        assert run["ms_per_slstm_step_layer_derived"] == pytest.approx(
+            run["ms_per_step"] / 64)
+    else:
+        rec = chip_smoke.dry_cell(cfg, "train", 64, 2, microbatches=1,
+                                  opt_cfg=chip_smoke.OptimizerConfig(
+                                      total_steps=steps,
+                                      **chip_smoke.TRAIN_OPT))
+        assert int(rec["flops_per_device"]) == run["step_flops"] > 0
+    assert ("stall_frac" in run) == (phase != "K")
+    assert out["check"]["loss_max_abs_diff"] == 0.0
+    assert out["check"]["grad_max_rel_diff"] == 0.0
+    assert out["seconds"] > 0
+
+
+def test_family_training_phases_run_each_config_at_full_width_and_depth():
+    """Phases I, J and K train their config files' models whole (as phases
+    D-F serve them) with remat on phase 14's 2 x 4096 tokens and its 3
+    steps, 8 for Whisper, 1 for xLSTM (its loop is host-bound, over 100 s
+    a step on the H100; it is timed, not counted); the f32 checks
+    keep the width and cut only depth and length: Hymba 2 layers on 2080
+    tokens (past 2048, so attention goes chunked, past the window, 9 Mamba
+    chunks, the last ragged), xLSTM one pair on 544 (three mLSTM chunks,
+    the last ragged), Whisper whole on 2080."""
+    fields = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+              "resolved_head_dim", "d_ff", "vocab", "dtype", "remat")
+    want = {"I": ("hybrid", 32, 1600, 25, 5, 64, 5504, 32001, "bfloat16",
+                  True),
+            "J": ("ssm", 24, 1024, 4, 4, 256, 0, 50304, "bfloat16", True),
+            "K": ("audio", 4, 384, 6, 6, 64, 1536, 51865, "bfloat16", True)}
+    for phase, (arch, sizes, check) in chip_smoke.FAMILY_TRAIN.items():
+        cfg = chip_smoke.family_train_config(arch)
+        assert tuple(getattr(cfg, f) for f in fields) == want[phase]
+        assert sizes.get("batch", chip_smoke.TRAIN_B) == 2
+        assert sizes.get("seq", chip_smoke.TRAIN_S) == 4096
+        assert sizes["steps"] == {"I": 3, "J": 1, "K": 8}[phase]
+        assert sizes.get("count_flops", True) == (phase != "J")
+    assert chip_smoke.TRAIN_STEPS == 3
+    hymba = chip_smoke.family_train_config("hymba_1_5b")
+    assert (hymba.window, hymba.ssm_state, hymba.rope_theta > 0) == (
+        1024, 16, True)
+    assert chip_smoke.build_model(hymba, device="cpu").d_inner == 1600
+    whisper = chip_smoke.family_train_config("whisper_tiny")
+    assert (whisper.enc_layers, whisper.enc_frames) == (4, 1500)
+    checks = {p: c for p, (_, _, c) in chip_smoke.FAMILY_TRAIN.items()}
+    assert checks == {"I": {"n_layers": 2, "seq": 2080},
+                      "J": {"n_layers": 2, "seq": 544},
+                      "K": {"seq": 2080}}
+    from repro_torch.models import attention, ssm
+    assert 2080 > attention.DENSE_ATTN_MAX_SEQ > hymba.window
+    assert -(-2080 // ssm.CHUNK) == 9 and 2080 % ssm.CHUNK
+    assert -(-544 // ssm.CHUNK) == 3 and 544 % ssm.CHUNK
+
+
+def _abstract(arch):
+    cfg = chip_smoke.family_train_config(arch)
+    return cfg, chip_smoke.build_model(cfg, device="cpu").abstract_params()
+
+
+def test_train_flops_by_family():
+    """The derived flops of a train step at 2 x 4096, written out by hand:
+    6 per parameter and row plus 3 x 4 x D per kept (query, key) pair and
+    head.  Qwen3-4B (phase 14) as before: causal attention in 36 layers.
+    Hymba: every layer causal within its 1024-token window, 1024 x 1025 /
+    2 + 3072 x 1024 = 3,670,528 pairs a row and head.  xLSTM: no
+    attention.  Whisper-tiny: its encoder (4 layers of 1,774,080
+    parameters and a 768-parameter LayerNorm) and the cross-attention's
+    wk, wv and bv (4 x 295,296) see 1500 frames a row, the rest 4096
+    tokens; attention over 4 x 1500^2 encoder pairs, 4 x 4096 x 4097 / 2
+    causal and 4 x 4096 x 1500 cross pairs."""
+    B, S = 2, 4096
+    cfg = chip_smoke.get_arch(chip_smoke.ARCH).scaled(remat=True)
+    params = chip_smoke.build_model(cfg, device="cpu").abstract_params()
+    n = chip_smoke.count_params(params)
+    assert chip_smoke.train_flops(cfg, params, B, S) == (
+        6 * n * B * S + 36 * 3 * 4 * B * 32 * 128 * (S * (S + 1) // 2))
+    cfg, params = _abstract("hymba_1_5b")
+    assert chip_smoke.causal_pairs(S, S, 1024) == 3_670_528
+    assert chip_smoke.train_flops(cfg, params, B, S) == (
+        6 * 1_423_772_832 * B * S + 32 * 3 * 4 * B * 25 * 64 * 3_670_528)
+    cfg, params = _abstract("xlstm_350m")
+    assert chip_smoke.train_flops(cfg, params, B, S) == (
+        6 * 190_096_480 * B * S)
+    cfg, params = _abstract("whisper_tiny")
+    framed = 4 * 1_774_080 + 768 + 4 * 295_296
+    pairs = 4 * 1500 ** 2 + 4 * (S * (S + 1) // 2) + 4 * S * 1500
+    assert chip_smoke.train_flops(cfg, params, B, S) == (
+        6 * (36_477_312 - framed) * B * S + 6 * framed * B * 1500
+        + 3 * 4 * B * 6 * 64 * pairs)
+
+
+def test_phase_h_records_every_counted_training_phase(monkeypatch):
+    """Phase H's records: the train steps of phases 14, C, G, I and K at
+    their configs and sizes, none for J, and phases 7's and 11's prefill
+    calls and engine steps."""
+    calls = []
+
+    def dry_cell(cfg, kind, seq, batch, **kw):
+        calls.append((cfg.name, cfg.n_layers, kind, seq, batch))
+        return kind
+
+    monkeypatch.setattr(chip_smoke, "dry_cell", dry_cell)
+    recs = chip_smoke.dry_records()
+    assert set(recs) == {f"phase {p} train step"
+                         for p in ("14", "C", "G", "I", "K")} | {
+        f"phase {p} {what}" for p in ("7", "11")
+        for what in ("prefill call", "engine step")}
+    assert ("hymba-1.5b", 32, "train", 4096, 2) in calls
+    assert ("whisper-tiny", 4, "train", 4096, 2) in calls
+    assert not any(name.startswith("xlstm") for name, *_ in calls)
+
+
+def _rec(flops, peak, calls=None):
+    return {"flops_per_device": float(flops), "bytes_per_device": 3.35e9,
+            "collective_bytes_per_device": {"total": 0.0},
+            "memory": {"argument_bytes": peak, "temp_bytes": 0,
+                       "output_bytes": 0, "alias_bytes": 0},
+            "kernel_calls": calls or {}, "lower_s": 0.5, "compile_s": 1.0}
+
+
+def test_phase_h_holds_each_counted_training_phase():
+    """``check_dryrun`` on made-up runs and records: equal flops and peaks
+    pass, phase J is reported as skipped, and a flop count or a peak off
+    in phase I or K is a miss."""
+    train = {"step_flops": 100, "peak_GB": 10.0, "ms_per_step": 2.0,
+             "seq": 4096}
+    serve = {"after_prefill": {"flash_attention": 2, "flash_decode": 0},
+             "launches": {"flash_attention": 2, "flash_decode": 6},
+             "prefill_calls": 2, "engine_steps": 3,
+             "prefill_ms_per_call": 1.0, "ms_per_engine_step": 1.0}
+    recs = {name: _rec(100, 10 ** 10) for name in (
+        "phase 14 train step", "phase C train step", "phase G train step",
+        "phase I train step", "phase K train step")}
+    for p in ("7", "11"):
+        recs[f"phase {p} prefill call"] = _rec(1, 1, {"flash_attention": 1})
+        recs[f"phase {p} engine step"] = _rec(1, 1, {"flash_decode": 2})
+    family = {p: {"run": dict(train)} for p in ("I", "J", "K")}
+    out = chip_smoke.check_dryrun(serve, serve, train, {"run": train},
+                                  {"run": train}, family, recs)
+    assert out["phase J train step"] == "not counted"
+    assert out["phase I train step"]["peak_ratio"] == 1.0
+    assert out["phase K train step roofline"]["share_of_bound"] == (
+        pytest.approx(0.5))
+    assert out["count_s"] == pytest.approx(1.5 * len(recs))
+    for bad in ({"step_flops": 101}, {"peak_GB": 13.0}):
+        for p in ("I", "K"):
+            runs = dict(family, **{p: {"run": dict(train, **bad)}})
+            with pytest.raises(AssertionError, match=f"phase {p}"):
+                chip_smoke.check_dryrun(serve, serve, train, {"run": train},
+                                        {"run": train}, runs, recs)

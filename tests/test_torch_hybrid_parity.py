@@ -62,15 +62,20 @@ def test_engine_greedy_tokens_identical(pair):
     assert eng.steps > 16
 
 
-@pytest.mark.parametrize("remat", [False, True])
-def test_train_loss_and_every_gradient_match(remat):
-    """With a loss mask over 32 tokens (past the window); ``remat`` runs
+@pytest.mark.parametrize("remat,S", [
+    pytest.param(False, 32, id="False"), pytest.param(True, 32, id="True"),
+    pytest.param(True, 2080, id="True-2080")])
+def test_train_loss_and_every_gradient_match(remat, S):
+    """With a loss mask over S tokens (past the window); ``remat`` runs
     each layer under ``torch.utils.checkpoint``.  The Mamba path rounds its
     scan elements to bf16 in this f32 config in both packages, and the
-    gradient flows through those casts in bf16 in both."""
+    gradient flows through those casts in bf16 in both.  S = 2080 is the
+    length of the chip's f32 training check: past ``DENSE_ATTN_MAX_SEQ``,
+    so attention goes chunked with the window, and 9 Mamba chunks, the
+    last one ragged."""
     jm, pm = fam.models(ARCH, remat=remat)
     fam.check_train_loss(jm, pm, fam.weights(jm),
-                         fam.token_batch(512, 2, 32, seed=4))
+                         fam.token_batch(512, 2, S, seed=4))
 
 
 def test_each_path_dispatches_to_its_attention(pair, monkeypatch):
