@@ -256,7 +256,7 @@ REPLACES = "src/repro/kernels/crop_norm.py:38"
 KERNELS = {
     "crop_mirror_normalize": (crop_norm, SOURCE, REPLACES),
     "flash_attention": (flash_attention,
-                        "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+                        "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
                         "src/repro/kernels/flash_attention.py:79"),
     "flash_decode": (decode_attention,
                      "src/repro_torch/kernels/csrc/flash_decode_tc.cu",

@@ -10,7 +10,7 @@
 // a tile that masks a row whole is corrected by the row's next tile instead
 // of giving NaN.  Rows with no valid key at all (possible only without
 // causality or with S > T) are undefined, as in the reference.  bf16 inputs
-// go to the tensor-core kernel, flash_attention_tc.cu.
+// go to the wgmma kernel, flash_attention_wgmma.cu.
 //
 // Bound: operations.  This kernel keeps IEEE f32 products and sums (no TF32,
 // so f32 inputs meet 2e-5 against the plain version), which holds it to the

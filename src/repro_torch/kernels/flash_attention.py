@@ -4,23 +4,28 @@ window, f32 or bf16.
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention`` -> ``_flash_kernel``).  Two CUDA C++ kernels, built
 for ``sm_90a`` at first use and bound with ``ctypes`` (``build.py``):
-``csrc/flash_attention_tc.cu`` takes bf16 on the tensor cores
-(FlashAttention-2: ``mma.sync`` for Q K^T and P V, P kept in registers),
-and ``csrc/flash_attention.cu`` takes f32 on the CUDA cores (IEEE
-products: TF32 would miss the f32 tolerance).  Their plain version is
+``csrc/flash_attention_wgmma.cu`` takes bf16 on the tensor cores
+(FlashAttention-3's shape: a TMA producer warpgroup and two consumer
+warpgroups on ``wgmma``, P kept in registers), and
+``csrc/flash_attention.cu`` takes f32 on the CUDA cores (IEEE products:
+TF32 would miss the f32 tolerance).  Their plain version is
 ``ref.mha_reference``; :func:`plan` says which kernel and which blocks a
-call takes.
+call takes, and :func:`tma_layout`, :func:`key_tiles` and
+:func:`mask_free` are the host-side and Python twins of the bf16 kernel's
+tensor maps, key-tile range and mask test, which the CPU tests check.
 
 Bound: operations.  At the prefill shape the model drives (B=4, H=32,
 K=8, S=T=2048, D=128, causal) the work is 137.5 GFLOP against 167.8 MB:
 0.139 ms on the bf16 tensor cores, 2.05 ms at the f32 rate.
 
 The wrapper takes strides: q, k and v may be (B,H,S,D) / (B,K,T,D) views
-of the model's (B,S,H,D) / (B,T,K,D) tensors, read in place, and the
-output is allocated with q's memory layout, so the model's transpose back
-is free.  A tensor whose last dimension is not contiguous or whose rows
-are not 16-byte aligned is copied to a contiguous one first.  There is
-no backward kernel: a call that would need a gradient raises.
+of the model's (B,S,H,D) / (B,T,K,D) tensors, read in place (the bf16
+kernel's tensor maps describe the views), and the output is allocated
+with q's memory layout, so the model's transpose back is free.  A tensor
+whose last dimension is not contiguous or whose base or strides are not
+16-byte aligned (which TMA cannot describe) is copied to a contiguous one
+first.  There is no backward kernel: a call that would need a gradient
+raises.
 """
 
 from __future__ import annotations
@@ -32,19 +37,29 @@ import torch
 
 from . import build as _build
 
-SOURCE = _build.CSRC / "flash_attention.cu"          # f32, CUDA cores
-TC_SOURCE = _build.CSRC / "flash_attention_tc.cu"    # bf16, tensor cores
-SOURCES = (SOURCE, TC_SOURCE)
+SOURCE = _build.CSRC / "flash_attention.cu"             # f32, CUDA cores
+WGMMA_SOURCE = _build.CSRC / "flash_attention_wgmma.cu"  # bf16, wgmma
+SOURCES = (SOURCE, WGMMA_SOURCE)
 HEAD_DIMS = (16, 32, 64, 112, 128)  # 16: smoke_config(); 112: Kimi-K2
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_GRID_Y = 65535              # the kernels put B*H on grid.y
+MAX_GRID_Y = 65535              # the f32 kernel puts B*H on grid.y
+SMS = 132                       # streaming multiprocessors of an H100
+# The bf16 kernel's blocks, as ``flash_attention_wgmma.cu`` has them: 128
+# query rows a CTA (64 per consumer warpgroup), 128-key tiles through a ring
+# of STAGES slots, one producer and two consumer warpgroups; shared memory holds Q and the ring in panels of 64 columns
+# (128-byte rows, the TMA's 128-byte swizzle), a 1024-byte tile of ones
+# and 2 + 4 * stages mbarriers, from a base aligned up to 1024 bytes.
+BLOCK_Q, BLOCK_KV, STAGES, WG_ROWS = 128, 128, 2, 64
+WGMMA_WARPS = 12
+PANEL = 64                      # columns of one box: 128 bytes of bf16
+SMEM_LIMIT = 232448             # shared memory a block may use on an H100
 
 
 class Plan(NamedTuple):
-    """How one call runs: ``kernel`` "cuda_core" (f32) or "tensor_core"
-    (bf16); ``block_q`` query rows and ``warps`` warps per CTA, keys in
-    tiles of ``block_k`` through a ring of ``stages`` buffers; ``grid``
-    (query blocks, B*H)."""
+    """How one call runs: ``kernel`` "cuda_core" (f32) or "wgmma" (bf16);
+    ``block_q`` query rows and ``warps`` warps per CTA, keys in tiles of
+    ``block_k`` through a ring of ``stages`` buffers; ``grid`` (query
+    blocks, B*H) for f32, (persistent CTAs, 1) for bf16."""
     kernel: str
     block_q: int
     block_k: int
@@ -92,15 +107,79 @@ def check_args(q, k, v, causal: bool, window: int) -> None:
 def plan(B: int, H: int, S: int, D: int, dtype: torch.dtype) -> Plan:
     """The launch of a call with q (B,H,S,D) in ``dtype``: f32 on the
     CUDA-core kernel (64 query rows, 32-key tiles staged as f32, 8 warps),
-    bf16 on the tensor-core kernel (128 query rows, 32 per warp, 64-key
-    tiles in a double-buffered cp.async ring)."""
+    bf16 on the wgmma kernel (128 query rows, 128-key tiles through a
+    2-slot TMA ring, three warpgroups; one CTA per SM, or per work item if
+    there are fewer, see :func:`work_items`)."""
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     if dtype == torch.float32:
         return Plan("cuda_core", 64, 32, 8, 1, (-(-S // 64), B * H))
     if dtype != torch.bfloat16:
         raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
-    return Plan("tensor_core", 128, 64, 4, 2, (-(-S // 128), B * H))
+    return Plan("wgmma", BLOCK_Q, BLOCK_KV, WGMMA_WARPS, STAGES,
+                (min(SMS, -(-S // BLOCK_Q) * B * H), 1))
+
+
+def work_items(S: int, BH: int, ctas: int) -> list:
+    """The bf16 kernel's work, per CTA: CTA c takes items c, c + ctas, ...
+    in turn, item i being (query block, b*h) = (n_qb - 1 - i // BH,
+    i % BH): the heaviest causal blocks first, and a block's heads side by
+    side."""
+    n_qb = -(-S // BLOCK_Q)
+    return [[(n_qb - 1 - i // BH, i % BH)
+             for i in range(c, n_qb * BH, ctas)] for c in range(ctas)]
+
+
+def padded_head_dim(D: int) -> int:
+    """Columns the bf16 kernel computes for head dim D: whole 64-column
+    panels (the columns past D arrive as zeros)."""
+    return PANEL if D <= PANEL else 2 * PANEL
+
+
+def smem_bytes(D: int) -> int:
+    """Dynamic shared memory of one bf16 CTA at head dim D (the source's
+    ``Layout<DP>::kBytes``): Q, the K and V rings, the tile of ones,
+    2 + 4 * stages mbarriers, and 1024 bytes to align the base."""
+    dp = padded_head_dim(D)
+    return (BLOCK_Q + 2 * STAGES * BLOCK_KV) * dp * 2 + 1024 \
+        + (2 + 4 * STAGES) * 8 + 1024
+
+
+def tma_layout(x: torch.Tensor, rows: int) -> Tuple[int, ...]:
+    """The 4-d bf16 tensor map over x (B, N, L, D) (heads N, rows L),
+    read through its strides: dims (D, L, N, B) innermost first, the byte
+    strides of L, N and B, and the box (PANEL, rows, 1, 1): 128-byte rows,
+    as the 128-byte swizzle takes them."""
+    B, N, L, D = x.shape
+    sb, sn, sl, sd = x.stride()
+    if sd != 1:
+        raise ValueError(f"the last dimension must be contiguous, got "
+                         f"strides {x.stride()}")
+    es = x.element_size()
+    return (D, L, N, B, sl * es, sn * es, sb * es, PANEL, rows, 1, 1)
+
+
+def key_tiles(q0: int, S: int, T: int, causal: bool,
+              window: int) -> Tuple[int, int]:
+    """(k_lo, n_tiles): the key tiles a bf16 CTA whose block starts at
+    query row q0 visits, ``BLOCK_KV`` keys each from k_lo, as the kernel
+    computes them.  Tiles before k_lo lie wholly outside every row's
+    window; keys at or past min(T, q0 + BLOCK_Q, S) are past every row
+    (causal)."""
+    k_lo = max(0, q0 - window + 1) if window > 0 else 0
+    k_lo = k_lo // BLOCK_KV * BLOCK_KV
+    k_hi = min(T, q0 + BLOCK_Q, S) if causal else T
+    n = -(-(k_hi - k_lo) // BLOCK_KV) if k_hi > k_lo else 0
+    return k_lo, n
+
+
+def mask_free(k0: int, r0: int, T: int, causal: bool, window: int) -> bool:
+    """Whether the key tile at k0 keeps every key for every query row of a
+    consumer warpgroup's rows r0 .. r0 + WG_ROWS - 1 (the kernel then skips
+    the mask arithmetic)."""
+    return (k0 + BLOCK_KV <= T
+            and (not causal or k0 + BLOCK_KV - 1 <= r0)
+            and (window <= 0 or r0 + WG_ROWS - 1 - k0 < window))
 
 
 def _bind(lib) -> None:
@@ -111,17 +190,18 @@ def _bind(lib) -> None:
     fn.restype = ctypes.c_int
 
 
-def _bind_tc(lib) -> None:
-    fn = lib.flash_attention_bf16_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p]
+def _bind_wgmma(lib) -> None:
+    fn = lib.flash_attention_wgmma_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_longlong)] * 2 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
 def kernel_layout(x: torch.Tensor) -> torch.Tensor:
     """``x`` if the kernels can read it in place (contiguous last dimension,
-    16-byte aligned rows), else a contiguous copy."""
+    16-byte aligned base and strides, which a TMA tensor map needs), else a
+    contiguous copy."""
     per16 = 16 // x.element_size()
     ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
           and all(s % per16 == 0 for s in x.stride()[:-1]))
@@ -152,21 +232,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, H, S, D = q.shape
     K, T = k.shape[1], k.shape[2]
     p = plan(B, H, S, D, q.dtype)
-    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o)
-                                         for s in t.stride()[:3]))
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, K,
-            S, T, D, strides, int(causal), window, D ** -0.5)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, K,
+            S, T, D)
+    tail = (int(causal), window, D ** -0.5)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if p.kernel == "cuda_core":
+            strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o)
+                                                 for s in t.stride()[:3]))
             lib = _build.load(SOURCE, _bind)
-            err = lib.flash_attention_fwd(*args, stream)
+            err = lib.flash_attention_fwd(*ptrs, strides, *tail, stream)
         else:
-            lib = _build.load(TC_SOURCE, _bind_tc)
-            err = lib.flash_attention_bf16_fwd(*args, stream)
+            maps = (ctypes.c_longlong * 33)(
+                *tma_layout(q, BLOCK_Q), *tma_layout(k, BLOCK_KV),
+                *tma_layout(v, BLOCK_KV))
+            ostrides = (ctypes.c_longlong * 3)(*o.stride()[:3])
+            lib = _build.load(WGMMA_SOURCE, _bind_wgmma)
+            err = lib.flash_attention_wgmma_fwd(*ptrs, p.grid[0], maps,
+                                                ostrides, *tail, stream)
     _build.check(lib, err, "flash_attention")
     launches += 1
     return o
 
 
-__all__ = ["flash_attention", "check_args", "plan", "Plan", "kernel_layout"]
+__all__ = ["flash_attention", "check_args", "plan", "Plan", "kernel_layout",
+           "padded_head_dim", "smem_bytes", "tma_layout", "key_tiles",
+           "mask_free", "work_items"]

@@ -5,12 +5,15 @@ Replaces the Pallas TPU kernel ``repro/kernels/moe_gmm.py``
 (``grouped_matmul`` -> ``_gmm_kernel``).  Two CUDA C++ kernels, built for
 ``sm_90a`` at first use and bound with ``ctypes`` (``build.py``):
 ``csrc/grouped_matmul_tc.cu`` takes bf16 on the tensor cores
-(``mma.sync`` up to 64 rows per expert, ``wgmma`` above, both fed from
-a ``cp.async`` ring), and ``csrc/grouped_matmul.cu`` takes f32 on the CUDA
-cores (IEEE products: TF32 would miss the f32 tolerance).  Their plain
-version is ``ref.gmm_reference``.  :func:`plan` picks the kernel, its
-tile, its ring depth and its split of d from the shapes, in Python, so
-that the CPU tests check it.
+(``mma.sync`` from a ``cp.async`` ring up to 64 rows per expert; above, a
+warp-specialised ``wgmma`` kernel fed by a TMA producer warpgroup, its
+CTAs in clusters along f that share each slice of x by multicast), and
+``csrc/grouped_matmul.cu`` takes f32 on the CUDA cores (IEEE products:
+TF32 would miss the f32 tolerance).  Their plain version is
+``ref.gmm_reference``.  :func:`plan` picks the kernel, its tile, its ring
+depth, its cluster and its split of d from the shapes, and
+:func:`tma_layout` and :func:`tma_grid` give the wgmma kernel's tensor
+maps and grid, in Python, so that the CPU tests check them.
 
 Bound, at Grok-1's shapes on the serving path (E=8, d=6144, f=32768, bf16):
 bytes at decode (8 rows per expert: 3.23 GB of weights, 0.963 ms at 3.35
@@ -45,16 +48,24 @@ MAX_INT = 2 ** 31 - 1           # C, d and f go in as C ints
 # Row tiles of the f32 kernel's three variants, smallest first: a launch
 # takes the first that holds all C rows, else the largest.
 ROW_TILES = (8, 32, 64)
-# The bf16 kernel's variants, as ``grouped_matmul_tc.cu::dispatch`` has
-# them: (rows, columns, depth of a slice, warps, ring stages); a launch
-# takes the first that holds all C rows, else the last.  The first
-# ``MMA_SYNC_VARIANTS`` run on mma.sync: 32 rows, the decode regime, and 64
-# rows (Kimi-K2's chunk of 3 or 4 rows of 512 tokens).  The rest run on
-# wgmma with one CTA over all of a tile's rows, so that w is read once:
-# 160 (Grok-1's chunk of one row of 512 tokens) and 320 (of two rows).
+# The bf16 kernel's variants, as ``grouped_matmul_tc.cu::dispatch`` and
+# ``dispatch_tma`` have them: (rows, columns, depth of a slice, warps, ring
+# stages); a launch takes the first that holds all C rows, else the last.
+# The first ``MMA_SYNC_VARIANTS`` run on mma.sync: 32 rows, the decode
+# regime, and 64 rows (Kimi-K2's chunk of 3 or 4 rows of 512 tokens).  The
+# rest run on wgmma (a producer and two consumer warpgroups) with one CTA
+# over all of a tile's rows, so that w is read once: 160 (Grok-1's chunk of
+# one row of 512 tokens) and 320 (of two rows), each with as many ring
+# slots as shared memory holds.  Rows that TMA cannot read take the 64-row
+# mma.sync tile.
 TC_VARIANTS = ((32, 128, 64, 4, 4), (64, 128, 64, 8, 4),
-               (160, 128, 64, 8, 4), (320, 128, 64, 8, 4))
+               (160, 128, 64, 12, 6), (320, 128, 64, 12, 4))
 MMA_SYNC_VARIANTS = 2
+# CTAs per cluster along f on wgmma (the source's kCluster): each loads
+# rows / CLUSTER of a slice of x and multicasts them to the others.
+CLUSTER = 2
+PANEL = 64                      # columns of one TMA box: 128 bytes of bf16
+SMEM_LIMIT = 232448             # shared memory a block may use on an H100
 SMS = 132                       # streaming multiprocessors of an H100
 # Decode is bound by bytes: split d when the grid has fewer CTAs than this,
 # and keep at least MIN_SPLIT_SLICES slices of depth in each split.
@@ -63,11 +74,13 @@ MIN_SPLIT_SLICES = 8
 
 
 class Plan(NamedTuple):
-    """How one call runs: ``kernel`` "cuda_core" (f32) or "tensor_core"
-    (bf16); ``regime`` "f32", "decode" or "prefill"; ``variant`` the index
+    """How one call runs: ``kernel`` "cuda_core" (f32), "tensor_core" (bf16
+    on mma.sync) or "wgmma" (bf16, the warp-specialised TMA kernel);
+    ``regime`` "f32", "decode" or "prefill"; ``variant`` the index
     into ``ROW_TILES`` (f32) or ``TC_VARIANTS`` (bf16); the tile
     (``bm`` x ``bn``, slices ``bk`` deep) and ring ``stages``; d split into
-    ``split`` ranges of ``chunk`` (the last may be shorter)."""
+    ``split`` ranges of ``chunk`` (the last may be shorter); ``cluster``
+    CTAs per cluster along f (1 off wgmma)."""
     kernel: str
     regime: str
     variant: int
@@ -77,6 +90,7 @@ class Plan(NamedTuple):
     stages: int
     split: int
     chunk: int
+    cluster: int = 1
 
 # Launches of the CUDA kernel in this process; plain-version calls do not
 # count.  A run sets it to 0 and reads it to show which path it took.
@@ -124,15 +138,18 @@ def row_tile(C: int) -> int:
     return _holding(ROW_TILES, C)
 
 
-def plan(E: int, C: int, d: int, f: int, dtype: torch.dtype) -> Plan:
-    """The launch of an (E,C,d) @ (E,d,f) call in ``dtype``.
+def plan(E: int, C: int, d: int, f: int, dtype: torch.dtype,
+         tma: bool = True) -> Plan:
+    """The launch of an (E,C,d) @ (E,d,f) call in ``dtype``; ``tma``
+    whether TMA can read x and w (16-byte aligned bases and strides).
 
     f32 takes the CUDA-core kernel with the row tile that holds C.  bf16
     takes the tensor-core kernel with the ``TC_VARIANTS`` tile that holds
-    C: up to 32 rows the decode regime, above it the prefill regime.  On
-    mma.sync d is split when the grid would have fewer than
-    ``SPLIT_TARGET`` CTAs (each split at least ``MIN_SPLIT_SLICES`` slices
-    deep); the wgmma tiles are not split.
+    C: up to 32 rows the decode regime, above it the prefill regime (on
+    mma.sync up to 64 rows and wherever TMA cannot read the operands, on
+    wgmma in clusters of ``CLUSTER`` above).  On mma.sync d is split when
+    the grid would have fewer than ``SPLIT_TARGET`` CTAs (each split at
+    least ``MIN_SPLIT_SLICES`` slices deep); the wgmma tiles are not split.
     """
     if dtype == torch.float32:
         t = row_tile(C)
@@ -140,6 +157,8 @@ def plan(E: int, C: int, d: int, f: int, dtype: torch.dtype) -> Plan:
     if dtype != torch.bfloat16:
         raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
     v = _holding(tuple(t[0] for t in TC_VARIANTS), C)
+    if not tma:
+        v = min(v, MMA_SYNC_VARIANTS - 1)
     bm, bn, bk, _, stages = TC_VARIANTS[v]
     slices = -(-d // bk)
     split = 1
@@ -149,8 +168,42 @@ def plan(E: int, C: int, d: int, f: int, dtype: torch.dtype) -> Plan:
             split = max(1, min(-(-SPLIT_TARGET // ctas),
                                slices // MIN_SPLIT_SLICES))
     chunk = -(-slices // split) * bk
-    return Plan("tensor_core", "decode" if bm <= 32 else "prefill", v, bm,
-                bn, bk, stages, -(-d // chunk), chunk)
+    wgmma = v >= MMA_SYNC_VARIANTS
+    return Plan("wgmma" if wgmma else "tensor_core",
+                "decode" if bm <= 32 else "prefill", v, bm, bn, bk, stages,
+                -(-d // chunk), chunk, CLUSTER if wgmma else 1)
+
+
+def tma_smem_bytes(variant: int) -> int:
+    """Dynamic shared memory of one wgmma CTA (the source's
+    ``TmaTile::kSmem``): the ring of slices of w (bk x bn) and x (bm x bk),
+    a full and an empty mbarrier a slot, and 1024 bytes to align the
+    base.  The epilogue's staged output tile reuses the ring."""
+    bm, bn, bk, _, stages = TC_VARIANTS[variant]
+    return stages * (bk * bn + bm * bk) * 2 + 2 * stages * 8 + 1024
+
+
+def tma_layout(t: torch.Tensor, rows: int) -> tuple:
+    """The 3-d bf16 tensor map over t (E, R, K), read through its strides:
+    dims (K, R, E) innermost first, the byte strides of R and E, and the
+    box (PANEL, rows, 1): 128-byte rows, as the 128-byte swizzle takes
+    them.  x takes rows = bm / cluster (each CTA of a cluster loads its
+    share of the token tile), w takes rows = bk."""
+    E, R, K = t.shape
+    se, sr, sk = t.stride()
+    if sk != 1:
+        raise ValueError(f"the last dimension must be contiguous, got "
+                         f"strides {t.stride()}")
+    es = t.element_size()
+    return (K, R, E, sr * es, se * es, PANEL, rows, 1)
+
+
+def tma_grid(p: Plan, E: int, C: int, f: int) -> tuple:
+    """The wgmma launch's grid: column tiles of ``bn`` rounded up to whole
+    clusters (a CTA past f loads zeros and stores nothing), token tiles of
+    ``bm``, experts."""
+    cols = -(-f // p.bn)
+    return (-(-cols // p.cluster) * p.cluster, -(-C // p.bm), E)
 
 
 def _bind(lib) -> None:
@@ -165,7 +218,7 @@ def _bind_tc(lib) -> None:
     fn = lib.grouped_matmul_bf16_fwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -196,11 +249,11 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x, w = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, w))
     E, C, d = x.shape
     f = w.shape[2]
-    p = plan(E, C, d, f, x.dtype)
+    vec = int(_vec_ok(x) and _vec_ok(w))
+    p = plan(E, C, d, f, x.dtype, tma=bool(vec))
     o = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
     strides = (ctypes.c_longlong * 6)(*(s for t in (x, w, o)
                                         for s in t.stride()[:2]))
-    vec = int(_vec_ok(x) and _vec_ok(w))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if p.kernel == "cuda_core":
@@ -212,13 +265,19 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             lib = _build.load(TC_SOURCE, _bind_tc)
             part = (torch.empty(p.split * E * C * f, dtype=torch.float32,
                                 device=x.device) if p.split > 1 else None)
+            maps = None
+            if p.variant >= MMA_SYNC_VARIANTS:
+                maps = (ctypes.c_longlong * 16)(
+                    *tma_layout(x, p.bm // p.cluster), *tma_layout(w, p.bk))
             err = lib.grouped_matmul_bf16_fwd(
                 x.data_ptr(), w.data_ptr(), o.data_ptr(),
                 None if part is None else part.data_ptr(), E, C, d, f,
-                strides, p.variant, vec, p.split, p.chunk, stream)
+                strides, p.variant, vec, p.split, p.chunk, maps, p.cluster,
+                stream)
     _build.check(lib, err, "grouped_matmul")
     launches += 1
     return o
 
 
-__all__ = ["grouped_matmul", "check_args", "row_tile", "plan", "Plan"]
+__all__ = ["grouped_matmul", "check_args", "row_tile", "plan", "Plan",
+           "tma_smem_bytes", "tma_layout", "tma_grid"]

@@ -247,8 +247,8 @@ def test_flash_decode_inputs_are_checked(case):
 
 
 @pytest.mark.parametrize("name", ["flash_attention.cu",
-                                  "flash_attention_tc.cu", "flash_decode.cu",
-                                  "flash_decode_tc.cu"])
+                                  "flash_attention_wgmma.cu",
+                                  "flash_decode.cu", "flash_decode_tc.cu"])
 def test_cuda_sources(name):
     src = (build.CSRC / name).read_text()
     flags = " ".join(build.NVCC_FLAGS)
@@ -270,21 +270,35 @@ def _code(src: str) -> str:
 
 
 def test_bf16_attention_runs_on_the_tensor_cores():
-    """The bf16 kernel multiplies with mma.sync on bf16 operands (loaded
-    with ldmatrix, V transposed, from a cp.async ring) through the shared
-    header; the f32 kernel stays on the CUDA cores (no tensor-core
-    instruction, so no TF32)."""
-    tc = (build.CSRC / "flash_attention_tc.cu").read_text()
+    """The bf16 kernel is warp-specialised through the shared headers: a
+    producer warpgroup gives up registers and issues TMA copies under
+    full and empty mbarriers, two consumer warpgroups take registers and
+    multiply with wgmma (S = Q K^T from shared memory, O += P V with P in
+    registers and V through the transpose bit), taking turns through named
+    barriers; no mma.sync, no cp.async.  The f32 kernel stays on the CUDA
+    cores (no tensor-core instruction, so no TF32)."""
+    wg = _code((build.CSRC / "flash_attention_wgmma.cu").read_text())
     header = (build.CSRC / "mma_sm90.cuh").read_text()
-    assert '#include "mma_sm90.cuh"' in tc
-    for call in ("mma_bf16_16816(", "ldmatrix_x4(", "ldmatrix_x4_trans(",
-                 "cp_async16("):
-        assert call in tc, call
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in header
-    assert "cp.async.cg.shared.global" in header
-    assert "tf32" not in _code(header).lower()
+    tma = (build.CSRC / "tma_sm90.cuh").read_text()
+    assert '#include "mma_sm90.cuh"' in wg and '#include "tma_sm90.cuh"' in wg
+    for call in ("wgmma_m64n128k16_ss(", "wgmma_m64n128k16_rs_tb(",
+                 "wgmma_m64n64k16_rs_tb(", "tma_load_4d(", "mbar_wait(",
+                 "mbar_expect_tx(", "setmaxnreg_dec<kProducerRegs>",
+                 "setmaxnreg_inc<kConsumerRegs>", "bar_sync(", "bar_arrive(",
+                 "__grid_constant__ CUtensorMap", "encode_bf16_map("):
+        assert call in wg, call
+    for gone in ("mma_bf16_16816(", "ldmatrix", "cp_async16("):
+        assert gone not in wg, gone
+    assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in header
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in header
+    assert "cp.async.bulk.tensor.4d" in tma and "setmaxnreg" in tma
+    assert "cudaGetDriverEntryPoint" in tma and "-lcuda" not in \
+        " ".join(build.NVCC_FLAGS)
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in tma
+    assert "tf32" not in _code(header + tma).lower()
     f32 = _code((build.CSRC / "flash_attention.cu").read_text())
     assert "mma" not in f32 and "bfloat16" not in f32
+    assert not (build.CSRC / "flash_attention_tc.cu").exists()
 
 
 @pytest.mark.parametrize("B,H,S,D", [
@@ -295,8 +309,12 @@ def test_bf16_attention_runs_on_the_tensor_cores():
 ])
 def test_flash_plan_picks_the_kernel_by_dtype(B, H, S, D):
     bf = flash_attention.plan(B, H, S, D, torch.bfloat16)
-    assert bf.kernel == "tensor_core" and bf.block_q % (16 * bf.warps) == 0
-    assert bf.grid == (-(-S // bf.block_q), B * H) and bf.stages >= 2
+    # one producer and two consumer warpgroups of WG_ROWS query rows each
+    assert bf.kernel == "wgmma" and bf.warps == 12
+    assert bf.block_q == 2 * flash_attention.WG_ROWS
+    items = -(-S // bf.block_q) * B * H      # persistent: a CTA per SM
+    assert bf.grid == (min(items, flash_attention.SMS), 1)
+    assert bf.stages >= 2
     f32 = flash_attention.plan(B, H, S, D, torch.float32)
     assert f32.kernel == "cuda_core"
     assert f32.grid[0] * f32.block_q >= S > (f32.grid[0] - 1) * f32.block_q
@@ -319,19 +337,41 @@ def _constants(src: str) -> dict:
 
 
 def test_flash_plan_matches_the_sources():
-    """The plan's blocks, warps and grid are those the kernels launch."""
+    """The plan's blocks, warps, ring and grid, the consumer rows and the
+    shared memory are those the kernels launch."""
     f32 = flash_attention.plan(2, 4, 200, 64, torch.float32)
     bf = flash_attention.plan(2, 4, 200, 64, torch.bfloat16)
     for p, name, bk in ((f32, "flash_attention.cu", "kBK"),
-                        (bf, "flash_attention_tc.cu", "kBKV")):
+                        (bf, "flash_attention_wgmma.cu", "kBKV")):
         src = (build.CSRC / name).read_text()
         c = _constants(src)
         assert (c["kBQ"], c[bk], c["kThreads"] // 32) == \
             (p.block_q, p.block_k, p.warps), name
-        assert "const dim3 grid((S + kBQ - 1) / kBQ, B * H);" in src
-        assert p.grid == (-(-200 // c["kBQ"]), 8)
-    assert "return static_cast<size_t>(kBQ + 4 * kBKV)" in \
-        (build.CSRC / "flash_attention_tc.cu").read_text() and bf.stages == 2
+    assert "const dim3 grid((S + kBQ - 1) / kBQ, B * H);" in \
+        (build.CSRC / "flash_attention.cu").read_text()
+    assert f32.grid == (-(-200 // 64), 8)
+    src = (build.CSRC / "flash_attention_wgmma.cu").read_text()
+    assert "flash_wgmma_kernel<D><<<ctas, kThreads, smem, stream>>>" in src
+    assert "q0 = (n_qb - 1 - i / BH) * kBQ;" in src    # work_items' order
+    assert bf.grid == (min(flash_attention.SMS, 2 * 4 * 2), 1)
+    c = _constants(src)
+    assert (c["kStages"], c["kWGRows"]) == (bf.stages,
+                                            flash_attention.WG_ROWS)
+    assert c["kMapWords"] == len(flash_attention.tma_layout(
+        torch.zeros(1, 1, 1, 64), 128))
+    for line in ("static constexpr int kQBytes = kBQ * DP * 2;",
+                 "static constexpr int kTileBytes = kBKV * DP * 2;",
+                 "static constexpr int kBar = kOnes + 1024;",
+                 "static constexpr int kBars = 2 + 4 * kStages;",
+                 "static constexpr int kBytes = kBar + kBars * 8 + 1024;",
+                 "constexpr int DP = D <= 64 ? 64 : 128;"):
+        assert line in src, line
+    for D in flash_attention.HEAD_DIMS:
+        dp = flash_attention.padded_head_dim(D)
+        q_bytes = c["kBQ"] * dp * 2
+        ring = 2 * c["kStages"] * c["kBKV"] * dp * 2
+        assert flash_attention.smem_bytes(D) == \
+            q_bytes + ring + 1024 + (2 + 4 * c["kStages"]) * 8 + 1024
 
 
 DECODE_SHAPES = [

@@ -1,0 +1,294 @@
+"""The host-side arithmetic of the port's two warp-specialised bf16 kernels
+on the CPU: ``csrc/flash_attention_wgmma.cu`` and the prefill regime of
+``csrc/grouped_matmul_tc.cu``.
+
+The kernels run only on the card; what they take from the host is checked
+here at every bf16 path shape of ``chip_smoke.py`` and its reference
+sweeps: the TMA tensor maps (16-byte strides, boxes of at most 256 and
+128-byte inner rows under the 128-byte swizzle, the model's (B,S,H,D)
+views described without a copy), the shared memory of a CTA, the Python
+twin of the attention kernel's key-tile range and mask-free test against
+the mask itself, and the grouped matmul's grid and clusters against the
+output they must cover."""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import grouped_matmul as gm
+
+BOX_MAX = 256                   # a TMA box's largest size in any dimension
+SWIZZLE_ROW = 128               # bytes of a box's inner row, 128-byte swizzle
+
+# (B, H, K, S, T, D) of every bf16 flash-attention shape chip_smoke checks.
+FLASH_SHAPES = sorted(
+    {(B, H, K, S, S, D) for B, H, K, S, D in chip_smoke.FLASH_CASES}
+    | {(B, H, K, S, T, D) for B, H, K, S, T, D in
+       chip_smoke.FLASH_CROSS_CASES}
+    | {(B, H, K, S, S, D) for (B, H, K, S, D), dt in
+       chip_smoke.FLASH_PATH_CASES if dt == torch.bfloat16}
+    | {shape for shape, dt, _, _ in chip_smoke.FLASH_MASK_PATH_CASES
+       if dt == torch.bfloat16})
+
+
+def _view(B, N, L, D, model_layout):
+    """A (B, N, L, D) bf16 tensor on the meta device: the model's (B, L, N,
+    D) tensor transposed, or a contiguous one."""
+    if model_layout:
+        return torch.empty((B, L, N, D), dtype=torch.bfloat16,
+                           device="meta").transpose(1, 2)
+    return torch.empty((B, N, L, D), dtype=torch.bfloat16, device="meta")
+
+
+def _check_map(layout, rank, dims, rows):
+    """A tensor map TMA takes in the 128-byte swizzle."""
+    assert len(layout) == 3 * rank - 1
+    got_dims = layout[:rank]
+    strides = layout[rank:2 * rank - 1]
+    box = layout[2 * rank - 1:]
+    assert tuple(got_dims) == tuple(dims)
+    assert all(s % 16 == 0 and 0 < s < 2 ** 40 for s in strides)
+    assert all(1 <= b <= BOX_MAX for b in box)
+    assert box[0] * 2 == SWIZZLE_ROW and box[1] == rows
+    assert all(b == 1 for b in box[2:])
+    return strides
+
+
+@pytest.mark.parametrize("model_layout", [True, False])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_tensor_maps(shape, model_layout):
+    """q's, k's and v's maps: (D, rows, heads, batch), byte strides of the
+    tensor as it is passed (the model's views through their own strides),
+    boxes of 64 columns by 128 rows."""
+    B, H, K, S, T, D = shape
+    for (N, L, rows) in ((H, S, fa.BLOCK_Q), (K, T, fa.BLOCK_KV)):
+        x = _view(B, N, L, D, model_layout)
+        strides = _check_map(fa.tma_layout(x, rows), 4, (D, L, N, B), rows)
+        assert strides == tuple(2 * s for s in (x.stride(2), x.stride(1),
+                                                x.stride(0)))
+        if model_layout:             # (B, S, H, D) read in place
+            assert strides == (N * D * 2, D * 2, L * N * D * 2)
+
+
+def test_model_views_are_read_in_place():
+    """The model's (B,S,H,D) views need no copy: TMA describes them; a
+    view with a stride that is not a multiple of 16 bytes is copied."""
+    x = torch.zeros(2, 40, 6, 64, dtype=torch.bfloat16).transpose(1, 2)
+    assert fa.kernel_layout(x) is x
+    odd = torch.zeros(2, 40, 6, 68, dtype=torch.bfloat16)[..., :64]
+    odd = odd.transpose(1, 2)        # rows 136 bytes apart
+    assert fa.kernel_layout(odd) is not odd
+    assert fa.kernel_layout(odd).is_contiguous()
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_flash_shared_memory_fits(D):
+    dp = fa.padded_head_dim(D)
+    assert dp % fa.PANEL == 0 and D <= dp
+    assert fa.smem_bytes(D) <= fa.SMEM_LIMIT
+    # every swizzled buffer starts on a 1024-byte atom
+    assert (fa.BLOCK_Q * fa.PANEL * 2) % 1024 == 0
+    assert (fa.BLOCK_KV * fa.PANEL * 2) % 1024 == 0
+
+
+# (S, T, causal, window): the path's masks, the sweeps' windows, S != T,
+# and S or T off the 128-row tile.
+MASKS = [(2048, 2048, True, 0), (2048, 2048, True, 16),
+         (2048, 2048, True, 100), (2048, 2048, True, 1024),
+         (1050, 1050, True, 1024), (1500, 1500, False, 0),
+         (448, 448, True, 0), (448, 1500, False, 0), (200, 200, True, 100),
+         (200, 200, True, 16), (96, 96, True, 0), (130, 75, False, 0),
+         (37, 100, False, 0), (1, 129, False, 0), (64, 200, False, 0),
+         (300, 300, False, 100)]
+
+
+def _keep(rows, keys, T, causal, window):
+    i = np.asarray(rows)[:, None]
+    j = np.asarray(keys)[None, :]
+    ok = (j < T) & (i >= 0)
+    if causal:
+        ok &= i >= j
+    if window > 0:
+        ok &= (i - j) < window
+    return ok
+
+
+@pytest.mark.parametrize("S,T,causal,window", MASKS)
+def test_key_tiles_cover_the_mask(S, T, causal, window):
+    """For every query block: the visited key tiles hold every kept (i, j)
+    pair of its rows, every visited tile holds one, and a tile that
+    ``mask_free`` passes for a consumer warpgroup masks none of that
+    warpgroup's 64 rows."""
+    kv = fa.BLOCK_KV
+    for q0 in range(0, S, fa.BLOCK_Q):
+        rows = np.arange(q0, min(q0 + fa.BLOCK_Q, S))
+        k_lo, n = fa.key_tiles(q0, S, T, causal, window)
+        assert k_lo % kv == 0 and n >= 1
+        kept = _keep(rows, np.arange(T), T, causal, window)
+        cols = np.nonzero(kept.any(axis=0))[0]
+        assert cols.min() >= k_lo and cols.max() < k_lo + n * kv
+        for t in range(n):
+            k0 = k_lo + t * kv
+            tile = _keep(rows, np.arange(k0, k0 + kv), T, causal, window)
+            assert tile.any(), (q0, k0)
+            for g in range(fa.BLOCK_Q // fa.WG_ROWS):
+                r0 = q0 + g * fa.WG_ROWS
+                if fa.mask_free(k0, r0, T, causal, window):
+                    wg_rows = np.arange(r0, r0 + fa.WG_ROWS)
+                    assert _keep(wg_rows, np.arange(k0, k0 + kv), T, causal,
+                                 window).all(), (q0, k0, g)
+
+
+@pytest.mark.parametrize("B,H,S", [(4, 32, 2048), (2, 48, 2048), (4, 25, 2048),
+                                   (8, 6, 448), (8, 6, 1500), (1, 4, 24),
+                                   (2, 5, 100)])
+def test_persistent_grid_takes_every_item_once(B, H, S):
+    """The bf16 kernel's persistent CTAs cover every (query block, head)
+    item once, each CTA taking the heaviest causal blocks first, and no
+    CTA is idle."""
+    p = fa.plan(B, H, S, 64, torch.bfloat16)
+    ctas = p.grid[0]
+    per_cta = fa.work_items(S, B * H, ctas)
+    flat = [it for items in per_cta for it in items]
+    n_qb = -(-S // fa.BLOCK_Q)
+    assert sorted(flat) == [(qb, bh) for qb in range(n_qb)
+                            for bh in range(B * H)]
+    assert ctas == min(fa.SMS, len(flat)) and all(per_cta)
+    for items in per_cta:
+        qbs = [qb for qb, _ in items]
+        assert qbs == sorted(qbs, reverse=True)
+    # causal work (key tiles) per CTA is within one heaviest item of even
+    work = [sum(qb + 1 for qb, _ in items) for items in per_cta]
+    assert max(work) - min(work) <= n_qb
+
+
+def test_mask_free_tiles_are_most_of_a_long_causal_row():
+    """The skip is not vacuous: at S = T = 2048, causal, every tile below a
+    warpgroup's diagonal is mask-free."""
+    q0 = 1920
+    k_lo, n = fa.key_tiles(q0, 2048, 2048, True, 0)
+    free = [fa.mask_free(k_lo + t * fa.BLOCK_KV, q0, 2048, True, 0)
+            for t in range(n)]
+    assert (k_lo, n) == (0, 16) and free == [True] * 15 + [False]
+
+
+# The grouped matmul's bf16 prefill shapes (E, C, d, f) in chip_smoke, and
+# small ragged ones.
+GMM_SHAPES = sorted(
+    {s for s, dt in chip_smoke.GMM_PATH_CASES if dt == torch.bfloat16}
+    | {s for _, s, _, _ in chip_smoke.GMM_OFF_PATH}
+    | set(chip_smoke.GMM_CASES) | set(chip_smoke.GMM_EDGE_CASES)
+    | {(3, 100, 64, 300), (2, 333, 128, 200), (1, 161, 72, 136)})
+# Those the wgmma kernel takes when contiguous: rows of x and w whole
+# 16-byte units, more than 64 rows an expert.
+TMA_SHAPES = [s for s in GMM_SHAPES if s[2] % 8 == 0 and s[3] % 8 == 0
+              and gm.plan(*s, torch.bfloat16).variant
+              >= gm.MMA_SYNC_VARIANTS]
+
+
+def test_prefill_shapes_take_the_tma_kernel():
+    """Grok-1's gate/up, down and one-row chunk take the wgmma kernel; rows
+    TMA cannot read (1, 77, 24, 129) take the 64-row mma.sync tile."""
+    for s in [(8, 320, 6144, 32768), (8, 320, 32768, 6144),
+              (8, 160, 6144, 32768)]:
+        assert s in TMA_SHAPES
+        assert gm.plan(*s, torch.bfloat16).cluster == gm.CLUSTER
+    x = torch.zeros(1, 77, 24, dtype=torch.bfloat16)
+    w = torch.zeros(1, 24, 129, dtype=torch.bfloat16)
+    tma = gm._vec_ok(x) and gm._vec_ok(w)
+    p = gm.plan(1, 77, 24, 129, torch.bfloat16, tma=tma)
+    assert not tma and p.variant == 1 and p.cluster == 1
+
+
+@pytest.mark.parametrize("shape", TMA_SHAPES)
+def test_gmm_tensor_maps(shape):
+    """x's map (d, C, E) with boxes of bm / cluster token rows, w's (f, d,
+    E) with boxes of 64 rows of d; both 64 columns wide, strided views
+    described in place."""
+    cluster = gm.CLUSTER
+    E, C, d, f = shape
+    p = gm.plan(E, C, d, f, torch.bfloat16)
+    assert p.cluster == cluster and p.bm % cluster == 0
+    assert (p.bm // cluster * 128) % 1024 == 0   # parts keep swizzle atoms
+    x = torch.empty((E, C, d), dtype=torch.bfloat16, device="meta")
+    w = torch.empty((E, d, f), dtype=torch.bfloat16, device="meta")
+    assert _check_map(gm.tma_layout(x, p.bm // p.cluster), 3, (d, C, E),
+                      p.bm // cluster) == (d * 2, C * d * 2)
+    assert _check_map(gm.tma_layout(w, p.bk), 3, (f, d, E), p.bk) == \
+        (f * 2, d * f * 2)
+    # a transposed x and one layer of stacked weights, read in place
+    xt = torch.empty((C, E, d), dtype=torch.bfloat16,
+                     device="meta").transpose(0, 1)
+    ws = torch.empty((2, E, d, f), dtype=torch.bfloat16, device="meta")[1]
+    assert _check_map(gm.tma_layout(xt, p.bm // p.cluster), 3, (d, C, E),
+                      p.bm // cluster) == (E * d * 2, d * 2)
+    assert _check_map(gm.tma_layout(ws, p.bk), 3, (f, d, E), p.bk) == \
+        (f * 2, d * f * 2)
+
+
+@pytest.mark.parametrize("variant", [2, 3])
+def test_gmm_shared_memory_fits(variant):
+    bm, bn, bk, warps, stages = gm.TC_VARIANTS[variant]
+    assert warps == 12 and bn == 2 * gm.PANEL and bk == gm.PANEL
+    assert gm.tma_smem_bytes(variant) <= gm.SMEM_LIMIT
+    ring = stages * (bk * bn + bm * bk) * 2
+    assert bm * (bn + 8) * 2 <= ring            # the staged output tile
+    assert (bk * bn * 2) % 1024 == 0 and (bm * bk * 2) % 1024 == 0
+    # one more slot would not fit
+    assert gm.tma_smem_bytes(variant) + (bk * bn + bm * bk) * 2 + 16 \
+        > gm.SMEM_LIMIT
+
+
+def _intervals_partition(parts, lo, hi):
+    parts = sorted(p for p in parts if p[0] < p[1])
+    assert parts[0][0] == lo and parts[-1][1] == hi
+    assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
+
+
+@pytest.mark.parametrize("shape", TMA_SHAPES)
+def test_gmm_grid_covers_the_output_once(shape):
+    """The grid's CTAs store disjoint (token tile, column tile) blocks of
+    each expert that together cover (C, f); CTAs past f store nothing;
+    each cluster's CTAs share one token tile whose rows their x parts
+    cover once."""
+    cluster = gm.CLUSTER
+    E, C, d, f = shape
+    p = gm.plan(E, C, d, f, torch.bfloat16)
+    gx, gy, gz = gm.tma_grid(p, E, C, f)
+    assert gx % cluster == 0 and gz == E and gy <= 65535 and gz <= 65535
+    rows = [(by * p.bm, min(by * p.bm + p.bm, C)) for by in range(gy)]
+    cols = [(bx * p.bn, min(bx * p.bn + p.bn, f)) for bx in range(gx)]
+    _intervals_partition(rows, 0, C)
+    _intervals_partition(cols, 0, f)
+    idle = [bx for bx in range(gx) if bx * p.bn >= f]
+    assert len(idle) < cluster
+    part = p.bm // cluster
+    for by in range(gy):
+        t0 = by * p.bm
+        _intervals_partition([(t0 + r * part, t0 + (r + 1) * part)
+                              for r in range(cluster)], t0, t0 + p.bm)
+    if E * C * f <= 2 ** 22:        # small shapes: count every element
+        count = np.zeros((C, f), dtype=np.int32)
+        for by in range(gy):
+            for bx in range(gx):
+                r0, c0 = by * p.bm, bx * p.bn
+                count[r0:min(r0 + p.bm, C), c0:min(c0 + p.bn, f)] += 1
+        assert (count == 1).all()
+
+
+def test_ablation_variants_apply_to_the_sources():
+    """``tools/torch_kernel_ablate.py`` edits the kernels' real sources;
+    every variant's edits still apply, and each but the bases changes its
+    source."""
+    path = Path(__file__).resolve().parents[1] / "tools/torch_kernel_ablate.py"
+    spec = importlib.util.spec_from_file_location("torch_kernel_ablate", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for name, (source, edits) in mod.VARIANTS.items():
+        text = mod.variant_source(name)
+        assert (text != (mod.build.CSRC / source).read_text()) == bool(edits)

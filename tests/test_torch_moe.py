@@ -273,7 +273,8 @@ def test_row_tile_follows_the_rows(C, tile):
         ("cuda_core", "f32", tile, grouped_matmul.ROW_TILES[tile], 1)
     bf = grouped_matmul.plan(2, C, 64, 96, torch.bfloat16)
     rows = [v[0] for v in grouped_matmul.TC_VARIANTS]
-    assert bf.kernel == "tensor_core"
+    assert bf.kernel == ("wgmma" if bf.variant >=
+                         grouped_matmul.MMA_SYNC_VARIANTS else "tensor_core")
     assert bf.variant == next((i for i, bm in enumerate(rows) if C <= bm),
                               len(rows) - 1)
     assert bf.regime == ("decode" if C <= 32 else "prefill")
@@ -304,7 +305,7 @@ def test_gmm_plan_at_the_path_shapes(name):
     cores."""
     E, C, d, f = GMM_PATH_SHAPES[name]
     p = grouped_matmul.plan(E, C, d, f, torch.bfloat16)
-    assert p.kernel == "tensor_core"
+    assert p.kernel == ("wgmma" if C > 64 else "tensor_core")
     assert p.regime == ("prefill" if C > 32 else "decode")
     ctas = -(-C // p.bm) * -(-f // p.bn) * E * p.split
     assert ctas >= grouped_matmul.SPLIT_TARGET or p.regime == "prefill"
@@ -376,12 +377,19 @@ def test_grouped_matmul_cuda_source():
     assert "constexpr int kBN = 128;" in src and grouped_matmul.BN == 128
     for bm in grouped_matmul.ROW_TILES:
         assert f"launch<T, {bm}," in src
-    # f32 stays on the CUDA cores; bf16 runs mma.sync (decode) and wgmma
-    # (prefill) from the header.
+    # f32 stays on the CUDA cores; bf16 runs mma.sync (decode) from a
+    # cp.async ring and wgmma (prefill) warp-specialised under TMA, from the
+    # headers.
     assert "mma" not in _code(src) and "bfloat16" not in _code(src)
     assert '#include "mma_sm90.cuh"' in tc and "mma_bf16_16816(" in tc
+    assert '#include "tma_sm90.cuh"' in tc
     assert "ldmatrix_x4_trans(" in tc and "cp_async16(" in tc
-    assert "wgmma_m64n160k16_ta(" in tc and "fence_proxy_async()" in tc
+    for call in ("wgmma_m64n160k16_ta(", "tma_load_3d(",
+                 "tma_load_3d_multicast(", "mbar_arrive_cluster(",
+                 "setmaxnreg_dec<", "setmaxnreg_inc<", "stmatrix_x4_trans(",
+                 "cudaLaunchAttributeClusterDimension", "cluster_sync()"):
+        assert call in tc, call
+    assert "gmm_wgmma_t_kernel" not in tc
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in header
     assert "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16" in header
     n_sync = grouped_matmul.MMA_SYNC_VARIANTS
@@ -394,12 +402,13 @@ def test_grouped_matmul_cuda_source():
                           for v in case.split("<")[1].split(",")[3:6])
             assert (wm * wn, st) == (warps, stages)
         else:
-            assert bm % 160 == 0 and warps == 8
-            assert f"return launch_wgmma_t<{bm // 160}, {stages}, VEC>" \
+            assert bm % 160 == 0 and warps == 12
+            assert f"return launch_tma<{bm // 160}, {stages}, kCluster>(" \
                 in case, i
-            assert f"constexpr int BF = {bn}, BT = 160 * NH, BK = {bk};" \
-                in tc
+            assert "static constexpr int kBF = " \
+                f"{bn}, kBT = 160 * NH, kBK = {bk};" in tc
     assert f"case {len(grouped_matmul.TC_VARIANTS)}:" not in tc
+    assert f"constexpr int kCluster = {grouped_matmul.CLUSTER};" in tc
 
 
 def test_no_try_around_the_grouped_matmul():
