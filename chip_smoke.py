@@ -52,12 +52,14 @@ Phases, in order; any failure raises and exits non-zero:
      Grok-1's, Kimi-K2's, Hymba's and Whisper-tiny's, each with its mask)
      against their bounds, plain versions and
      ``scaled_dot_product_attention``; flash decode also at the engine's
-     live lengths, and beside the CUDA-core decode kernel in bf16;
+     live lengths, and beside the CUDA-core decode kernel in bf16; f32
+     flash decode at the dense serving shape beside SDPA in f32;
  10. grouped matmul == its plain version on the card: the reference's
      sweep, ragged and unaligned edges and strided views (f32 1e-4; bf16
      5e-2 rtol / 5e-1 atol), and every shape of the Grok-1 and Kimi-K2
      MoE paths, and two prefill chunks off them (bf16 within two ulps,
-     2**-6 rtol / 1e-3 atol; f32 1e-4);
+     2**-6 rtol / 1e-3 atol; f32 1e-4); two launches at Grok-1's and
+     Kimi-K2's decode down projections give the same bits;
  11. the MoE serving path at full width: Grok-1 (4 of its 64 layers, bf16,
      seeded random weights), prompts fetched over the simulated WAN, a
      2 x 2048 prefill and continuous-batching decode of 16 prompts, with
@@ -114,8 +116,9 @@ Phases, in order; any failure raises and exits non-zero:
      share of the bf16 peak over the active parameters; it raises as phase
      14 does (the router and an expert weight must change; training
      launches no kernel: its experts are the reference's einsums); then
-     the train step in f32 at 1 layer and d_ff 256 on 1 x 1024 tokens (two
-     chunks) on the card and on the CPU, as phase 15 (no restart); then,
+     the train step in f32 at 1 layer, d_ff 256 and vocabulary 32768 on
+     1 x 1024 tokens (two chunks) on the card and on the CPU, as phase 15
+     (no restart); then,
      on the card, the trained f32 model's training forward (einsums)
      against its serving forward (the f32 grouped-matmul and
      flash-attention kernels): logits within 1e-3 and exactly
@@ -125,8 +128,8 @@ Phases, in order; any failure raises and exits non-zero:
      for Grok-1; the earlier phases' tensors freed first), 3 steps of
      ``run_training`` at 2 x 2048 tokens as phase C, printing the same
      numbers and raising as phase 14 does; then phase C's f32 check (1
-     layer, d_ff 256, vocabulary 32768, 1 x 1024 tokens, 3 steps, card
-     against CPU) for
+     layer, d_ff 256, vocabulary 32768, 3 steps, card against CPU) on
+     1 x 512 tokens (one chunk) for
      ``int8`` and ``int8_factored``, with the moments after the first
      update held too (each int8 value within one quantization step of
      its row plus 1e-3 of its leaf's max, each f32 moment within 1e-3);
@@ -136,7 +139,7 @@ Phases, in order; any failure raises and exits non-zero:
      the card, bit-exact) and ``compressed_psum_grads`` on the first
      step's gradients equal to the CPU port's over gloo; no kernel
      launches; it prints its seconds;
-  I. the hybrid training path at full width and depth: Hymba-1.5B (32
+  I. the hybrid training path at full width: Hymba-1.5B (16 of its 32
      layers, 25 query heads over 5 kv heads, a 1024-token window, Mamba
      d_inner 1600 and state 16; bf16, remat, f32 AdamW moments, seeded
      random weights; the earlier phases' tensors freed first), 3 steps of
@@ -146,8 +149,8 @@ Phases, in order; any failure raises and exits non-zero:
      2 layers, full width, on 1 x 2080 tokens (chunked attention past the
      window, 9 Mamba chunks, the last ragged), card against CPU as phase
      15 without the restart;
-  J. the SSM training path at full width and depth: xLSTM-350M (24
-     layers, 12 mLSTM/sLSTM pairs), 1 step of ``run_training`` at 2 x
+  J. the SSM training path at full width: xLSTM-350M (4 of its 24
+     layers, 2 mLSTM/sLSTM pairs), 1 step of ``run_training`` at 2 x
      4096 tokens (timed, warm-up included; the sLSTM walks 4096 steps a
      layer three times a step), with the derived ms per sLSTM step and
      layer; the sLSTM's and the mLSTM's weights must move; then the f32
@@ -162,7 +165,8 @@ Phases, in order; any failure raises and exits non-zero:
      each of I, J and K prints its seconds;
  16. the grouped matmul's times at the Grok-1 and Kimi-K2 decode and
      prefill shapes, and at the two chunks off the path, against its
-     bound, plain version and ``torch.bmm``;
+     bound, plain version and ``torch.bmm``; in f32 at Grok-1's decode
+     and prefill chunk beside ``torch.bmm`` without TF32;
   B. the multi-host path on the card's host: ``bench_torch_multihost``'s
      ``--scale --quick`` cell (1,000 hosts over three federated clusters on
      routes local, med and high, through the port's ``MultiHostRun``), its
@@ -389,6 +393,9 @@ TIME_DECODES = [("flash_decode", TIME_DECODE),
                 ("flash_decode hymba", (8, 5, 5, 1024, 64)),
                 ("flash_decode whisper self", (8, 6, 1, 448, 64)),
                 ("flash_decode whisper cross", (8, 6, 1, 1500, 64))]
+# The f32 decode kernel at the dense serving path's shape, beside SDPA in
+# f32 (phase 9).
+TIME_DECODE_F32 = ("flash_decode serving f32", (SLOTS, 8, 4, MAX_SEQ, 128))
 # Timed at the other families' bf16 prefill shapes: (name, (B,H,K,S,T,D),
 # causal, window), as FLASH_MASK_PATH_CASES.
 TIME_MASKED_ATTENTION = [
@@ -462,6 +469,15 @@ TIME_GMM = [("decode", GMM_DECODE, 5, 5),
 # within GMM_PATH_TOL (phase 10) and timed (phase 16), as TIME_GMM.
 GMM_OFF_PATH = [("grok prefill b1", (8, 160, 6144, 32768), 5, 5),
                 ("kimi prefill b4", (384, 56, 7168, 2048), 3, 3)]
+# The f32 kernel timed at Grok-1's decode and prefill chunk (phase 16),
+# beside torch.bmm in f32 with TF32 off, as TIME_GMM.
+TIME_GMM_F32 = [("decode f32", GMM_DECODE, 2, 3),
+                ("prefill f32", GMM_PREFILL, 1, 3)]
+# Launched twice on the same inputs in phase 10, whose outputs must be the
+# same bits: the small-C stream's down projections, Grok-1's (its CTAs'
+# ranges cut the last items, whose pieces a second pass adds in a fixed
+# order) and Kimi-K2's (whole items in rounds).
+GMM_REPEAT_CASES = [GMM_DECODE_DOWN, KIMI_GMM_DECODE_DOWN]
 # (rtol, atol): the reference's tolerances for the sweep and the edges.
 # At the path's shapes (w at the model's scale, outputs of order 1) both
 # sides sum exact bf16 products in f32 and differ only in the order of the
@@ -493,12 +509,16 @@ RESTART_CFG = dict(name="quickstart-lm", family="dense", n_layers=2,
 # layers: 5.73e9 parameters (experts 4.83e9, attention 8.8e7, the
 # embedding, which also unembeds, 8.05e8), at 12 B each (bf16 parameters
 # and gradients, f32 moments) 68.7 GB before activations; 2 x 2048 tokens,
-# four 512-token chunks a row.  The f32 check cuts d_ff to 256 (0.93e9
-# parameters, 15 GB at 16 B each on each side) and runs 1 x 1024 tokens,
-# two chunks, for 3 steps.
+# four 512-token chunks a row.  The f32 check cuts d_ff to 256 and the
+# vocabulary to 32768 (0.33e9 parameters) and runs 1 x 1024 tokens, two
+# chunks, for 3 steps: at Grok-1's 131072 the CPU side took 219.6 s (the
+# unembedding and the update of the 0.8e9-element embedding), and
+# 32768 x 6144 still exceeds ``CHUNK_ELEMS``, so the embedding's row
+# blocks run on both sides.
 MOE_TRAIN_LAYERS = 1
 MOE_TRAIN_B, MOE_TRAIN_S = 2, 2048
 MOE_TRAIN_CHECK_D_FF = 256
+MOE_TRAIN_CHECK_VOCAB = 32768
 MOE_TRAIN_CHECK_B, MOE_TRAIN_CHECK_S = 1, 1024
 # The int8 training path (phase G): Grok-1 at full width, 2 of its 64
 # layers, with int8 AdamW moments, the reference's memory policy for
@@ -506,29 +526,31 @@ MOE_TRAIN_CHECK_B, MOE_TRAIN_CHECK_S = 1, 1024
 # (bf16 parameters and gradients, int8 m and v; the f32 scales add 4 B a
 # row) 63.9 GB before activations, where the f32 moments of phase C fit 1
 # layer; 2 x 2048 tokens as phase C.  Its f32 check is
-# phase C's (1 layer, d_ff 256, 1 x 1024 tokens, 3 steps) for each
-# quantized state dtype, with the vocabulary cut to 32768: at Grok-1's
-# 131072 the CPU side took 220.6 s for one state dtype (the unembedding
-# and the update of the 0.8e9-element embedding), and 32768 x 6144 still
-# exceeds ``CHUNK_ELEMS``, so the embedding's row blocks (and the
-# factored moment's two passes over them) run on both sides.  Then the
+# phase C's (1 layer, d_ff 256, vocabulary 32768, 3 steps) on 1 x 512
+# tokens, one chunk (the two chunks are phase C's to check; at 1024 the
+# two states' CPU sides took 92.3 and 86.0 s, most of it the forward and
+# backward), for each quantized state dtype; the embedding's row blocks
+# take the factored moment's two passes over them on both sides.  Then the
 # int8 state saved and restored onto a 1 x 1 mesh over a one-rank NCCL
 # group, and ``compressed_psum_grads`` over that group on the first
 # step's gradients.
 INT8_TRAIN_LAYERS = 2
 INT8_STATE = "int8"
 INT8_CHECK_STATES = ("int8", "int8_factored")
-INT8_CHECK_VOCAB = 32768
-# The hybrid, SSM and audio training paths (phases I, J and K): each
-# config whole (Hymba-1.5B's 32 layers, xLSTM-350M's 24, Whisper-tiny's
-# 4 + 4), bf16, remat, f32 AdamW moments, seeded random weights, phase
-# 14's 2 x 4096 tokens and its 3 steps (Whisper 8: they take 0.2 s).
-# xLSTM runs 1: its sLSTM is a loop of 4096 steps a layer, walked three
-# times a step (the forward, remat's recompute and the backward), 120-172
-# s a step on the H100, host-bound; that step is timed, warm-up included
-# (5-10% above a second step), without the flop counter (phase H does not
-# count it).  The f32 checks
-# keep the width and cut depth and length only: Hymba 2 layers on 1 x
+INT8_CHECK_S = 512
+# The hybrid, SSM and audio training paths (phases I, J and K): Whisper-tiny
+# (4 + 4) whole, Hymba-1.5B at 16 of its 32 layers (its step is
+# launch-bound, about 10 s at 32) and xLSTM-350M at 4 of its 24
+# (``FAMILY_TRAIN_LAYERS``), bf16, remat, f32 AdamW moments, seeded
+# random weights, phase 14's 2 x 4096 tokens and its 3 steps (Whisper 8:
+# they take 0.2 s).  xLSTM runs 1: its sLSTM is a loop of 4096 steps a
+# layer, walked three times a step (the forward, remat's recompute and the
+# backward), host-bound: 145.6-151.4 s a step at 24 layers on the H100,
+# which with the rest passed the run's 1200 s limit on a slower host, so
+# its depth is cut to 2 pairs (about 25 s).  That step is timed, warm-up
+# included (5-10% above a second step), without the flop counter (phase
+# H does not count it).  The f32 checks keep the width and cut depth and
+# length only: Hymba 2 layers on 1 x
 # 2080 tokens (past 2048, so attention goes chunked, past the 1024-token
 # window, 9 Mamba chunks, the last ragged), xLSTM one pair on 1 x 544
 # (three mLSTM chunks, the last ragged, and 544 sLSTM steps), Whisper
@@ -541,6 +563,7 @@ FAMILY_TRAIN = {
           dict(n_layers=2, seq=544)),
     "K": ("whisper_tiny", dict(steps=8), dict(seq=2080)),
 }
+FAMILY_TRAIN_LAYERS = {"hymba_1_5b": 16, "xlstm_350m": 4}
 # Phase H: the dry run's predicted peak (argument + temp + output - alias)
 # against the training phases' max_memory_allocated.
 PEAK_TOL = 0.2
@@ -1223,12 +1246,14 @@ def time_attention(device, kind: str) -> dict:
     (``scaled_dot_product_attention``, timed only) at the timed shapes:
     ``TIME_ATTENTION`` in bf16 (and Qwen3-4B's in f32 as well) and
     ``TIME_MASKED_ATTENTION`` in bf16 with their masks (SDPA given the
-    same mask as a boolean ``attn_mask``), and ``TIME_DECODES`` in bf16,
-    at the full cache and at ``DECODE_LIVE``'s live lengths.  Each decode row also times the CUDA-core decode kernel
-    on the same bf16 inputs (``cuda_core_ms``), gives the tensor-core
-    kernel's split and how many of its clusters the card holds at once, and
-    times the kernel, the CUDA-core kernel and SDPA replayed from a CUDA
-    graph as well (``*graph_ms``: device time without the host's gaps)."""
+    same mask as a boolean ``attn_mask``), ``TIME_DECODES`` in bf16, at
+    the full cache and at ``DECODE_LIVE``'s live lengths, and
+    ``TIME_DECODE_F32`` in f32 at the full cache.  Each bf16 decode row
+    also times the CUDA-core decode kernel on the same inputs
+    (``cuda_core_ms``), gives the tensor-core kernel's split and how many
+    of its clusters the card holds at once, and times the kernel, the
+    CUDA-core kernel and SDPA replayed from a CUDA graph as well
+    (``*graph_ms``: device time without the host's gaps)."""
     gen = torch.Generator(device).manual_seed(9)
 
     def randn(shape, dtype):
@@ -1333,6 +1358,27 @@ def time_attention(device, kind: str) -> dict:
             "clusters_held": decode_attention.max_active_clusters(D, split),
             "clusters_launched": b * K}
         del q, k, v
+    name, (b, K, G, t, D) = TIME_DECODE_F32
+    q = randn((b, K, G, D), torch.float32)
+    k, v = (randn((b, t, K, D), torch.float32).transpose(1, 2) for _ in "kv")
+    lengths = torch.full((b,), t, dtype=torch.int32, device=device)
+    q_h = q.reshape(b, K * G, 1, D)
+    nbytes, flops, bound_ms, bound_by = decode_bound(kind, [t] * b, K, G, D,
+                                                     4)
+    out[name] = {
+        "shape": [b, K, G, t, D], "length": t,
+        "ms": median_event_ms(lambda: ops.flash_decode(q, k, v, lengths)),
+        "host_ms_per_call": median_host_ms(
+            lambda: ops.flash_decode(q, k, v, lengths)),
+        "plain_ms": median_event_ms(
+            lambda: ref.decode_reference(q.reshape(b, K * G, D), k, v,
+                                         lengths), n=3, repeats=5),
+        "library_ms": median_event_ms(
+            lambda: F.scaled_dot_product_attention(q_h, k, v,
+                                                   enable_gqa=True)),
+        "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+        "bound_by": bound_by}
+    del q, k, v
     for name, t in out.items():
         frac = (f"{t['bound_ms'] / t['ms']:.3f} of the bound"
                 if t["bound_ms"] else "bound unknown for this card")
@@ -1389,6 +1435,15 @@ def check_gmm(device) -> dict:
         path[(E, C, d, f), dtype] = one(f"path {(E, C, d, f)}", x, w, dtype,
                                         GMM_PATH_TOL)
         del x, w
+    for E, C, d, f in GMM_REPEAT_CASES:
+        x = randn((E, C, d), torch.bfloat16)
+        w = randn((E, d, f), torch.bfloat16, d ** -0.5)
+        first, second = ops.grouped_matmul(x, w), ops.grouped_matmul(x, w)
+        if not torch.equal(first, second):
+            raise AssertionError(f"gmm {(E, C, d, f)}: two launches on the "
+                                 "same inputs differ")
+        print(f"check gmm {(E, C, d, f)} bf16: two launches bit-identical")
+        del x, w, first, second
     return path
 
 
@@ -1402,19 +1457,23 @@ def time_gmm(device, kind: str) -> dict:
     """Phase 16: the grouped matmul's device ms per launch, the host's ms
     per call, its plain version's ms and ``torch.bmm``'s ms (timed only)
     at the MoE path's shapes (``TIME_GMM``) and off it (``GMM_OFF_PATH``),
-    in bf16, with w at the model's scale."""
+    in bf16, and in f32 at ``TIME_GMM_F32`` (``torch.bmm`` without TF32),
+    with w at the model's scale."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device).manual_seed(13)
     out = {}
-    for name, (E, C, d, f), n, repeats in TIME_GMM + GMM_OFF_PATH:
-        x = torch.randn((E, C, d), generator=gen, dtype=torch.bfloat16,
-                        device=device)
-        w = torch.randn((E, d, f), generator=gen, dtype=torch.bfloat16,
+    rows = [(*row, torch.bfloat16) for row in TIME_GMM + GMM_OFF_PATH]
+    rows += [(*row, torch.float32) for row in TIME_GMM_F32]
+    for name, (E, C, d, f), n, repeats, dtype in rows:
+        x = torch.randn((E, C, d), generator=gen, dtype=dtype, device=device)
+        w = torch.randn((E, d, f), generator=gen, dtype=dtype,
                         device=device).mul_(d ** -0.5)
 
         def kernel(x=x, w=w):
             return ops.grouped_matmul(x, w)
 
-        nbytes, flops, bound_ms, bound_by = gmm_bound(kind, E, C, d, f, 2)
+        nbytes, flops, bound_ms, bound_by = gmm_bound(kind, E, C, d, f,
+                                                      x.element_size())
         out[name] = {
             "shape": [E, C, d, f],
             "ms": median_event_ms(kernel, n=n, repeats=repeats),
@@ -1845,22 +1904,26 @@ def moment_err(a: dict, b: dict) -> dict:
 def drive_moe_training(device, kind: str) -> dict:
     """Phase C: Grok-1 at full width (``MOE_TRAIN_LAYERS`` of its layers)
     trained through ``drive_training``, then its f32 check at
-    ``MOE_TRAIN_CHECK_D_FF`` with the training forward held against the
-    serving forward."""
+    ``MOE_TRAIN_CHECK_D_FF`` and ``MOE_TRAIN_CHECK_VOCAB`` with the
+    training forward held against the serving forward."""
     cfg = get_arch(MOE_ARCH).scaled(n_layers=MOE_TRAIN_LAYERS, remat=True)
     run = drive_training(device, kind, cfg, batch=MOE_TRAIN_B,
                          seq=MOE_TRAIN_S)
     free_card()
     check = check_f32_training(
-        device, cfg.scaled(d_ff=MOE_TRAIN_CHECK_D_FF, dtype="float32"),
+        device, cfg.scaled(d_ff=MOE_TRAIN_CHECK_D_FF,
+                           vocab=MOE_TRAIN_CHECK_VOCAB, dtype="float32"),
         batch=MOE_TRAIN_CHECK_B, seq=MOE_TRAIN_CHECK_S, restart=False,
         serving=True)
     return {"run": run, "check": check}
 
 
 def family_train_config(arch: str) -> ArchConfig:
-    """A phase I-K model: ``arch``'s config whole, with remat."""
-    return get_arch(arch).scaled(remat=True)
+    """A phase I-K model: ``arch``'s config at full width, whole or at
+    its depth in ``FAMILY_TRAIN_LAYERS``, with remat."""
+    cfg = get_arch(arch)
+    return cfg.scaled(n_layers=FAMILY_TRAIN_LAYERS.get(arch, cfg.n_layers),
+                      remat=True)
 
 
 def drive_family_training(device, kind: str, cfg, sizes: dict,
@@ -1900,12 +1963,13 @@ def drive_int8_training(device, kind: str, cfg, *,
                         batch: int = MOE_TRAIN_B, seq: int = MOE_TRAIN_S,
                         steps: int = TRAIN_STEPS, check_cfg=None,
                         check_batch: int = MOE_TRAIN_CHECK_B,
-                        check_seq: int = MOE_TRAIN_CHECK_S) -> dict:
+                        check_seq: int = INT8_CHECK_S) -> dict:
     """Phase G: ``cfg`` (``int8_train_config()``) trained through
     ``drive_training`` on ``INT8_STATE`` moments; then, for each of
     ``INT8_CHECK_STATES``, the f32 check of phase C (``check_cfg``: 1
-    layer at ``MOE_TRAIN_CHECK_D_FF`` and ``INT8_CHECK_VOCAB`` by
-    default) with the moments held too; then ``check_mesh_state`` on the
+    layer at ``MOE_TRAIN_CHECK_D_FF`` and ``MOE_TRAIN_CHECK_VOCAB`` by
+    default) on ``check_seq`` tokens with the moments held too; then
+    ``check_mesh_state`` on the
     int8 check's state and gradients.  No kernel may launch in any of
     it."""
     t0 = time.perf_counter()
@@ -1913,7 +1977,7 @@ def drive_int8_training(device, kind: str, cfg, *,
                          steps=steps, state_dtype=INT8_STATE)
     free_card()
     check_cfg = check_cfg or cfg.scaled(
-        n_layers=1, d_ff=MOE_TRAIN_CHECK_D_FF, vocab=INT8_CHECK_VOCAB,
+        n_layers=1, d_ff=MOE_TRAIN_CHECK_D_FF, vocab=MOE_TRAIN_CHECK_VOCAB,
         dtype="float32")
     reset_launches()
     checks = {sd: check_f32_training(device, check_cfg, batch=check_batch,
@@ -2067,8 +2131,9 @@ def dry_records() -> dict:
     layer in Python on ``meta`` tensors, tens of minutes), and each
     serving path's prefill call and decode step at the engine's live
     length.  Host work only, so ``main`` runs it in a process of its own
-    beside the card's phases: Hymba's train step alone takes about two
-    minutes of Python (its Mamba scan's tree of small ops)."""
+    beside the card's phases: Hymba's train step is most of it (its
+    Mamba scan's tree of small ops; all the counts took about 90 s at
+    Hymba's 16 layers on the H100 machine's host)."""
     opt = dict(total_steps=TRAIN_STEPS, **TRAIN_OPT)
     train = {
         "phase 14": (get_arch(ARCH).scaled(remat=True), TRAIN_B, TRAIN_S,

@@ -15,25 +15,17 @@
 // TB/s.  Kimi-K2 (E=384, d=7168, f=2048) gives 8 and 28 rows per expert, both
 // bound by the 11.3 GB of weights of each projection.
 //
-// Two regimes, picked by the wrapper from C (grouped_matmul.py::plan), each
-// with the smallest tile that holds C (see dispatch):
-// - decode (C <= 32), bound by the bytes of w: mma.sync.  One CTA per (tile
-//   of 32 rows, 128 output columns, expert); at Grok-1's 8 rows per expert
-//   24 rows are padding, and tensor-core work is free here while bytes are
-//   not.  64-deep slices of x and w stream through a 4-stage cp.async ring
-//   (16-byte copies, zero-filled past the edges of C, d and f): about 50 KB
-//   of w in flight per CTA, two CTAs per SM.  The same kernel with a
-//   64-row tile takes 33 to 64 rows (Kimi-K2's prefill chunk of 3 or 4
-//   rows of 512 tokens), still bound by bytes there.  ldmatrix
-//   feeds mma.sync.m16n8k16 (bf16 in, f32 accumulators in registers), w
-//   through ldmatrix.trans.  Rows of the shared buffers are padded
-//   by 16 bytes so that the eight rows one ldmatrix reads fall in distinct
-//   banks.  When the grid would leave the SMs short of CTAs (Grok-1's down
-//   projection: 384 CTAs over d = 32768), d is split into `split` ranges
-//   of `chunk`; each CTA writes its f32 partial sums to scratch, and a
-//   second kernel adds the partials in a fixed order (no atomics, so the
-//   result is deterministic) and rounds once to bf16.
-// - prefill (C > 64), bound by operations (and, narrowly, by the bytes of
+// Three kernels, picked by the wrapper (grouped_matmul.py::plan):
+// - small C (C <= 64 rows an expert: every decode step, Kimi-K2's prefill
+//   chunks), bound by the bytes of w: gmm_stream_kernel, a persistent
+//   warp-specialised TMA stream of w into narrow wgmma (see there).  The
+//   design it replaced (mma.sync from a cp.async ring, one CTA per tile of
+//   32 rows x 128 columns, split-K by a second pass) reached 0.85-0.89 of
+//   the bytes bound, the stream 0.88-0.94 on the H100: its copies set the
+//   time and a quarter of it went to work beside them
+//   (tools/torch_kernel_ablate.py --sync-decode), as 2048 to 21,504 short
+//   CTAs each filled and drained a ring of its own.
+// - large C (C > 64), bound by operations (and, narrowly, by the bytes of
 //   w): wgmma, transposed and warp-specialised (see gmm_tma_kernel).
 //   Designs with several row tiles per column tile were set by their
 //   copies, not their products: each row tile read w from device memory.
@@ -46,22 +38,22 @@
 //   copy.  Now a TMA producer warpgroup keeps a 4- or 6-slot ring full,
 //   clusters of CTAs along f share each slice of x by multicast, and the
 //   epilogue stores 16 bytes a thread.
+// - rows that TMA cannot describe (a base or a stride of x or w not 16-byte
+//   aligned, as at (2, 1, 99, 37) and (1, 77, 24, 129)), any C:
+//   gmm_tc_kernel, mma.sync on 64 x 128 tiles whose slices are filled
+//   element by element with plain loads.
 //
 // Operands are read through strides (element strides of the expert and row
-// axes; the last axis must be contiguous).  mma.sync: VEC = 1 copies with
-// cp.async and needs every row 16-byte aligned; with VEC = 0 (rows not
-// 16-byte aligned) the same tiles are filled element by element with plain
-// loads.  wgmma: TMA tensor maps, whose dimensions, byte strides and boxes
-// the wrapper computes (grouped_matmul.tma_layout); rows that TMA cannot
-// describe (a base or a stride not 16-byte aligned, as at (1, 77, 24, 129))
-// go to the mma.sync kernel's 64-row tile instead (grouped_matmul.plan).
-// Ragged C, d and f are masked in the copies (TMA: zero fill) and the
-// stores.
+// axes; the last axis must be contiguous): the TMA kernels through tensor
+// maps whose dimensions, byte strides and boxes the wrapper computes
+// (grouped_matmul.tma_layout), gmm_tc_kernel through the strides
+// themselves.  Ragged C, d and f are masked in the copies (TMA: zero fill)
+// and the stores.
 //
 // Plain C interface (loaded with ctypes): pointers and the stream are void*,
 // the launches go on the caller's stream, nothing is allocated (the caller
-// passes the split-K scratch), and the return value is the CUDA error of the
-// launches.
+// passes the small-C kernel's scratch), and the return value is the CUDA
+// error of the launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,25 +70,20 @@ constexpr int kMapWords = 8;            // a 3-d map: 3 dims, 2 strides, 3 box
 // CTAs per cluster on wgmma (grouped_matmul.CLUSTER): 4 was slower than 2
 // at Grok-1's prefill shapes on the H100 (tools/torch_kernel_check.py).
 constexpr int kCluster = 2;
+constexpr int kSmemLimit = 232448;      // shared memory a block may use
 
-// One 16-byte chunk (8 elements) of a row into shared memory: the first n of
-// them from src (n <= 0: none), the rest 0.  `base` is any valid address,
-// given to cp.async when nothing is read.
-template <bool VEC>
+// One 16-byte chunk (8 elements) of a row into shared memory, element by
+// element: the first n of them from src (n <= 0: none), the rest 0.
 __device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src,
-                                           const bf16* base, int n) {
+                                           int n) {
   n = n < 0 ? 0 : n > 8 ? 8 : n;
-  if constexpr (VEC) {
-    cp_async16(dst, n > 0 ? src : base, 2 * n);
-  } else {
-    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
-    uint32_t t[8];
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+  uint32_t t[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) t[j] = j < n ? s[j] : 0u;   // bf16 bits
-    *reinterpret_cast<uint4*>(dst) = make_uint4(
-        t[0] | (t[1] << 16), t[2] | (t[3] << 16), t[4] | (t[5] << 16),
-        t[6] | (t[7] << 16));
-  }
+  for (int j = 0; j < 8; ++j) t[j] = j < n ? s[j] : 0u;   // bf16 bits
+  *reinterpret_cast<uint4*>(dst) = make_uint4(
+      t[0] | (t[1] << 16), t[2] | (t[3] << 16), t[4] | (t[5] << 16),
+      t[6] | (t[7] << 16));
 }
 
 template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int STAGES>
@@ -116,13 +103,17 @@ struct Tile {
   static_assert(BK % 8 == 0 && BN % 8 == 0, "tiles are whole chunks");
 };
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int STAGES,
-          bool VEC>
+// Rows TMA cannot read: one CTA per (tile of BM rows, BN output columns,
+// expert).  BK-deep slices of x and w are copied element by element into a
+// STAGES-deep ring (rows padded by 16 bytes, so that the eight rows one
+// ldmatrix reads fall in distinct banks); ldmatrix feeds
+// mma.sync.m16n8k16, w through ldmatrix.trans.
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int STAGES>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, 2)
 gmm_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-              bf16* __restrict__ o, float* __restrict__ part, int E, int C,
-              int d, int f, int chunk, long long sxe, long long sxc,
-              long long swe, long long swd, long long soe, long long soc) {
+              bf16* __restrict__ o, int C, int d, int f, long long sxe,
+              long long sxc, long long swe, long long swd, long long soe,
+              long long soc) {
   using TL = Tile<BM, BN, BK, WARPS_M, WARPS_N, STAGES>;
   constexpr int kThreads = TL::kThreads;
   constexpr int MT = TL::kMT, NT = TL::kNT;
@@ -131,14 +122,9 @@ gmm_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   bf16* As = reinterpret_cast<bf16*>(smem_raw);    // [STAGES][BM][LDA]
   bf16* Bs = As + STAGES * TL::kAElems;            // [STAGES][BK][LDB]
 
-  const int n_mt = (C + BM - 1) / BM;
-  const int mt = blockIdx.x % n_mt;
-  const int s = blockIdx.x / n_mt;                 // split of d
-  const int m0 = mt * BM;
+  const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int e = blockIdx.z;
-  const int k_begin = s * chunk;
-  const int k_end = min(d, k_begin + chunk);
   const bf16* xe = x + e * sxe;
   const bf16* we = w + e * swe;
   const int tid = threadIdx.x;
@@ -156,16 +142,16 @@ gmm_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int r = c / kAPerRow;
       const int kc = (c - r * kAPerRow) * 8;
       const int row = m0 + r;
-      load_chunk<VEC>(a + r * LDA + kc, xe + row * sxc + k0 + kc, x,
-                      row < C ? k_end - (k0 + kc) : 0);
+      load_chunk(a + r * LDA + kc, xe + row * sxc + k0 + kc,
+                 row < C ? d - (k0 + kc) : 0);
     }
     constexpr int kBPerRow = BN / 8;
     for (int c = tid; c < BK * kBPerRow; c += kThreads) {
       const int r = c / kBPerRow;
       const int nc = (c - r * kBPerRow) * 8;
       const int krow = k0 + r;
-      load_chunk<VEC>(b + r * LDB + nc, we + krow * swd + n0 + nc, w,
-                      krow < k_end ? f - (n0 + nc) : 0);
+      load_chunk(b + r * LDB + nc, we + krow * swd + n0 + nc,
+                 krow < d ? f - (n0 + nc) : 0);
     }
   };
 
@@ -177,18 +163,14 @@ gmm_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
 
-  const int nk = (k_end - k_begin + BK - 1) / BK;
+  const int nk = (d + BK - 1) / BK;
 #pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < nk) load_stage(st, k_begin + st * BK);
-    cp_async_commit();
-  }
+  for (int st = 0; st < STAGES - 1; ++st)
+    if (st < nk) load_stage(st, st * BK);
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();     // slice kt has landed
-    __syncthreads();                 // and every warp is done with kt - 1
+    __syncthreads();                 // slice kt is stored, kt - 1 is done
     const int next = kt + STAGES - 1;
-    if (next < nk) load_stage(next % STAGES, k_begin + next * BK);
-    cp_async_commit();
+    if (next < nk) load_stage(next % STAGES, next * BK);
     const bf16* a = As + (kt % STAGES) * TL::kAElems;
     const bf16* b = Bs + (kt % STAGES) * TL::kBElems;
 #pragma unroll
@@ -212,11 +194,10 @@ gmm_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       }
     }
   }
-  cp_async_wait<0>();
 
   // Thread (lane) holds rows lane/4 and lane/4 + 8 of each m16 tile, columns
   // 2 (lane % 4) and + 1 of each n8 tile.
-  const bool pair = part ? (f % 2 == 0) : (soc % 2 == 0 && soe % 2 == 0);
+  const bool pair = soc % 2 == 0 && soe % 2 == 0;
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
 #pragma unroll
@@ -226,31 +207,249 @@ gmm_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int col = n0 + wn * TL::kWN + j * 8 + (lane % 4) * 2;
+        if (col >= f) continue;
+        bf16* p = o + e * soe + row * soc + col;
         const float v0 = acc[i][j][2 * hh];
         const float v1 = acc[i][j][2 * hh + 1];
-        if (col >= f) continue;
-        if (part) {
-          float* p = part + ((static_cast<long long>(s) * E + e) * C + row)
-                                * f + col;
-          if (pair && col + 1 < f) {
-            *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-          } else {
-            p[0] = v0;
-            if (col + 1 < f) p[1] = v1;
-          }
+        if (pair && col + 1 < f) {
+          *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
         } else {
-          bf16* p = o + e * soe + row * soc + col;
-          if (pair && col + 1 < f) {
-            *reinterpret_cast<__nv_bfloat162*>(p) =
-                __floats2bfloat162_rn(v0, v1);
-          } else {
-            p[0] = __float2bfloat16_rn(v0);
-            if (col + 1 < f) p[1] = __float2bfloat16_rn(v1);
-          }
+          p[0] = __float2bfloat16_rn(v0);
+          if (col + 1 < f) p[1] = __float2bfloat16_rn(v1);
         }
       }
     }
   }
+}
+
+// The small-C regime, a persistent TMA stream of w.  At C <= 64 rows an
+// expert a call reads each weight once and does 2 C flops on it (decode:
+// 16), far below the card's 295 flops a byte: the time is the bytes of w,
+// and the design is about keeping them moving.
+// - Work: (expert, BF-column tile) items, each a sequence of `slices`
+//   64-deep slices of d.  P persistent CTAs (grouped_matmul.stream_ctas:
+//   one an SM, or down to 15/16 of the SMs where that many divide the
+//   items) take the items in rounds, CTA c item r P + c of round r
+//   (stream_walk), so that at any
+//   time the CTAs stream neighbouring column tiles of one or two experts
+//   at about the same depth: together they read whole runs of w's rows,
+//   and each expert's x is read from device memory about once and then
+//   from L2.  The items left after the last full round (fewer than P) are
+//   cut into P equal ranges of slices, CTA c the units [c U / P, (c + 1)
+//   U / P) of their U, so that every CTA streams the same number of
+//   slices to within one and the last wave's tail is one slice, not one
+//   item.  A cut item is computed in pieces (ranges of d): a piece stores
+//   its f32 sums to the CTA's scratch slot (0 for its first piece, 1 for
+//   its last) and gmm_stream_fold_kernel, a second launch queued behind
+//   it (programmatic dependent launch), adds an item's pieces in CTA
+//   order (no atomics: two launches give the same bits).  (Contiguous
+//   ranges over all the items, the first build, kept every CTA on items
+//   of its own: at Kimi-K2's 28 rows each re-read its experts' x from
+//   device memory, 15% slower than the design it replaced.)
+// - Warp 4 is the producer: one thread walks the CTA's pieces in order and
+//   issues each slice's TMA loads (w: BF / 64 boxes of 64 rows x 64
+//   columns; x: the slice's N token rows, rows past C zero-filled by the
+//   map's bound on the row dimension) into a ring of `stages` slots
+//   (grouped_matmul.STREAM_STAGES: 3 at BF = 256, 96 KB of w in flight an
+//   SM; the 4 to 6 that shared memory holds timed no faster, and 1-4%
+//   slower at N = 32: tools/torch_kernel_ablate.py), each with a full and
+//   an empty mbarrier.  The slot count
+//   runs on across items, so the next item's first slices load while this
+//   one's last are multiplied and stored: the stream does not drain
+//   between items.
+// - Warps 0-3, one warpgroup, consume: o^T = w^T x^T, per slice four k16
+//   steps of wgmma m64nNk16 per 64 output columns (w^T M-major from w's
+//   rows, x^T K-major), N = C rounded up to 8, 16, 32 or 64, so that at
+//   decode no token row past 8 is computed; one slice's products in flight
+//   while the next is issued.  At an item's end the warpgroup stages its
+//   bf16 tile in shared memory outside the ring (which the producer is
+//   already refilling) and stores 16 bytes a thread; a piece's f32 sums go
+//   to scratch transposed, 8 bytes a thread.
+template <int N, int NT>
+struct StreamTile {
+  static constexpr int kBF = 64 * NT;                // output columns
+  static constexpr int kWBytes = 64 * kBF * 2;       // NT boxes of 8 KB
+  static constexpr int kXBytes = N * 128;            // N rows of 128 bytes
+  static constexpr int kSlot = kWBytes + kXBytes;
+  static constexpr int kOLd = kBF + 8;               // staged row, elements
+  static constexpr int kStage = N * kOLd * 2;
+  // grouped_matmul.stream_smem_bytes: 1024 to align the base, the ring, the
+  // staged tile, a full and an empty mbarrier a slot.
+  static constexpr int smem(int stages) {
+    return 1024 + stages * (kSlot + 16) + kStage;
+  }
+  static_assert(kXBytes % 1024 == 0, "slots keep swizzle atoms");
+};
+constexpr int kStreamThreads = 160;     // a consumer warpgroup, a producer
+
+// CTA `cta` of `ctas`: its whole items in rounds, then its range of the
+// rest, as body(item, first slice, end slice, scratch slot or -1 for a
+// whole item) (grouped_matmul.stream_pieces).
+template <typename Body>
+__device__ __forceinline__ void stream_walk(int cta, int ctas, int items,
+                                            int slices, Body&& body) {
+  const int rounds = items / ctas;
+  const int first = rounds * ctas;
+  const long long rest = static_cast<long long>(items - first) * slices;
+  for (int r = 0; r < rounds; ++r) body(r * ctas + cta, 0, slices, -1);
+  const long long lo = static_cast<long long>(cta) * rest / ctas;
+  const long long hi = (static_cast<long long>(cta) + 1) * rest / ctas;
+  for (long long u = lo; u < hi;) {
+    const int item = static_cast<int>(u / slices);
+    const int s0 = static_cast<int>(u - static_cast<long long>(item)
+                                    * slices);
+    const int s1 = static_cast<int>(
+        min(static_cast<long long>(slices), s0 + (hi - u)));
+    body(first + item, s0, s1,
+         s0 == 0 && s1 == slices ? -1 : (u == lo ? 0 : 1));
+    u += s1 - s0;
+  }
+}
+
+template <int N, int NT>
+__global__ void __launch_bounds__(kStreamThreads, 1)
+gmm_stream_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap wmap,
+                  bf16* __restrict__ o, float* __restrict__ part, int C,
+                  int f, int col_tiles, int slices, int items, int stages,
+                  long long soe, long long soc, int vec_out) {
+  using ST = StreamTile<N, NT>;
+  constexpr int BF = ST::kBF;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* os = reinterpret_cast<bf16*>(smem + stages * ST::kSlot);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * ST::kSlot
+                                               + ST::kStage);
+  uint64_t* empty = full + stages;
+  const int cta = blockIdx.x, ctas = gridDim.x;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 1);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  launch_dependents();                  // the fold may be scheduled now
+
+  if (threadIdx.x >= 128) {
+    // Producer: slot it % stages in round it / stages, counted across items.
+    if (threadIdx.x == 128) {
+      int it = 0;
+      stream_walk(cta, ctas, items, slices,
+                  [&](int item, int s0, int s1, int) {
+        const int e = item / col_tiles;
+        const int f0 = (item - e * col_tiles) * BF;
+        for (int s = s0; s < s1; ++s, ++it) {
+          const int slot = it % stages;
+          unsigned char* st = smem + slot * ST::kSlot;
+          mbar_wait(empty + slot, ((it / stages) & 1) ^ 1);
+          mbar_expect_tx(full + slot, ST::kSlot);
+#pragma unroll
+          for (int p = 0; p < NT; ++p)
+            tma_load_3d(st + p * 8192, &wmap, full + slot, f0 + 64 * p,
+                        64 * s, e);
+          tma_load_3d(st + ST::kWBytes, &xmap, full + slot, 64 * s, 0, e);
+        }
+      });
+    }
+    return;
+  }
+
+  // Consumers.  Warp v holds output columns 64 p + 16 v + lane / 4 (and
+  // + 8) of each panel p and, in n8 block j, tokens 8 j + 2 (lane % 4) and
+  // + 1.
+  const int tid = threadIdx.x;
+  const int col = 16 * (tid / 32) + (tid % 32) / 4;
+  const int tok = 2 * (tid % 4);
+  float acc[NT][N / 2];
+  int it = 0;
+  stream_walk(cta, ctas, items, slices,
+              [&](int item, int s0, int s1, int piece) {
+#pragma unroll
+    for (int p = 0; p < NT; ++p)
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[p][i] = 0.f;
+    for (int s = s0; s < s1; ++s, ++it) {
+      const int slot = it % stages;
+      mbar_wait(full + slot, (it / stages) & 1);
+      const unsigned char* st = smem + slot * ST::kSlot;
+#pragma unroll
+      for (int p = 0; p < NT; ++p)
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) fence_operand(acc[p][i]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint64_t db = smem_desc(st + ST::kWBytes + ks * 32, 16, 1024);
+#pragma unroll
+        for (int p = 0; p < NT; ++p)
+          wgmma_m64nNk16_ta<N>(
+              acc[p], smem_desc(st + p * 8192 + ks * 2048, 1024, 1024), db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();                  // slice s - 1's products are done
+#pragma unroll
+      for (int p = 0; p < NT; ++p)
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) fence_operand(acc[p][i]);
+      if (s > s0 && tid == 0) mbar_arrive(empty + (it - 1) % stages);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < NT; ++p)
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) fence_operand(acc[p][i]);
+    if (tid == 0) mbar_arrive(empty + (it - 1) % stages);
+
+    const int e = item / col_tiles;
+    const int f0 = (item - e * col_tiles) * BF;
+    if (piece < 0) {
+      // The whole item: bf16 through the staged tile into o.
+      bar_sync(1, 128);                 // the last tile's stores are done
+#pragma unroll
+      for (int p = 0; p < NT; ++p)
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          bf16* r = os + (8 * j + tok) * ST::kOLd + 64 * p + col;
+          r[0] = __float2bfloat16_rn(acc[p][4 * j]);
+          r[ST::kOLd] = __float2bfloat16_rn(acc[p][4 * j + 1]);
+          r[8] = __float2bfloat16_rn(acc[p][4 * j + 2]);
+          r[ST::kOLd + 8] = __float2bfloat16_rn(acc[p][4 * j + 3]);
+        }
+      bar_sync(1, 128);
+      bf16* oe = o + e * soe;
+      for (int c = tid; c < C * (BF / 8); c += 128) {
+        const int row = c / (BF / 8);
+        const int cc = f0 + (c % (BF / 8)) * 8;
+        if (cc >= f) continue;
+        const bf16* src = os + row * ST::kOLd + (cc - f0);
+        bf16* dst = oe + row * soc + cc;
+        if (vec_out && cc + 8 <= f) {
+          *reinterpret_cast<uint4*>(dst) =
+              *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int i = 0; i < 8 && cc + i < f; ++i) dst[i] = src[i];
+        }
+      }
+    } else {
+      // A piece: its f32 sums, as o^T (BF columns of N tokens), to its
+      // slot of the scratch.
+      float* pp = part + (static_cast<long long>(cta) * 2 + piece) * BF * N;
+#pragma unroll
+      for (int p = 0; p < NT; ++p)
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          float* r = pp + (64 * p + col) * N + 8 * j + tok;
+          *reinterpret_cast<float2*>(r) =
+              make_float2(acc[p][4 * j], acc[p][4 * j + 1]);
+          *reinterpret_cast<float2*>(r + 8 * N) =
+              make_float2(acc[p][4 * j + 2], acc[p][4 * j + 3]);
+        }
+    }
+  });
 }
 
 // The prefill regime, transposed and warp-specialised: o^T = w^T x^T, so
@@ -479,84 +678,176 @@ int launch_tma(const void* x, const void* w, void* o, int E, int C, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Split-K's second pass: o[e, c, j] = sum over s in order of part[s, e, c, j],
-// rounded once to bf16.
+
+// The small-C kernel's second pass: each item that a CTA's range cut, its
+// pieces' f32 sums added in CTA order and rounded once to bf16, 16 bytes a
+// thread into o.  Block b looks at the start of CTA c = b + 1's range of
+// the items left after the rounds: when it falls inside an item whose
+// first piece is CTA c - 1's, the block folds that item; every other
+// block returns at once.
 __global__ void __launch_bounds__(256)
-splitk_sum_kernel(const float* __restrict__ part, bf16* __restrict__ o,
-                  int split, int C, int f, long long n, long long soe,
-                  long long soc) {
-  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n;
-       i += 256LL * gridDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < split; ++s) acc += part[s * n + i];
-    const long long ec = i / f;
-    const int col = static_cast<int>(i - ec * f);
-    const int e = static_cast<int>(ec / C);
-    const int row = static_cast<int>(ec - static_cast<long long>(e) * C);
-    o[e * soe + row * soc + col] = __float2bfloat16_rn(acc);
+gmm_stream_fold_kernel(const float* __restrict__ part, bf16* __restrict__ o,
+                       int C, int N, int BF, int f, int col_tiles,
+                       int slices, int items, long long soe, long long soc,
+                       int vec_out) {
+  grid_dependency_wait();               // every piece is stored
+  const int ctas = gridDim.x + 1;
+  const int c = blockIdx.x + 1;
+  const int first = items / ctas * ctas;
+  const long long rest = static_cast<long long>(items - first) * slices;
+  auto lo_of = [&](int cc) {
+    return static_cast<long long>(cc) * rest / ctas;
+  };
+  const long long lo = lo_of(c);
+  const long long item = lo / slices;
+  const long long start = item * slices;
+  const long long end = start + slices;
+  if (lo == start || lo_of(c - 1) > start) return;
+  const int e = static_cast<int>((first + item) / col_tiles);
+  const int f0 = static_cast<int>(first + item - static_cast<long long>(e)
+                                  * col_tiles) * BF;
+  for (int i = threadIdx.x; i < C * (BF / 8); i += 256) {
+    const int row = i / (BF / 8);
+    const int m = (i % (BF / 8)) * 8;
+    if (f0 + m >= f) continue;
+    float s[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s[k] = 0.f;
+    for (int cc = c - 1; cc < ctas && lo_of(cc) < end; ++cc) {
+      if (lo_of(cc + 1) == lo_of(cc)) continue;     // an empty range
+      const int slot = lo_of(cc) / slices == item ? 0 : 1;
+      const float* pp = part + (static_cast<long long>(cc) * 2 + slot)
+                                   * BF * N + static_cast<long long>(m) * N
+                        + row;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s[k] += pp[k * N];
+    }
+    bf16* dst = o + e * soe + row * soc + f0 + m;
+    if (vec_out && f0 + m + 8 <= f) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(
+          pack_bf16x2(s[0], s[1]), pack_bf16x2(s[2], s[3]),
+          pack_bf16x2(s[4], s[5]), pack_bf16x2(s[6], s[7]));
+    } else {
+      for (int k = 0; k < 8 && f0 + m + k < f; ++k)
+        dst[k] = __float2bfloat16_rn(s[k]);
+    }
   }
 }
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int STAGES,
-          bool VEC>
-int launch(const void* x, const void* w, void* o, void* part, int E, int C,
-           int d, int f, int split, int chunk, const long long* st,
-           cudaStream_t stream) {
-  using TL = Tile<BM, BN, BK, WARPS_M, WARPS_N, STAGES>;
-  auto kernel =
-      gmm_tc_kernel<BM, BN, BK, WARPS_M, WARPS_N, STAGES, VEC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(TL::kSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(((C + BM - 1) / BM) * split, (f + BN - 1) / BN, E);
-  float* p = split > 1 ? static_cast<float*>(part) : nullptr;
-  kernel<<<grid, TL::kThreads, TL::kSmem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<bf16*>(o), p, E, C, d, f, split > 1 ? chunk : d, st[0],
-      st[1], st[2], st[3], st[4], st[5]);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || split == 1) return static_cast<int>(err);
-  const long long n = static_cast<long long>(E) * C * f;
-  const long long blocks = (n + 255) / 256;
-  splitk_sum_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256,
-                      0, stream>>>(p, static_cast<bf16*>(o), split, C, f, n,
-                                   st[4], st[5]);
+// Whether some CTA's range of the items left after the rounds starts
+// inside an item, so that the call needs the scratch and the fold
+// (grouped_matmul.stream_cuts).
+bool stream_cuts(int items, int slices, int ctas) {
+  const long long rest =
+      static_cast<long long>(items % ctas) * slices;
+  for (int c = 1; c < ctas; ++c)
+    if (static_cast<long long>(c) * rest / ctas % slices != 0) return true;
+  return false;
+}
+
+// xl, wl: 3-d tensor maps of kMapWords each (grouped_matmul.tma_layout):
+// x's dims (d, C, E) with box (64, N, 1), w's (f, d, E) with box (64, 64, 1).
+template <int N, int NT>
+int launch_stream(const void* x, const void* w, void* o, void* part, int E,
+                  int C, int d, int f, int stages, int ctas,
+                  const long long* xl, const long long* wl, long long soe,
+                  long long soc, int vec_out, cudaStream_t stream) {
+  using ST = StreamTile<N, NT>;
+  const int col_tiles = (f + ST::kBF - 1) / ST::kBF;
+  const int slices = (d + 63) / 64;
+  const long long items = static_cast<long long>(E) * col_tiles;
+  const int smem = ST::smem(stages);
+  if (C > N || stages < 2 || smem > kSmemLimit || ctas < 1
+      || items >= (1LL << 31) || ctas > items * slices
+      || stream_cuts(static_cast<int>(items), slices, ctas)
+             != (part != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xm, wm;
+  int err = encode_bf16_map(&xm, x, 3, xl);
+  if (err == 0) err = encode_bf16_map(&wm, w, 3, wl);
+  if (err != 0) return err;
+  auto kernel = gmm_stream_kernel<N, NT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<ctas, kStreamThreads, smem, stream>>>(
+      xm, wm, static_cast<bf16*>(o), static_cast<float*>(part), C, f,
+      col_tiles, slices, static_cast<int>(items), stages, soe, soc,
+      vec_out);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || part == nullptr) return static_cast<int>(e);
+  // Launched behind the stream kernel's CTAs (programmatic dependent
+  // launch), so that it starts as soon as the last of them ends.
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas - 1);
+  cfg.blockDim = dim3(256);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, gmm_stream_fold_kernel,
+                         static_cast<const float*>(part),
+                         static_cast<bf16*>(o), C, N, ST::kBF, f, col_tiles,
+                         slices, static_cast<int>(items), soe, soc, vec_out);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Variants, by the wrapper's plan (grouped_matmul.py::TC_VARIANTS): a call
-// takes the first whose rows hold C, else the last; rows that TMA cannot
-// read (a base or a stride of x or w not 16-byte aligned) take variant 1
-// whatever C.
-// 0: 32 x 128 x 64 on mma.sync, 4 warps of 32 x 32, 4 stages (decode);
-// 1: 64 x 128 x 64 on mma.sync, 8 warps of 32 x 32, 4 stages (prefill);
-// 2: 160 rows x 128 x 64 on wgmma, TMA, 3 warpgroups, 6 stages (prefill);
-// 3: 320 rows x 128 x 64 on wgmma, TMA, 3 warpgroups, 4 stages (prefill).
-template <bool VEC>
-int dispatch(const void* x, const void* w, void* o, void* part, int E, int C,
-             int d, int f, int variant, int split, int chunk,
-             const long long* st, cudaStream_t s) {
-  switch (variant) {
-    case 0:
-      return launch<32, 128, 64, 1, 4, 4, VEC>(x, w, o, part, E, C, d, f,
-                                               split, chunk, st, s);
-    case 1:
-      return launch<64, 128, 64, 2, 4, 4, VEC>(x, w, o, part, E, C, d, f,
-                                               split, chunk, st, s);
+template <int NT>
+int dispatch_stream(int rows, const void* x, const void* w, void* o,
+                    void* part, int E, int C, int d, int f, int stages,
+                    int ctas, const long long* xl, const long long* wl,
+                    long long soe, long long soc, int vec_out,
+                    cudaStream_t s) {
+  switch (rows) {
+    case 8:
+      return launch_stream<8, NT>(x, w, o, part, E, C, d, f, stages, ctas,
+                                  xl, wl, soe, soc, vec_out, s);
+    case 16:
+      return launch_stream<16, NT>(x, w, o, part, E, C, d, f, stages, ctas,
+                                   xl, wl, soe, soc, vec_out, s);
+    case 32:
+      return launch_stream<32, NT>(x, w, o, part, E, C, d, f, stages, ctas,
+                                   xl, wl, soe, soc, vec_out, s);
+    case 64:
+      return launch_stream<64, NT>(x, w, o, part, E, C, d, f, stages, ctas,
+                                   xl, wl, soe, soc, vec_out, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int dispatch_tma(const void* x, const void* w, void* o, int E, int C, int d,
-                 int f, int variant, int cluster, const long long* maps,
-                 const long long* st, cudaStream_t s) {
+// Variants, by the wrapper's plan (grouped_matmul.py::TC_VARIANTS and
+// SYNC_VARIANT): 0 and 1 are the small-C stream (rows up to 32 and 64;
+// grouped_matmul_bf16_stream); 2: 160 rows x 128 x 64 on wgmma, TMA, 3
+// warpgroups, 6 stages; 3: 320 rows x 128 x 64 on wgmma, TMA, 3
+// warpgroups, 4 stages; 4: rows TMA cannot read, 64 x 128 x 64 on
+// mma.sync, 8 warps of 32 x 32, 4 stages.
+int dispatch(const void* x, const void* w, void* o, int E, int C, int d,
+             int f, int variant, int cluster, const long long* maps,
+             const long long* st, cudaStream_t s) {
+  if (variant == 4) {
+    using TL = Tile<64, 128, 64, 2, 4, 4>;
+    auto kernel = gmm_tc_kernel<64, 128, 64, 2, 4, 4>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(TL::kSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((C + 63) / 64, (f + 127) / 128, E);
+    kernel<<<grid, TL::kThreads, TL::kSmem, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+        static_cast<bf16*>(o), C, d, f, st[0], st[1], st[2], st[3], st[4],
+        st[5]);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (maps == nullptr || cluster != kCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long* xl = maps;
   const long long* wl = maps + kMapWords;
   const int vec_out = st[4] % 8 == 0 && st[5] % 8 == 0
                       && reinterpret_cast<uintptr_t>(o) % 16 == 0;
-  if (cluster != kCluster) return static_cast<int>(cudaErrorInvalidValue);
   switch (variant) {
     case 2:
       return launch_tma<1, 6, kCluster>(x, w, o, E, C, d, f, xl, wl, st[4],
@@ -572,32 +863,41 @@ int dispatch_tma(const void* x, const void* w, void* o, int E, int C, int d,
 }  // namespace
 
 // strides: 6 element strides, (expert, row) for x, w and o in turn; the last
-// axis of each is contiguous.  variant picks the tile (see dispatch).
-// Variants 0 and 1: vec = 1 needs every row of x and w 16-byte aligned;
-// split > 1 splits d into ranges of `chunk` (a multiple of the tile's depth)
-// and needs `part`, f32 scratch of split * E * C * f floats.  Variants 2 and
-// 3: `maps` holds x's and w's tensor maps (kMapWords each), `cluster` is
-// kCluster, and split must be 1.
+// axis of each is contiguous.  variant picks the kernel and tile (see
+// dispatch): 2 and 3 need `maps`, x's and w's tensor maps (kMapWords each),
+// and `cluster` kCluster; 4 reads through the strides.
 extern "C" int grouped_matmul_bf16_fwd(const void* x, const void* w, void* o,
-                                       void* part, int E, int C, int d, int f,
+                                       int E, int C, int d, int f,
                                        const long long* strides, int variant,
-                                       int vec, int split, int chunk,
                                        const long long* maps, int cluster,
                                        void* stream) {
+  return dispatch(x, w, o, E, C, d, f, variant, cluster, maps, strides,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The small-C stream: `rows` (8, 16, 32 or 64, at least C) token rows a
+// product, `bn` (256) output columns an item, a ring of `stages`
+// slots, `ctas` persistent CTAs; `maps` as for grouped_matmul_bf16_fwd, x's
+// box `rows` rows deep; o's element strides (expert, row).  `part` is f32
+// scratch of ctas * 2 * bn * rows floats when some CTA's range starts inside
+// an item (grouped_matmul.stream_pieces), else null.
+extern "C" int grouped_matmul_bf16_stream(const void* x, const void* w,
+                                          void* o, void* part, int E, int C,
+                                          int d, int f, int rows, int bn,
+                                          int stages, int ctas,
+                                          const long long* maps,
+                                          const long long* o_strides,
+                                          void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (split < 1 || (split > 1 && (part == nullptr || chunk < 1)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (variant >= 2) {
-    if (split != 1 || maps == nullptr)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return dispatch_tma(x, w, o, E, C, d, f, variant, cluster, maps, strides,
-                        s);
-  }
-  if (vec)
-    return dispatch<true>(x, w, o, part, E, C, d, f, variant, split, chunk,
-                          strides, s);
-  return dispatch<false>(x, w, o, part, E, C, d, f, variant, split, chunk,
-                         strides, s);
+  const long long soe = o_strides[0], soc = o_strides[1];
+  const int vec_out = soe % 8 == 0 && soc % 8 == 0
+                      && reinterpret_cast<uintptr_t>(o) % 16 == 0;
+  const long long* xl = maps;
+  const long long* wl = maps + kMapWords;
+  if (bn == 256)
+    return dispatch_stream<4>(rows, x, w, o, part, E, C, d, f, stages, ctas,
+                              xl, wl, soe, soc, vec_out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -1,8 +1,8 @@
 // Tensor-core and copy primitives for sm_90a, shared by the port's bf16
 // kernels (grouped_matmul_tc.cu, flash_attention_wgmma.cu, flash_decode_tc.cu):
-// cp.async with zero fill (and an L2 prefetch hint), ldmatrix (plain and transposed), mma.sync.m16n8k16 with bf16 inputs
-// and f32 accumulators, and the warpgroup's wgmma with its descriptors and
-// fences.
+// cp.async with zero fill and an L2 prefetch hint, ldmatrix (plain and
+// transposed), mma.sync.m16n8k16 with bf16 inputs and f32 accumulators, and
+// the warpgroup's wgmma with its descriptors and fences.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), for lane
 // l of a warp: A (16x16, row-major) a0 = row l/4, columns 2(l%4) and +1;
@@ -21,18 +21,9 @@ static __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes from global src to shared dst; bytes past src_bytes read as 0.
-static __device__ __forceinline__ void cp_async16(void* dst,
-                                                  const void* src,
-                                                  int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-// As cp_async16, and L2 fetches the 256 bytes around src with it: a hint
-// for streams of 256-byte rows (a KV cache's rows at head dim 128).
+// 16 bytes from global src to shared dst, bytes past src_bytes read as 0,
+// and L2 fetches the 256 bytes around src with it: a hint for streams of
+// 256-byte rows (a KV cache's rows at head dim 128).
 static __device__ __forceinline__ void cp_async16_l2_256(void* dst,
                                                          const void* src,
                                                          int src_bytes) {
@@ -170,6 +161,66 @@ static __device__ __forceinline__ void wgmma_m64n160k16_ta(float* d,
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
         "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// The narrow forms of the grouped matmul's small-C kernel
+// (gmm_stream_kernel in grouped_matmul_tc.cu): d += a b for one m64nNk16
+// tile of N = 8, 16, 32 or 64 token rows, a M-major and b K-major in shared
+// memory as in wgmma_m64n160k16_ta.  d is N / 2 f32 per thread in the same
+// layout.
+template <int N>
+static __device__ __forceinline__ void wgmma_m64nNk16_ta(float* d,
+                                                         uint64_t desc_a,
+                                                         uint64_t desc_b) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64, "wgmma width");
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
 }
 
 // The wgmma forms of flash_attention_wgmma.cu, in the same accumulator

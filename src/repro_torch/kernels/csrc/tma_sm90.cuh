@@ -1,8 +1,9 @@
 // Hopper's asynchronous copy and synchronisation primitives (sm_90a), shared
 // by the warp-specialised kernels (flash_attention_wgmma.cu and the prefill
-// regime of grouped_matmul_tc.cu): the Tensor Memory Accelerator (TMA) with
-// its tensor maps, mbarriers with transaction counts, thread-block clusters,
-// named barriers, register reallocation (setmaxnreg) and stmatrix.
+// and small-C regimes of grouped_matmul_tc.cu): the Tensor Memory
+// Accelerator (TMA) with its tensor maps, mbarriers with transaction counts,
+// programmatic dependent launch, thread-block clusters, named barriers,
+// register reallocation (setmaxnreg) and stmatrix.
 //
 // A tensor map is encoded on the host with cuTensorMapEncodeTiled, fetched
 // from the driver through cudaGetDriverEntryPoint (no -lcuda), from the
@@ -130,6 +131,21 @@ static __device__ __forceinline__ void tma_load_3d_multicast(
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "h"(mask),
       "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---- programmatic dependent launch ---------------------------------------
+
+// A grid launched after this one with the attribute
+// cudaLaunchAttributeProgrammaticStreamSerialization may start once every
+// CTA of this one has called launch_dependents (or exited); it waits in
+// grid_dependency_wait until this grid has finished and its writes are
+// visible.  Only the launch overlaps: no read comes early.
+static __device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+static __device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // ---- clusters, named barriers, registers ----------------------------------

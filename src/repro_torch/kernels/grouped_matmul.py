@@ -2,18 +2,24 @@
 (E,C,f), the expert FFNs of the MoE path, f32 or bf16.
 
 Replaces the Pallas TPU kernel ``repro/kernels/moe_gmm.py``
-(``grouped_matmul`` -> ``_gmm_kernel``).  Two CUDA C++ kernels, built for
+(``grouped_matmul`` -> ``_gmm_kernel``).  Two CUDA C++ sources, built for
 ``sm_90a`` at first use and bound with ``ctypes`` (``build.py``):
-``csrc/grouped_matmul_tc.cu`` takes bf16 on the tensor cores
-(``mma.sync`` from a ``cp.async`` ring up to 64 rows per expert; above, a
-warp-specialised ``wgmma`` kernel fed by a TMA producer warpgroup, its
-CTAs in clusters along f that share each slice of x by multicast), and
+``csrc/grouped_matmul_tc.cu`` takes bf16 on the tensor cores and
 ``csrc/grouped_matmul.cu`` takes f32 on the CUDA cores (IEEE products:
-TF32 would miss the f32 tolerance).  Their plain version is
+TF32 would miss the f32 tolerance).  In bf16, up to 64 rows an expert
+(decode, Kimi-K2's prefill chunks: bound by the bytes of w) a persistent,
+warp-specialised TMA stream of w into narrow ``wgmma`` (persistent CTAs
+that take its (expert, column tile) items in rounds; where items are left
+over, they are cut into even ranges of 64-deep slices whose pieces a
+second pass adds in a fixed order); above, a warp-specialised ``wgmma`` kernel
+fed by a TMA producer warpgroup, its CTAs in clusters along f that share
+each slice of x by multicast; rows that TMA cannot read, ``mma.sync`` on
+64-row tiles filled with plain loads.  Their plain version is
 ``ref.gmm_reference``.  :func:`plan` picks the kernel, its tile, its ring
-depth, its cluster and its split of d from the shapes, and
-:func:`tma_layout` and :func:`tma_grid` give the wgmma kernel's tensor
-maps and grid, in Python, so that the CPU tests check them.
+depth, its cluster and its grid from the shapes, and :func:`tma_layout`,
+:func:`tma_grid` and the ``stream_*`` functions give the TMA kernels'
+tensor maps, grids, shared memory and the stream's walk, in Python, so
+that the CPU tests check them.
 
 Bound, at Grok-1's shapes on the serving path (E=8, d=6144, f=32768, bf16):
 bytes at decode (8 rows per expert: 3.23 GB of weights, 0.963 ms at 3.35
@@ -32,6 +38,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -48,39 +55,49 @@ MAX_INT = 2 ** 31 - 1           # C, d and f go in as C ints
 # Row tiles of the f32 kernel's three variants, smallest first: a launch
 # takes the first that holds all C rows, else the largest.
 ROW_TILES = (8, 32, 64)
-# The bf16 kernel's variants, as ``grouped_matmul_tc.cu::dispatch`` and
-# ``dispatch_tma`` have them: (rows, columns, depth of a slice, warps, ring
-# stages); a launch takes the first that holds all C rows, else the last.
-# The first ``MMA_SYNC_VARIANTS`` run on mma.sync: 32 rows, the decode
-# regime, and 64 rows (Kimi-K2's chunk of 3 or 4 rows of 512 tokens).  The
+# The bf16 kernels' variants, as ``grouped_matmul_tc.cu::dispatch`` has
+# them: (rows, columns, depth of a slice, warps, ring stages); a call whose
+# rows TMA can read takes the first whose rows hold C, else the last.  The
+# first ``STREAM_VARIANTS`` are the small-C stream (``gmm_stream_kernel``)
+# up to 32 and 64 rows, bound by the bytes of w: its wgmma width
+# (``stream_rows``), ring (``STREAM_STAGES``, 0 here) and grid
+# (``stream_ctas``) follow the call.  The
 # rest run on wgmma (a producer and two consumer warpgroups) with one CTA
 # over all of a tile's rows, so that w is read once: 160 (Grok-1's chunk of
 # one row of 512 tokens) and 320 (of two rows), each with as many ring
-# slots as shared memory holds.  Rows that TMA cannot read take the 64-row
-# mma.sync tile.
-TC_VARIANTS = ((32, 128, 64, 4, 4), (64, 128, 64, 8, 4),
+# slots as shared memory holds.  Rows that TMA cannot read take
+# ``SYNC_VARIANT``, mma.sync on ``SYNC_TILE``, whatever C.
+STREAM_BN = 256                 # output columns of a stream item
+# Ring slots of the stream: 3, 96 KB of w in flight an SM.  The 4 to 6 that
+# shared memory holds timed no faster at 8 rows and 1-4% slower at 32
+# (tools/torch_kernel_ablate.py, stages4 and stages_max).
+STREAM_STAGES = 3
+TC_VARIANTS = ((32, STREAM_BN, 64, 5, 0), (64, STREAM_BN, 64, 5, 0),
                (160, 128, 64, 12, 6), (320, 128, 64, 12, 4))
-MMA_SYNC_VARIANTS = 2
+STREAM_VARIANTS = 2
+SYNC_VARIANT = 4
+SYNC_TILE = (64, 128, 64, 8, 4)
+# wgmma widths of the stream (mma_sm90.cuh::wgmma_m64nNk16_ta): a call
+# computes C rounded up to the first that holds it.
+STREAM_ROWS = (8, 16, 32, 64)
 # CTAs per cluster along f on wgmma (the source's kCluster): each loads
 # rows / CLUSTER of a slice of x and multicasts them to the others.
 CLUSTER = 2
 PANEL = 64                      # columns of one TMA box: 128 bytes of bf16
 SMEM_LIMIT = 232448             # shared memory a block may use on an H100
 SMS = 132                       # streaming multiprocessors of an H100
-# Decode is bound by bytes: split d when the grid has fewer CTAs than this,
-# and keep at least MIN_SPLIT_SLICES slices of depth in each split.
-SPLIT_TARGET = 8 * SMS
-MIN_SPLIT_SLICES = 8
 
 
 class Plan(NamedTuple):
-    """How one call runs: ``kernel`` "cuda_core" (f32), "tensor_core" (bf16
-    on mma.sync) or "wgmma" (bf16, the warp-specialised TMA kernel);
-    ``regime`` "f32", "decode" or "prefill"; ``variant`` the index
-    into ``ROW_TILES`` (f32) or ``TC_VARIANTS`` (bf16); the tile
-    (``bm`` x ``bn``, slices ``bk`` deep) and ring ``stages``; d split into
-    ``split`` ranges of ``chunk`` (the last may be shorter); ``cluster``
-    CTAs per cluster along f (1 off wgmma)."""
+    """How one call runs: ``kernel`` "cuda_core" (f32), "stream" (bf16, the
+    small-C TMA stream), "wgmma" (bf16, the warp-specialised prefill
+    kernel) or "tensor_core" (bf16 on mma.sync, rows TMA cannot read);
+    ``regime`` "f32", "decode" (C <= 32) or "prefill"; ``variant`` the
+    index into ``ROW_TILES`` (f32) or ``TC_VARIANTS`` (bf16; or
+    ``SYNC_VARIANT``); the tile (``bm`` x ``bn``, slices ``bk`` deep; for
+    the stream ``bm`` is its wgmma width and ``bn`` an item's columns) and
+    ring ``stages``; ``cluster`` CTAs per cluster along f (1 off wgmma);
+    ``ctas`` the stream's persistent CTAs (0 off it)."""
     kernel: str
     regime: str
     variant: int
@@ -88,9 +105,8 @@ class Plan(NamedTuple):
     bn: int
     bk: int
     stages: int
-    split: int
-    chunk: int
     cluster: int = 1
+    ctas: int = 0
 
 # Launches of the CUDA kernel in this process; plain-version calls do not
 # count.  A run sets it to 0 and reads it to show which path it took.
@@ -138,40 +154,149 @@ def row_tile(C: int) -> int:
     return _holding(ROW_TILES, C)
 
 
+@functools.lru_cache(maxsize=256)
 def plan(E: int, C: int, d: int, f: int, dtype: torch.dtype,
          tma: bool = True) -> Plan:
     """The launch of an (E,C,d) @ (E,d,f) call in ``dtype``; ``tma``
     whether TMA can read x and w (16-byte aligned bases and strides).
 
     f32 takes the CUDA-core kernel with the row tile that holds C.  bf16
-    takes the tensor-core kernel with the ``TC_VARIANTS`` tile that holds
-    C: up to 32 rows the decode regime, above it the prefill regime (on
-    mma.sync up to 64 rows and wherever TMA cannot read the operands, on
-    wgmma in clusters of ``CLUSTER`` above).  On mma.sync d is split when
-    the grid would have fewer than ``SPLIT_TARGET`` CTAs (each split at
-    least ``MIN_SPLIT_SLICES`` slices deep); the wgmma tiles are not split.
+    takes, up to 64 rows, the small-C stream over ``stream_ctas``
+    persistent CTAs, and above, the ``TC_VARIANTS``
+    wgmma tile that holds C, in clusters of ``CLUSTER``; where TMA cannot
+    read the operands, ``SYNC_TILE`` on mma.sync.  Up to 32 rows is the
+    decode regime, above it prefill.
     """
     if dtype == torch.float32:
         t = row_tile(C)
-        return Plan("cuda_core", "f32", t, ROW_TILES[t], BN, 16, 2, 1, d)
+        return Plan("cuda_core", "f32", t, ROW_TILES[t], BN, 16, 2)
     if dtype != torch.bfloat16:
         raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
-    v = _holding(tuple(t[0] for t in TC_VARIANTS), C)
+    regime = "decode" if C <= 32 else "prefill"
     if not tma:
-        v = min(v, MMA_SYNC_VARIANTS - 1)
+        bm, bn, bk, _, stages = SYNC_TILE
+        return Plan("tensor_core", regime, SYNC_VARIANT, bm, bn, bk, stages)
+    v = _holding(tuple(t[0] for t in TC_VARIANTS), C)
+    if v < STREAM_VARIANTS:
+        rows = stream_rows(C)
+        cols, slices, _ = stream_units(E, d, f, STREAM_BN)
+        return Plan("stream", regime, v, rows, STREAM_BN, PANEL,
+                    min(STREAM_STAGES, stream_stages(rows, STREAM_BN)), 1,
+                    stream_ctas(E * cols, slices))
     bm, bn, bk, _, stages = TC_VARIANTS[v]
-    slices = -(-d // bk)
-    split = 1
-    if v < MMA_SYNC_VARIANTS:
-        ctas = -(-C // bm) * -(-f // bn) * E
-        if ctas < SPLIT_TARGET:
-            split = max(1, min(-(-SPLIT_TARGET // ctas),
-                               slices // MIN_SPLIT_SLICES))
-    chunk = -(-slices // split) * bk
-    wgmma = v >= MMA_SYNC_VARIANTS
-    return Plan("wgmma" if wgmma else "tensor_core",
-                "decode" if bm <= 32 else "prefill", v, bm, bn, bk, stages,
-                -(-d // chunk), chunk, CLUSTER if wgmma else 1)
+    return Plan("wgmma", regime, v, bm, bn, bk, stages, CLUSTER)
+
+
+def stream_rows(C: int) -> int:
+    """The stream's wgmma width for C rows: the first of ``STREAM_ROWS``
+    that holds them."""
+    return STREAM_ROWS[_holding(STREAM_ROWS, C)]
+
+
+def stream_ctas(items: int, slices: int) -> int:
+    """The stream's persistent CTAs: ``SMS``, or, where a count down to
+    15/16 of them divides the items into whole rounds, the largest such
+    count, so that no item is cut and the call needs no second pass (the
+    stream is bound by the bytes of w, which 128 SMs moved as fast as 132:
+    ``tools/torch_kernel_ablate.py``'s ``ctas132``); fewer when the call
+    has fewer slices."""
+    for ctas in range(SMS, SMS - SMS // 16 - 1, -1):
+        if items % ctas == 0:
+            return ctas
+    return min(SMS, items * slices)
+
+
+def stream_smem_bytes(rows: int, bn: int, stages: int) -> int:
+    """Dynamic shared memory of one stream CTA (the source's
+    ``StreamTile::smem``): 1024 bytes to align the base, ``stages`` ring
+    slots of a slice of w (64 x bn) and of x (rows x 64), each with a full
+    and an empty mbarrier, and the staged output tile (rows of bn + 8)."""
+    return 1024 + stages * (PANEL * bn * 2 + rows * PANEL * 2 + 16) \
+        + rows * (bn + 8) * 2
+
+
+def stream_stages(rows: int, bn: int) -> int:
+    """The most ring slots of the stream that shared memory holds."""
+    slot = PANEL * bn * 2 + rows * PANEL * 2 + 16
+    return (SMEM_LIMIT - stream_smem_bytes(rows, bn, 0)) // slot
+
+
+def stream_units(E: int, d: int, f: int, bn: int) -> tuple:
+    """(column tiles, slices of d per item, units): the stream's items are
+    (expert, column tile) in that order, each ``slices`` 64-deep slices;
+    a unit is one slice of one item."""
+    cols, slices = -(-f // bn), -(-d // PANEL)
+    return cols, slices, E * cols * slices
+
+
+def stream_ranges(items: int, slices: int, ctas: int) -> list:
+    """The stream's CTAs take the items in rounds, CTA c item r ctas + c
+    of round r; the items left after the last full round are cut into
+    ``ctas`` ranges of their units, CTA c's [c rest // ctas, (c + 1) rest
+    // ctas), counted from the first of them, as the kernel computes
+    them."""
+    rest = items % ctas * slices
+    return [(c * rest // ctas, (c + 1) * rest // ctas) for c in range(ctas)]
+
+
+def stream_pieces(p: Plan, E: int, d: int, f: int) -> list:
+    """The Python twin of ``gmm_stream_kernel``'s walk (``stream_walk``):
+    for each CTA, its pieces (expert, first column, first and end slice,
+    scratch slot) in order; the slot is None for a whole item (stored as
+    bf16 in o), else 0 for the piece that starts the CTA's range of the
+    items left after the rounds and 1 for the one that ends it (f32 sums
+    to scratch)."""
+    cols, slices, _ = stream_units(E, d, f, p.bn)
+    items = E * cols
+    rounds = items // p.ctas
+    first = rounds * p.ctas
+    out = []
+    for c, (lo, hi) in enumerate(stream_ranges(items, slices, p.ctas)):
+        pieces = [(r * p.ctas + c, 0, slices, None) for r in range(rounds)]
+        u = lo
+        while u < hi:
+            item, s0 = divmod(u, slices)
+            s1 = min(slices, s0 + hi - u)
+            whole = s0 == 0 and s1 == slices
+            pieces.append((first + item, s0, s1,
+                           None if whole else int(u != lo)))
+            u += s1 - s0
+        out.append([(item // cols, item % cols * p.bn, s0, s1, slot)
+                    for item, s0, s1, slot in pieces])
+    return out
+
+
+def stream_folds(p: Plan, E: int, d: int, f: int) -> dict:
+    """The Python twin of ``gmm_stream_fold_kernel``: item -> the (CTA,
+    slot) of its pieces in the order their sums are added, for every item
+    that a CTA's range cuts."""
+    cols, slices, _ = stream_units(E, d, f, p.bn)
+    items = E * cols
+    first = items // p.ctas * p.ctas
+    lo = [r[0] for r in stream_ranges(items, slices, p.ctas)]
+    lo.append((items - first) * slices)
+    out = {}
+    for c in range(1, p.ctas):
+        item = lo[c] // slices
+        start, end = item * slices, (item + 1) * slices
+        if lo[c] == start or lo[c - 1] > start:
+            continue
+        cc, pieces = c - 1, []
+        while cc < p.ctas and lo[cc] < end:
+            if lo[cc + 1] != lo[cc]:
+                pieces.append((cc, 0 if lo[cc] // slices == item else 1))
+            cc += 1
+        out[first + item] = pieces
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def stream_cuts(items: int, slices: int, ctas: int) -> bool:
+    """Whether some CTA's range of the items left after the rounds starts
+    inside an item, so that the call needs scratch and the second pass
+    (the source's ``stream_cuts``)."""
+    rest = items % ctas * slices
+    return any(c * rest // ctas % slices for c in range(1, ctas))
 
 
 def tma_smem_bytes(variant: int) -> int:
@@ -187,8 +312,9 @@ def tma_layout(t: torch.Tensor, rows: int) -> tuple:
     """The 3-d bf16 tensor map over t (E, R, K), read through its strides:
     dims (K, R, E) innermost first, the byte strides of R and E, and the
     box (PANEL, rows, 1): 128-byte rows, as the 128-byte swizzle takes
-    them.  x takes rows = bm / cluster (each CTA of a cluster loads its
-    share of the token tile), w takes rows = bk."""
+    them.  x takes rows = bm / cluster on wgmma (each CTA of a cluster
+    loads its share of the token tile) and the stream's width bm (rows
+    past C read as zeros: R is C), w takes rows = bk."""
     E, R, K = t.shape
     se, sr, sk = t.stride()
     if sk != 1:
@@ -216,9 +342,13 @@ def _bind(lib) -> None:
 
 def _bind_tc(lib) -> None:
     fn = lib.grouped_matmul_bf16_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.grouped_matmul_bf16_stream
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.POINTER(ctypes.c_longlong)] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -261,23 +391,34 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             err = lib.grouped_matmul_fwd(
                 x.data_ptr(), w.data_ptr(), o.data_ptr(), E, C, d, f,
                 strides, p.variant, vec, stream)
+        elif p.kernel == "stream":
+            lib = _build.load(TC_SOURCE, _bind_tc)
+            cols, slices, _ = stream_units(E, d, f, p.bn)
+            part = (torch.empty(p.ctas * 2 * p.bn * p.bm,
+                                dtype=torch.float32, device=x.device)
+                    if stream_cuts(E * cols, slices, p.ctas) else None)
+            maps = (ctypes.c_longlong * 16)(*tma_layout(x, p.bm),
+                                            *tma_layout(w, p.bk))
+            err = lib.grouped_matmul_bf16_stream(
+                x.data_ptr(), w.data_ptr(), o.data_ptr(),
+                None if part is None else part.data_ptr(), E, C, d, f,
+                p.bm, p.bn, p.stages, p.ctas, maps,
+                (ctypes.c_longlong * 2)(*o.stride()[:2]), stream)
         else:
             lib = _build.load(TC_SOURCE, _bind_tc)
-            part = (torch.empty(p.split * E * C * f, dtype=torch.float32,
-                                device=x.device) if p.split > 1 else None)
             maps = None
-            if p.variant >= MMA_SYNC_VARIANTS:
+            if p.kernel == "wgmma":
                 maps = (ctypes.c_longlong * 16)(
                     *tma_layout(x, p.bm // p.cluster), *tma_layout(w, p.bk))
             err = lib.grouped_matmul_bf16_fwd(
-                x.data_ptr(), w.data_ptr(), o.data_ptr(),
-                None if part is None else part.data_ptr(), E, C, d, f,
-                strides, p.variant, vec, p.split, p.chunk, maps, p.cluster,
-                stream)
+                x.data_ptr(), w.data_ptr(), o.data_ptr(), E, C, d, f,
+                strides, p.variant, maps, p.cluster, stream)
     _build.check(lib, err, "grouped_matmul")
     launches += 1
     return o
 
 
 __all__ = ["grouped_matmul", "check_args", "row_tile", "plan", "Plan",
-           "tma_smem_bytes", "tma_layout", "tma_grid"]
+           "stream_rows", "stream_ctas", "stream_smem_bytes", "stream_stages",
+           "stream_units", "stream_ranges", "stream_pieces", "stream_folds",
+           "stream_cuts", "tma_smem_bytes", "tma_layout", "tma_grid"]

@@ -1,6 +1,6 @@
-"""The host-side arithmetic of the port's two warp-specialised bf16 kernels
-on the CPU: ``csrc/flash_attention_wgmma.cu`` and the prefill regime of
-``csrc/grouped_matmul_tc.cu``.
+"""The host-side arithmetic of the port's warp-specialised bf16 kernels
+on the CPU: ``csrc/flash_attention_wgmma.cu`` and the prefill and small-C
+regimes of ``csrc/grouped_matmul_tc.cu``.
 
 The kernels run only on the card; what they take from the host is checked
 here at every bf16 path shape of ``chip_smoke.py`` and its reference
@@ -8,8 +8,9 @@ sweeps: the TMA tensor maps (16-byte strides, boxes of at most 256 and
 128-byte inner rows under the 128-byte swizzle, the model's (B,S,H,D)
 views described without a copy), the shared memory of a CTA, the Python
 twin of the attention kernel's key-tile range and mask-free test against
-the mask itself, and the grouped matmul's grid and clusters against the
-output they must cover."""
+the mask itself, the grouped matmul's grid and clusters against the
+output they must cover, and the Python twin of the small-C stream's walk
+and second pass against every slice of every item."""
 
 import importlib.util
 from pathlib import Path
@@ -187,8 +188,14 @@ GMM_SHAPES = sorted(
 # Those the wgmma kernel takes when contiguous: rows of x and w whole
 # 16-byte units, more than 64 rows an expert.
 TMA_SHAPES = [s for s in GMM_SHAPES if s[2] % 8 == 0 and s[3] % 8 == 0
-              and gm.plan(*s, torch.bfloat16).variant
-              >= gm.MMA_SYNC_VARIANTS]
+              and gm.plan(*s, torch.bfloat16).kernel == "wgmma"]
+# Those the small-C stream takes (up to 64 rows an expert; the plan is the
+# same whether or not the rows are aligned), and ragged ones: f and d off
+# the item and the slice, fewer units than SMs, a CTA inside one item.
+STREAM_SHAPES = sorted(
+    {s for s in GMM_SHAPES if gm.plan(*s, torch.bfloat16).kernel == "stream"}
+    | {(1, 8, 64, 8), (2, 16, 4160, 136), (5, 40, 640, 4096),
+       (1, 3, 64 * 500, 128), (7, 9, 1000, 1000)})
 
 
 def test_prefill_shapes_take_the_tma_kernel():
@@ -202,7 +209,10 @@ def test_prefill_shapes_take_the_tma_kernel():
     w = torch.zeros(1, 24, 129, dtype=torch.bfloat16)
     tma = gm._vec_ok(x) and gm._vec_ok(w)
     p = gm.plan(1, 77, 24, 129, torch.bfloat16, tma=tma)
-    assert not tma and p.variant == 1 and p.cluster == 1
+    assert not tma and p.kernel == "tensor_core" and p.cluster == 1
+    assert p.variant == gm.SYNC_VARIANT
+    assert (p.bm, p.bn, p.bk, p.stages) == tuple(
+        gm.SYNC_TILE[i] for i in (0, 1, 2, 4))
 
 
 @pytest.mark.parametrize("shape", TMA_SHAPES)
@@ -281,14 +291,234 @@ def test_gmm_grid_covers_the_output_once(shape):
         assert (count == 1).all()
 
 
+def test_small_c_shapes_take_the_stream():
+    """Every small-C shape of the paths (decode, Kimi-K2's prefill chunk)
+    and the off-path four-row chunk take the stream, at the wgmma width
+    that holds C; rows TMA cannot read, (2, 1, 99, 37), take the mma.sync
+    tile instead."""
+    for s in [(8, 8, 6144, 32768), (8, 8, 32768, 6144), (384, 8, 7168, 2048),
+              (384, 8, 2048, 7168), (384, 28, 7168, 2048),
+              (384, 28, 2048, 7168), (384, 56, 7168, 2048)]:
+        p = gm.plan(*s, torch.bfloat16)
+        assert p.kernel == "stream" and p.ctas in (128, gm.SMS), s
+        assert p.bm == {8: 8, 28: 32, 56: 64}[s[1]]
+    x = torch.zeros(2, 1, 99, dtype=torch.bfloat16)
+    w = torch.zeros(2, 99, 37, dtype=torch.bfloat16)
+    tma = gm._vec_ok(x) and gm._vec_ok(w)
+    p = gm.plan(2, 1, 99, 37, torch.bfloat16, tma=tma)
+    assert not tma and p.kernel == "tensor_core"
+
+
+@pytest.mark.parametrize("shape", [s for s in STREAM_SHAPES
+                                   if s[2] % 8 == 0 and s[3] % 8 == 0])
+def test_stream_tensor_maps(shape):
+    """x's map (d, C, E) with boxes of the wgmma width in token rows (C
+    rounded up to 8, 16, 32 or 64: the rows past C come from the map's own
+    bound on C, not from the next expert), w's (f, d, E) with boxes of 64
+    rows of d; both 64 columns wide, strided views described in place."""
+    E, C, d, f = shape
+    p = gm.plan(E, C, d, f, torch.bfloat16)
+    assert p.kernel == "stream" and p.bm in gm.STREAM_ROWS
+    assert C <= p.bm and p.bm % 8 == 0
+    assert p.bn == gm.STREAM_BN and p.bn // gm.PANEL * p.bm <= 256
+    assert p.bm == 8 or p.bm // 2 < C          # the smallest width that holds C
+    x = torch.empty((E, C, d), dtype=torch.bfloat16, device="meta")
+    w = torch.empty((E, d, f), dtype=torch.bfloat16, device="meta")
+    assert _check_map(gm.tma_layout(x, p.bm), 3, (d, C, E), p.bm) == \
+        (d * 2, C * d * 2)
+    assert _check_map(gm.tma_layout(w, p.bk), 3, (f, d, E), p.bk) == \
+        (f * 2, d * f * 2)
+    xt = torch.empty((C, E, d), dtype=torch.bfloat16,
+                     device="meta").transpose(0, 1)
+    ws = torch.empty((2, E, d, f), dtype=torch.bfloat16, device="meta")[1]
+    assert _check_map(gm.tma_layout(xt, p.bm), 3, (d, C, E), p.bm) == \
+        (E * d * 2, d * 2)
+    assert _check_map(gm.tma_layout(ws, p.bk), 3, (f, d, E), p.bk) == \
+        (f * 2, d * f * 2)
+
+
+@pytest.mark.parametrize("rows", gm.STREAM_ROWS)
+def test_stream_shared_memory_fits(rows):
+    """The most ring slots shared memory holds (``stream_stages``): the
+    slots, their barriers, the staged output tile and the alignment fit,
+    one more slot would not, and every slot keeps 1024-byte swizzle atoms.
+    The ring the plan takes (``STREAM_STAGES``) is within them and keeps
+    96 KB of w in flight an SM; the accumulators stay within 128 a
+    thread."""
+    bn = gm.STREAM_BN
+    stages = gm.stream_stages(rows, bn)
+    assert stages >= 4 and gm.plan(1, rows, 64, bn, torch.bfloat16).stages \
+        == gm.STREAM_STAGES == 3
+    smem = gm.stream_smem_bytes(rows, bn, stages)
+    assert smem <= gm.SMEM_LIMIT < gm.stream_smem_bytes(rows, bn, stages + 1)
+    slot = gm.PANEL * bn * 2 + rows * gm.PANEL * 2
+    assert slot % 1024 == 0 and (rows * gm.PANEL * 2) % 1024 == 0
+    assert smem == 1024 + stages * (slot + 16) + rows * (bn + 8) * 2
+    assert gm.STREAM_STAGES * gm.PANEL * bn * 2 >= 96 * 1024
+    assert bn // 64 * rows // 2 <= 128          # accumulators a thread
+
+
+def _per_cta_slices(walk):
+    return [sum(s1 - s0 for _, _, s0, s1, _ in pieces) for pieces in walk]
+
+
+@pytest.mark.parametrize("shape", STREAM_SHAPES)
+def test_stream_walk_covers_every_slice_once(shape):
+    """The persistent CTAs' walk (the kernel's Python twin) takes every
+    (expert, column tile, slice) once, each CTA within one slice of an
+    even share: whole items in rounds, CTA c item r ctas + c of round r,
+    so that the CTAs stream neighbouring column tiles together; the items
+    left after the rounds are cut into ranges of d that cover each once,
+    each CTA with at most one piece in each scratch slot.  The tiles and
+    slices cover (d, f) of each expert once, ragged edges masked."""
+    E, C, d, f = shape
+    p = gm.plan(E, C, d, f, torch.bfloat16)
+    cols, slices, units = gm.stream_units(E, d, f, p.bn)
+    items = E * cols
+    assert p.ctas == gm.stream_ctas(items, slices)
+    assert min(units, gm.SMS - gm.SMS // 16) <= p.ctas <= min(units, gm.SMS)
+    assert cols * p.bn >= f > (cols - 1) * p.bn
+    assert slices * gm.PANEL >= d > (slices - 1) * gm.PANEL
+    ranges = gm.stream_ranges(items, slices, p.ctas)
+    assert ranges[0][0] == 0 and ranges[-1][1] == items % p.ctas * slices
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    walk = gm.stream_pieces(p, E, d, f)
+    assert set(_per_cta_slices(walk)) <= {units // p.ctas,
+                                          units // p.ctas + 1}
+    rounds = items // p.ctas
+    seen = []
+    cut = {}
+    for c, pieces in enumerate(walk):
+        assert pieces
+        for r in range(rounds):            # the rounds: whole items
+            e, f0, s0, s1, slot = pieces[r]
+            assert e * cols + f0 // p.bn == r * p.ctas + c
+            assert (s0, s1, slot) == (0, slices, None)
+        tail = pieces[rounds:]
+        slots = [s for *_, s in tail if s is not None]
+        assert len(slots) == len(set(slots)) <= 2
+        for i, (e, f0, s0, s1, slot) in enumerate(pieces):
+            assert 0 <= s0 < s1 <= slices and f0 % p.bn == 0 and f0 < f
+            seen += [(e, f0, s) for s in range(s0, s1)]
+            if slot is None:
+                assert (s0, s1) == (0, slices)
+            else:
+                assert i >= rounds
+                assert slot == (0 if i == rounds else 1)
+                assert i in (rounds, len(pieces) - 1)
+                cut.setdefault((e, f0), []).append((c, slot, s0, s1))
+    assert len(seen) == units
+    assert sorted(seen) == [(e, ct * p.bn, s) for e in range(E)
+                            for ct in range(cols) for s in range(slices)]
+    for pieces in cut.values():
+        assert len(pieces) >= 2
+        bounds = [(s0 * gm.PANEL, min(d, s1 * gm.PANEL))
+                  for _, _, s0, s1 in pieces]
+        _intervals_partition(bounds, 0, d)
+    if d * f <= 2 ** 22:            # count every weight of every expert
+        count = np.zeros((E, d, f), dtype=np.int32)
+        for e, f0, s in seen:
+            count[e, s * gm.PANEL:(s + 1) * gm.PANEL, f0:f0 + p.bn] += 1
+        assert (count == 1).all()
+
+
+@pytest.mark.parametrize("shape", STREAM_SHAPES)
+def test_stream_fold_adds_each_cut_item_once(shape):
+    """The second pass (the fold kernel's Python twin) adds every cut item
+    once, from the slots its pieces stored, in CTA order; the call needs
+    scratch exactly when some item is cut."""
+    E, C, d, f = shape
+    p = gm.plan(E, C, d, f, torch.bfloat16)
+    cols, slices, units = gm.stream_units(E, d, f, p.bn)
+    stored = {}
+    for c, pieces in enumerate(gm.stream_pieces(p, E, d, f)):
+        for e, f0, s0, s1, slot in pieces:
+            if slot is not None:
+                stored.setdefault(e * cols + f0 // p.bn, []).append((c, slot))
+    folds = gm.stream_folds(p, E, d, f)
+    assert folds == stored
+    assert gm.stream_cuts(E * cols, slices, p.ctas) == bool(folds)
+
+
+@pytest.mark.parametrize("items,slices", [(133, 4), (132, 7), (264 + 5, 3),
+                                          (140, 512), (1, 1), (3, 100)])
+def test_stream_fold_skips_empty_ranges(items, slices):
+    """When the items left after the rounds have fewer slices than there
+    are CTAs, some CTAs' ranges are empty: no piece is theirs, and the
+    fold adds only the pieces that were stored."""
+    E, f = 1, items * gm.STREAM_BN
+    d = slices * gm.PANEL
+    p = gm.plan(E, 8, d, f, torch.bfloat16)
+    walk = gm.stream_pieces(p, E, d, f)
+    stored = {}
+    for c, pieces in enumerate(walk):
+        for e, f0, s0, s1, slot in pieces:
+            if slot is not None:
+                stored.setdefault(f0 // p.bn, []).append((c, slot))
+    assert gm.stream_folds(p, E, d, f) == stored
+    assert sum(_per_cta_slices(walk)) == items * slices
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 6144, 32768), (384, 8, 7168, 2048),
+                                   (384, 8, 2048, 7168), (384, 28, 7168, 2048),
+                                   (384, 28, 2048, 7168), (384, 56, 7168, 2048),
+                                   (8, 8, 32768, 6144)])
+def test_stream_ctas_fill_whole_rounds_where_they_can(shape):
+    """Where a count of CTAs from 15/16 of the SMs up divides the items,
+    the stream takes the largest such count: every item whole, no scratch
+    and no second pass (one launch a call).  Of the path shapes only
+    Grok-1's down projection (192 items of 256 columns) has none, and
+    runs on every SM with its last items cut."""
+    E, C, d, f = shape
+    p = gm.plan(E, C, d, f, torch.bfloat16)
+    cols, slices, _ = gm.stream_units(E, d, f, p.bn)
+    items = E * cols
+    fits = [c for c in range(gm.SMS - gm.SMS // 16, gm.SMS + 1)
+            if items % c == 0]
+    assert p.ctas == (max(fits) if fits else gm.SMS)
+    assert gm.stream_cuts(items, slices, p.ctas) == (not fits)
+    assert bool(gm.stream_folds(p, E, d, f)) == (not fits)
+    grok_down = shape == (8, 8, 32768, 6144)
+    assert (p.ctas, bool(fits)) == ((gm.SMS, False) if grok_down
+                                    else (128, True))
+
+
+def test_path_decode_needs_no_second_pass_of_the_old_kind():
+    """Grok-1's down projection (few column tiles) is no longer split into
+    three passes over d: its CTAs each stream an even share of the slices
+    to within one, a whole item in a round and a range of the items left,
+    and only items cut by a range's end (at most one per CTA boundary) are
+    folded."""
+    p = gm.plan(8, 8, 32768, 6144, torch.bfloat16)
+    cols, slices, units = gm.stream_units(8, 32768, 6144, p.bn)
+    assert (cols, slices, p.ctas) == (6144 // p.bn, 512, 132)
+    walk = gm.stream_pieces(p, 8, 32768, 6144)
+    assert set(_per_cta_slices(walk)) == {units // 132, units // 132 + 1}
+    assert all(pieces[0][2:4] == (0, 512) for pieces in walk)
+    assert len(gm.stream_folds(p, 8, 32768, 6144)) <= p.ctas - 1
+
+
 def test_ablation_variants_apply_to_the_sources():
     """``tools/torch_kernel_ablate.py`` edits the kernels' real sources;
-    every variant's edits still apply, and each but the bases changes its
-    source."""
+    every variant's edits still apply, each but the bases and the wrapper's
+    choices changes its source, and every wrapper attribute a variant sets
+    exists; the small-C stream has its no_mma, no_load, ring and width
+    variants."""
     path = Path(__file__).resolve().parents[1] / "tools/torch_kernel_ablate.py"
     spec = importlib.util.spec_from_file_location("torch_kernel_ablate", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    for name, (source, edits) in mod.VARIANTS.items():
+    modules = {mod.GMM: gm, mod.FLASH: fa}
+    for name, (source, edits, knobs) in mod.VARIANTS.items():
         text = mod.variant_source(name)
         assert (text != (mod.build.CSRC / source).read_text()) == bool(edits)
+        assert all(hasattr(modules[source], k) for k in knobs), name
+    assert {"stream base", "stream no_mma", "stream no_load",
+            "stream stages4"} <= set(mod.VARIANTS)
+    assert mod.VARIANTS["stream bn128"][2]["STREAM_BN"] == 128
+    # the replaced design's variants name its 32-row tile
+    for name, (source, edits, knobs) in mod.SYNC_DECODE_VARIANTS.items():
+        assert source == mod.GMM and not knobs
+        assert all("launch<32, 128, 64, 1, 4, 4, VEC>" == old
+                   or "acc[i][j]" in old or "load_chunk<VEC>" in old
+                   for old, _ in edits), name

@@ -261,28 +261,38 @@ def test_grouped_matmul_refuses_cuda_tensor_without_card():
                                     (64, 2), (1000, 2)])
 def test_row_tile_follows_the_rows(C, tile):
     """f32: decode's 8 rows per expert take the CUDA-core kernel's 8-row
-    tile, so a CTA computes no padded rows there.  bf16: the tensor-core
-    kernel takes the smallest ``TC_VARIANTS`` tile that holds C (the last
-    when none does): 32 rows on mma.sync for decode and Kimi-K2's 28-row
-    prefill chunk, 64 on mma.sync, then one wgmma CTA over 160 or 320 rows
+    tile, so a CTA computes no padded rows there.  bf16: the ``TC_VARIANTS``
+    entry whose rows hold C (the last when none does): up to 32 and 64 rows
+    the small-C stream, whose wgmma width is C rounded up to 8, 16, 32 or
+    64 (decode and Kimi-K2's 28-row prefill chunk compute no padded row
+    past the next multiple of 8), then one wgmma CTA over 160 or 320 rows
     (Grok-1's 320-row chunk is one tile, so w is read once)."""
-    assert grouped_matmul.row_tile(C) == tile
-    assert grouped_matmul.ROW_TILES[tile] >= min(C, 64)
-    f32 = grouped_matmul.plan(2, C, 64, 96, torch.float32)
-    assert (f32.kernel, f32.regime, f32.variant, f32.bm, f32.split) == \
-        ("cuda_core", "f32", tile, grouped_matmul.ROW_TILES[tile], 1)
-    bf = grouped_matmul.plan(2, C, 64, 96, torch.bfloat16)
-    rows = [v[0] for v in grouped_matmul.TC_VARIANTS]
-    assert bf.kernel == ("wgmma" if bf.variant >=
-                         grouped_matmul.MMA_SYNC_VARIANTS else "tensor_core")
+    gm = grouped_matmul
+    assert gm.row_tile(C) == tile
+    assert gm.ROW_TILES[tile] >= min(C, 64)
+    f32 = gm.plan(2, C, 64, 96, torch.float32)
+    assert (f32.kernel, f32.regime, f32.variant, f32.bm, f32.ctas) == \
+        ("cuda_core", "f32", tile, gm.ROW_TILES[tile], 0)
+    bf = gm.plan(2, C, 64, 96, torch.bfloat16)
+    rows = [v[0] for v in gm.TC_VARIANTS]
     assert bf.variant == next((i for i, bm in enumerate(rows) if C <= bm),
                               len(rows) - 1)
     assert bf.regime == ("decode" if C <= 32 else "prefill")
-    assert bf.bm == rows[bf.variant] and bf.bm % 16 == 0
-    assert bf.bm >= C or bf.bm == max(rows)
     assert bf.variant == 0 or rows[bf.variant - 1] < C
-    assert (bf.bm, bf.bn, bf.bk, bf.stages) == tuple(
-        grouped_matmul.TC_VARIANTS[bf.variant][i] for i in (0, 1, 2, 4))
+    if bf.variant < gm.STREAM_VARIANTS:
+        assert bf.kernel == "stream" and bf.bm == gm.stream_rows(C)
+        assert C <= bf.bm <= rows[bf.variant] and bf.bm % 8 == 0
+        assert bf.bm == 8 or bf.bm // 2 < C
+        assert (bf.bn, bf.bk) == tuple(gm.TC_VARIANTS[bf.variant][1:3])
+        assert bf.stages == gm.STREAM_STAGES <= gm.stream_stages(bf.bm,
+                                                                 bf.bn)
+        assert bf.ctas == gm.stream_ctas(2, 1) == 2
+    else:
+        assert bf.kernel == "wgmma" and bf.ctas == 0
+        assert bf.bm == rows[bf.variant] and bf.bm % 16 == 0
+        assert bf.bm >= C or bf.bm == max(rows)
+        assert (bf.bm, bf.bn, bf.bk, bf.stages) == tuple(
+            gm.TC_VARIANTS[bf.variant][i] for i in (0, 1, 2, 4))
 
 
 # (E, C, d, f) of every grouped matmul on the serving paths: Grok-1's and
@@ -301,20 +311,23 @@ GMM_PATH_SHAPES = {
 @pytest.mark.parametrize("name", sorted(GMM_PATH_SHAPES))
 def test_gmm_plan_at_the_path_shapes(name):
     """bf16 takes the tensor cores at every path shape, in the regime its
-    rows call for, with enough CTAs to fill the card; f32 takes the CUDA
-    cores."""
+    rows call for: up to 64 rows the small-C stream, every SM streaming
+    many slices; f32 takes the CUDA cores."""
+    gm = grouped_matmul
     E, C, d, f = GMM_PATH_SHAPES[name]
-    p = grouped_matmul.plan(E, C, d, f, torch.bfloat16)
-    assert p.kernel == ("wgmma" if C > 64 else "tensor_core")
+    p = gm.plan(E, C, d, f, torch.bfloat16)
+    assert p.kernel == ("wgmma" if C > 64 else "stream")
     assert p.regime == ("prefill" if C > 32 else "decode")
-    ctas = -(-C // p.bm) * -(-f // p.bn) * E * p.split
-    assert ctas >= grouped_matmul.SPLIT_TARGET or p.regime == "prefill"
-    assert grouped_matmul.plan(E, C, d, f, torch.float32).kernel == \
-        "cuda_core"
-    if name == "grok decode down":         # 384 CTAs unsplit: split d
-        assert p.split == 3 and ctas == 1152
-    if p.variant >= grouped_matmul.MMA_SYNC_VARIANTS:   # wgmma: no split
-        assert p.split == 1
+    assert gm.plan(E, C, d, f, torch.float32).kernel == "cuda_core"
+    if p.kernel == "stream":
+        units = gm.stream_units(E, d, f, p.bn)[2]
+        assert p.ctas in (128, gm.SMS) and units // p.ctas >= 500
+        assert p.bm == (8 if C == 8 else 32)
+        assert p.bn == gm.STREAM_BN
+    else:
+        assert p.cluster == gm.CLUSTER and p.ctas == 0
+    if name == "grok decode down":      # few column tiles: no split of d
+        assert units == 8 * (6144 // p.bn) * 512    # into passes
 
 
 @pytest.mark.parametrize("E,C,d,f,variant", [
@@ -344,17 +357,27 @@ def test_gmm_padding_share_is_bounded():
     (2, 1, 99, 37), (1, 1, 64, 8), (1, 1, 100000, 8), (4, 30, 4097, 16),
     (1, 5, 513, 128), (384, 28, 2048, 7168)])
 def test_gmm_split_covers_d_exactly(E, C, d, f):
-    """The split ranges [s * chunk, min(d, (s + 1) * chunk)) are whole
-    slices, none empty, and together cover d once."""
-    p = grouped_matmul.plan(E, C, d, f, torch.bfloat16)
-    assert p.chunk % p.bk == 0 and p.split >= 1
-    ranges = [(s * p.chunk, min(d, (s + 1) * p.chunk))
-              for s in range(p.split)]
-    assert ranges[0][0] == 0 and ranges[-1][1] == d
-    assert all(lo < hi for lo, hi in ranges)
-    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
-    if p.split > 1:
-        assert p.chunk >= grouped_matmul.MIN_SPLIT_SLICES * p.bk
+    """The small-C stream cuts d only where a CTA's range of slices ends:
+    the pieces of every item, [s0 * 64, min(d, s1 * 64)), are whole slices,
+    none empty, and together cover d once; every CTA streams an even share
+    of the slices to within one."""
+    gm = grouped_matmul
+    p = gm.plan(E, C, d, f, torch.bfloat16)
+    assert p.kernel == "stream" and p.bk == gm.PANEL
+    cols, slices, units = gm.stream_units(E, d, f, p.bn)
+    items = {}
+    for pieces in gm.stream_pieces(p, E, d, f):
+        for e, f0, s0, s1, _ in pieces:
+            items.setdefault((e, f0), []).append(
+                (s0 * p.bk, min(d, s1 * p.bk)))
+    assert len(items) == E * cols
+    for ranges in items.values():
+        assert ranges[0][0] == 0 and ranges[-1][1] == d
+        assert all(lo < hi for lo, hi in ranges)
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    per_cta = [sum(s1 - s0 for _, _, s0, s1, _ in pieces)
+               for pieces in gm.stream_pieces(p, E, d, f)]
+    assert set(per_cta) <= {units // p.ctas, units // p.ctas + 1}
 
 
 def _code(src: str) -> str:
@@ -377,38 +400,59 @@ def test_grouped_matmul_cuda_source():
     assert "constexpr int kBN = 128;" in src and grouped_matmul.BN == 128
     for bm in grouped_matmul.ROW_TILES:
         assert f"launch<T, {bm}," in src
-    # f32 stays on the CUDA cores; bf16 runs mma.sync (decode) from a
-    # cp.async ring and wgmma (prefill) warp-specialised under TMA, from the
-    # headers.
+    # f32 stays on the CUDA cores; bf16 runs the small-C stream and the
+    # prefill kernel warp-specialised under TMA on wgmma, and mma.sync
+    # where TMA cannot read, from the headers.
     assert "mma" not in _code(src) and "bfloat16" not in _code(src)
     assert '#include "mma_sm90.cuh"' in tc and "mma_bf16_16816(" in tc
-    assert '#include "tma_sm90.cuh"' in tc
-    assert "ldmatrix_x4_trans(" in tc and "cp_async16(" in tc
+    assert '#include "tma_sm90.cuh"' in tc and "ldmatrix_x4_trans(" in tc
     for call in ("wgmma_m64n160k16_ta(", "tma_load_3d(",
                  "tma_load_3d_multicast(", "mbar_arrive_cluster(",
                  "setmaxnreg_dec<", "setmaxnreg_inc<", "stmatrix_x4_trans(",
-                 "cudaLaunchAttributeClusterDimension", "cluster_sync()"):
+                 "cudaLaunchAttributeClusterDimension", "cluster_sync()",
+                 "gmm_stream_kernel<N, NT>", "wgmma_m64nNk16_ta<N>(",
+                 "cudaLaunchKernelEx(&cfg, gmm_stream_fold_kernel,",
+                 "cudaLaunchAttributeProgrammaticStreamSerialization",
+                 "grid_dependency_wait();", "launch_dependents();",
+                 "mbar_expect_tx(",
+                 'extern "C" int grouped_matmul_bf16_stream'):
         assert call in tc, call
-    assert "gmm_wgmma_t_kernel" not in tc
+    # the stream's fold is a second pass in a fixed order: no atomics, no
+    # cp.async copies, no split-K pass of the old kind
+    for gone in ("atomic", "cp_async", "splitk", "gmm_wgmma_t_kernel"):
+        assert gone not in _code(tc).lower(), gone
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in header
     assert "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16" in header
-    n_sync = grouped_matmul.MMA_SYNC_VARIANTS
+    for rows in grouped_matmul.STREAM_ROWS:
+        assert f"wgmma.mma_async.sync.aligned.m64n{rows}k16.f32.bf16.bf16" \
+            in header
+        case = tc.split("int dispatch_stream(")[1].split(f"case {rows}:")[1]
+        assert case.split(";")[0].strip().startswith(
+            f"return launch_stream<{rows}, NT>("), rows
+    bn = grouped_matmul.STREAM_BN
+    assert f"if (bn == {bn})\n    return dispatch_stream<{bn // 64}>(" in tc
+    assert "constexpr int kStreamThreads = 160;" in tc
+    assert "return 1024 + stages * (kSlot + 16) + kStage;" in tc
+    n_stream = grouped_matmul.STREAM_VARIANTS
     for i, (bm, bn, bk, warps, stages) in enumerate(
             grouped_matmul.TC_VARIANTS):
-        case = tc.split(f"case {i}:")[1].split("case ")[0]
-        if i < n_sync:
-            assert f"return launch<{bm}, {bn}, {bk}," in case, i
-            wm, wn, st = (int(v)
-                          for v in case.split("<")[1].split(",")[3:6])
-            assert (wm * wn, st) == (warps, stages)
+        if i < n_stream:
+            assert warps * 32 == 160 and bk == grouped_matmul.PANEL
+            assert bm == grouped_matmul.STREAM_ROWS[i + 2] and stages == 0
         else:
+            case = tc.split("int dispatch(")[1].split(f"case {i}:")[1]
             assert bm % 160 == 0 and warps == 12
             assert f"return launch_tma<{bm // 160}, {stages}, kCluster>(" \
-                in case, i
+                in case.split("case ")[0], i
             assert "static constexpr int kBF = " \
                 f"{bn}, kBT = 160 * NH, kBK = {bk};" in tc
-    assert f"case {len(grouped_matmul.TC_VARIANTS)}:" not in tc
+    bm, bn, bk, warps, stages = grouped_matmul.SYNC_TILE
+    assert f"if (variant == {grouped_matmul.SYNC_VARIANT})" in tc
+    assert f"gmm_tc_kernel<{bm}, {bn}, {bk}, 2, 4, {stages}>" in tc
+    assert warps == 2 * 4
+    assert f"case {grouped_matmul.SYNC_VARIANT}:" not in tc
     assert f"constexpr int kCluster = {grouped_matmul.CLUSTER};" in tc
+    assert f"constexpr int kSmemLimit = {grouped_matmul.SMEM_LIMIT};" in tc
 
 
 def test_no_try_around_the_grouped_matmul():

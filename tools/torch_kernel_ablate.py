@@ -1,30 +1,58 @@
-"""Ablations of the port's two warp-specialised bf16 kernels on the card:
-each variant is the source with one part taken out, built beside the real
-one and timed at a path shape, so that the difference says what that part
-costs.  The variants' outputs are wrong by design; only their times count.
+"""Ablations of the port's warp-specialised bf16 kernels on the card:
+each variant is the source with one part taken out (or the wrapper with
+one choice changed), built beside the real one and timed at a path shape,
+so that the difference says what that part costs.  The variants' outputs
+are wrong by design; only their times count.
 
-    python3 tools/torch_kernel_ablate.py [--dry]
+    python3 tools/torch_kernel_ablate.py [--dry] [--only GROUP ...] [--passes N]
+    python3 tools/torch_kernel_ablate.py --sync-decode DIR [--dry]
 
-Grouped matmul (``csrc/grouped_matmul_tc.cu``, the prefill kernel, at
-Grok-1's (8, 320, 6144, 32768) and (8, 160, 6144, 32768)):
-``release_cluster`` releases ring slots as the first design did, one
-thread arriving at each CTA of the cluster with ``.release.cluster``
+Grouped matmul, prefill ("gmm": ``csrc/grouped_matmul_tc.cu``'s
+``gmm_tma_kernel``, at Grok-1's (8, 320, 6144, 32768) and (8, 160, 6144,
+32768)): ``release_cluster`` releases ring slots as the first design did,
+one thread arriving at each CTA of the cluster with ``.release.cluster``
 ordering; ``no_load`` issues no TMA copy (the producer arrives instead, so
 the barriers still turn); ``no_mma`` issues no wgmma.
+
+Grouped matmul, small C ("stream": ``gmm_stream_kernel``, at Grok-1's
+decode (8, 8, 6144, 32768) and its down projection (8, 8, 32768, 6144),
+whose last items are cut and folded, Kimi-K2's decode down projection
+(384, 8, 2048, 7168), its 28-row prefill chunk (384, 28, 7168, 2048) and
+the 56-row chunk off the path (384, 56, 7168, 2048)): ``no_mma`` issues
+no wgmma; ``no_load`` issues no TMA copy (the producer arrives instead);
+``no_x`` copies w but not x; ``stages4`` and ``stages_max`` give the ring
+4 slots, and as many as shared memory holds, instead of 3; ``bn128``
+takes items of 128 columns instead of 256; ``ctas132`` launches one CTA
+an SM where 128 would fill whole rounds (the last items are then cut and
+folded by the second pass); ``two_per_sm`` runs two CTAs an SM;
+``no_fold`` skips the second pass; ``no_pdl`` launches it plainly behind
+the first; ``evict_first`` loads w with an L2 evict-first policy;
+``w_rows8`` and ``w_rows16`` load each slice of w as boxes of 8 or 16
+rows, every panel of a row block in turn, so that one row's 512 bytes
+are asked for together.
+``--sync-decode DIR`` ablates, at the same shapes, the design the stream
+replaced (mma.sync from a cp.async ring, one CTA per tile) in a tree that
+holds it (e.g. the commit before the stream, unpacked with ``git
+archive``), with that tree's wrapper: ``no_mma`` (no ldmatrix or
+mma.sync: the load scheme's own ceiling), ``no_load``, ``stages5`` and
+``stages8`` (a deeper ring, at two and one CTAs an SM), ``bn256`` (256
+columns, 3 stages, two CTAs an SM).
 
 Flash attention (``csrc/flash_attention_wgmma.cu``, at Qwen3-4B's
 (4, 32, 8, 2048, 128) and a D = 64 shape, (4, 25, 5, 2048, 64), causal and
 not): ``no_softmax`` skips the max, the exponentials and the rescale;
 ``no_kv_load`` issues no copy of K or V (the producer arrives instead);
 ``pingpong_flip`` flips the choice of which head dims the consumer
-warpgroups take turns at (the kernel: at D > 64 only); ``stages3`` deepens the K/V ring to 3 slots;
-``one_cta_per_item`` launches the same kernel with a CTA per work item
-instead of a persistent CTA per SM.
+warpgroups take turns at (the kernel: at D > 64 only); ``stages3``
+deepens the K/V ring to 3 slots; ``one_cta_per_item`` launches the same
+kernel with a CTA per work item instead of a persistent CTA per SM.
 
-Prints the card's name and power limit and one JSON object of device ms
-per launch (CUDA events, median), and writes it to
-``chiprun_out/kernel_ablation.json``.  ``--dry`` only checks, without a
-card, that every variant's edits apply to the sources.
+Each grouped-matmul group also times ``torch.bmm`` at its shapes.  Prints
+the card's name and power limit and one JSON object of device ms per
+launch (CUDA events, median), and writes it to
+``chiprun_out/kernel_ablation.json`` (``kernel_ablation_sync_decode.json``
+with ``--sync-decode``).  ``--dry`` only checks, without a card, that
+every variant's edits apply to the sources.
 """
 
 from __future__ import annotations
@@ -32,6 +60,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import ctypes
+import importlib
 import json
 import subprocess
 import sys
@@ -44,16 +73,16 @@ from repro_torch.kernels import build  # noqa: E402
 
 GMM = "grouped_matmul_tc.cu"
 FLASH = "flash_attention_wgmma.cu"
-# variant -> (source, [(text, replacement), ...])
+# variant -> (source, [(text, replacement), ...], {wrapper attribute: value})
 VARIANTS = {
-    "gmm base": (GMM, []),
+    "gmm base": (GMM, [], {}),
     "gmm release_cluster": (GMM, [(
         "    if (tid < CS) mbar_arrive_cluster(empty + s, tid);",
         "    if (tid == 0)\n      for (int r = 0; r < CS; ++r)\n"
         "        asm volatile(\"{\\n.reg .b32 rem;\\n"
         "mapa.shared::cluster.u32 rem, %0, %1;\\n"
         "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [rem];\\n"
-        "}\\n\" :: \"r\"(smem_addr(empty + s)), \"r\"(r) : \"memory\");")]),
+        "}\\n\" :: \"r\"(smem_addr(empty + s)), \"r\"(r) : \"memory\");")], {}),
     "gmm no_load": (GMM, [
         ("        tma_load_3d(st, &wmap, full + s, f0, kt * BK, e);\n"
          "        tma_load_3d(st + TT::kWBytes / 2, &wmap, full + s, f0 + 64,"
@@ -64,14 +93,98 @@ VARIANTS = {
          " kt * BK,\n                              t0 + rank * TT::kXPart, e);"
          "\n", ""),
         ("mbar_expect_tx(full + s, TT::kStageBytes);",
-         "mbar_arrive(full + s);")]),
+         "mbar_arrive(full + s);")], {}),
     "gmm no_mma": (GMM, [("        wgmma_m64n160k16_ta(acc[h], da, db);",
-                          "        (void)da;\n        (void)db;")]),
-    "flash base": (FLASH, []),
+                          "        (void)da;\n        (void)db;")], {}),
+    "stream base": (GMM, [], {}),
+    "stream no_mma": (GMM, [(
+        "          wgmma_m64nNk16_ta<N>(\n"
+        "              acc[p], smem_desc(st + p * 8192 + ks * 2048, 1024, 1024),"
+        " db);\n", "          (void)db;\n")], {}),
+    "stream no_load": (GMM, [
+        ("          mbar_expect_tx(full + slot, ST::kSlot);\n"
+         "#pragma unroll\n"
+         "          for (int p = 0; p < NT; ++p)\n"
+         "            tma_load_3d(st + p * 8192, &wmap, full + slot, f0 + 64 * p,\n"
+         "                        64 * s, e);\n"
+         "          tma_load_3d(st + ST::kWBytes, &xmap, full + slot, 64 * s, 0, e);\n",
+         "          mbar_arrive(full + slot);\n          (void)st;\n"
+         "          (void)f0;\n")], {}),
+    "stream no_x": (GMM, [
+        ("          mbar_expect_tx(full + slot, ST::kSlot);\n",
+         "          mbar_expect_tx(full + slot, ST::kWBytes);\n"),
+        ("          tma_load_3d(st + ST::kWBytes, &xmap, full + slot, 64 * s, 0, e);\n",
+         "")], {}),
+    "stream w_rows8": (GMM, [
+        ("#pragma unroll\n"
+         "          for (int p = 0; p < NT; ++p)\n"
+         "            tma_load_3d(st + p * 8192, &wmap, full + slot, f0 + 64 * p,\n"
+         "                        64 * s, e);\n",
+         "          for (int rb = 0; rb < 64 / 8; ++rb)\n"
+         "            for (int p = 0; p < NT; ++p)\n"
+         "              tma_load_3d(st + p * 8192 + rb * 8 * 128, &wmap,\n"
+         "                          full + slot, f0 + 64 * p, 64 * s + 8 * rb, e);\n"),
+        ("  if (err == 0) err = encode_bf16_map(&wm, w, 3, wl);\n"
+         "  if (err != 0) return err;\n  auto kernel = gmm_stream_kernel<N, NT>;",
+         "  long long wl_rows[kMapWords];\n"
+         "  for (int i = 0; i < kMapWords; ++i) wl_rows[i] = wl[i];\n"
+         "  wl_rows[6] = 8;\n"
+         "  if (err == 0) err = encode_bf16_map(&wm, w, 3, wl_rows);\n"
+         "  if (err != 0) return err;\n  auto kernel = gmm_stream_kernel<N, NT>;")],
+        {}),
+    "stream w_rows16": (GMM, [
+        ("#pragma unroll\n"
+         "          for (int p = 0; p < NT; ++p)\n"
+         "            tma_load_3d(st + p * 8192, &wmap, full + slot, f0 + 64 * p,\n"
+         "                        64 * s, e);\n",
+         "          for (int rb = 0; rb < 64 / 16; ++rb)\n"
+         "            for (int p = 0; p < NT; ++p)\n"
+         "              tma_load_3d(st + p * 8192 + rb * 16 * 128, &wmap,\n"
+         "                          full + slot, f0 + 64 * p, 64 * s + 16 * rb, e);\n"),
+        ("  if (err == 0) err = encode_bf16_map(&wm, w, 3, wl);\n"
+         "  if (err != 0) return err;\n  auto kernel = gmm_stream_kernel<N, NT>;",
+         "  long long wl_rows[kMapWords];\n"
+         "  for (int i = 0; i < kMapWords; ++i) wl_rows[i] = wl[i];\n"
+         "  wl_rows[6] = 16;\n"
+         "  if (err == 0) err = encode_bf16_map(&wm, w, 3, wl_rows);\n"
+         "  if (err != 0) return err;\n  auto kernel = gmm_stream_kernel<N, NT>;")],
+        {}),
+    "stream stages4": (GMM, [], {"STREAM_STAGES": 4}),
+    # as many slots as shared memory holds: 6 at 8 rows, 5 at 32, 4 at 64
+    "stream stages_max": (GMM, [], {"STREAM_STAGES": 2 ** 30}),
+    # two CTAs an SM, each with a 3-slot ring
+    "stream two_per_sm": (GMM, [], {
+        "stream_ctas": lambda items, slices: min(264, items * slices)}),
+    "stream no_pdl": (GMM, [(
+        "  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;\n"
+        "  attr[0].val.programmaticStreamSerializationAllowed = 1;\n"
+        "  cfg.attrs = attr;\n  cfg.numAttrs = 1;\n",
+        "  (void)attr;\n")], {}),
+    "stream bn128": (GMM, [("  if (bn == 256)\n    return dispatch_stream<4>(",
+                            "  if (bn == 128)\n    return dispatch_stream<2>(")],
+                     {"STREAM_BN": 128}),
+    # one CTA an SM even where fewer would fill whole rounds: the items
+    # left after the rounds are cut and folded by the second pass
+    "stream ctas132": (GMM, [], {
+        "stream_ctas": lambda items, slices: min(132, items * slices)}),
+    "stream no_fold": (GMM, [(
+        "  if (e != cudaSuccess || part == nullptr) return static_cast<int>(e);",
+        "  return static_cast<int>(e);")], {}),
+    "stream evict_first": (GMM, [(
+        "            tma_load_3d(st + p * 8192, &wmap, full + slot, f0 + 64 * p,\n"
+        "                        64 * s, e);\n",
+        "            asm volatile(\"{\\n.reg .b64 pol;\\n"
+        "createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\\n"
+        "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+        ".mbarrier::complete_tx::bytes.L2::cache_hint [%0], [%1, {%3, %4, %5}],"
+        " [%2], pol;\\n}\\n\" :: \"r\"(smem_addr(st + p * 8192)), "
+        "\"l\"(reinterpret_cast<uint64_t>(&wmap)), \"r\"(smem_addr(full + slot)), "
+        "\"r\"(f0 + 64 * p), \"r\"(64 * s), \"r\"(e) : \"memory\");\n")], {}),
+    "flash base": (FLASH, [], {}),
     "flash no_softmax": (FLASH, [
         ("      softmax(k_lo, corr);", "      corr[0] = corr[1] = 1.f;"),
         ("        softmax(k_lo + t * kBKV, corr);",
-         "        corr[0] = corr[1] = 1.f;")]),
+         "        corr[0] = corr[1] = 1.f;")], {}),
     "flash no_kv_load": (FLASH, [
         ("          mbar_expect_tx(k_full + s, L::kTileBytes);\n"
          "#pragma unroll\n"
@@ -84,22 +197,46 @@ VARIANTS = {
          "          for (int p = 0; p < L::kPanels; ++p)\n"
          "            tma_load_4d(vt + p * kBKV * 128, &vmap, v_full + s, 64 * p,"
          " k0,\n                        kvh, b);\n",
-         "          mbar_arrive(v_full + s);\n")]),
+         "          mbar_arrive(v_full + s);\n")], {}),
     "flash pingpong_flip": (FLASH, [
         ("constexpr bool kPingPong = DP > 64;",
-         "constexpr bool kPingPong = DP <= 64;")]),
+         "constexpr bool kPingPong = DP <= 64;")], {}),
     "flash stages3": (FLASH, [("constexpr int kStages = 2;",
-                               "constexpr int kStages = 3;")]),
+                               "constexpr int kStages = 3;")], {}),
     # the same source, launched with one CTA per work item
-    "flash one_cta_per_item": (FLASH, []),
+    "flash one_cta_per_item": (FLASH, [], {"SMS": 2 ** 30}),
+}
+# The small-C design the stream replaced, for a tree that holds it
+# (--sync-decode): its 32-row decode tile, launch<32, 128, 64, 1, 4, 4, VEC>.
+SYNC_DECODE_VARIANTS = {
+    "decode base": (GMM, [], {}),
+    "decode no_mma": (GMM, [(
+        "          mma_bf16_16816(acc[i][j], af[i], bfr);\n"
+        "          mma_bf16_16816(acc[i][j + 1], af[i], bfr + 2);\n",
+        "          (void)af;\n")], {}),
+    "decode no_load": (GMM, [
+        ("      load_chunk<VEC>(a + r * LDA + kc, xe + row * sxc + k0 + kc, x,\n"
+         "                      row < C ? k_end - (k0 + kc) : 0);\n",
+         "      (void)a; (void)row; (void)kc;\n"),
+        ("      load_chunk<VEC>(b + r * LDB + nc, we + krow * swd + n0 + nc, w,\n"
+         "                      krow < k_end ? f - (n0 + nc) : 0);\n",
+         "      (void)b; (void)krow; (void)nc;\n")], {}),
+    "decode stages5": (GMM, [("launch<32, 128, 64, 1, 4, 4, VEC>",
+                              "launch<32, 128, 64, 1, 4, 5, VEC>")], {}),
+    "decode stages8": (GMM, [("launch<32, 128, 64, 1, 4, 4, VEC>",
+                              "launch<32, 128, 64, 1, 4, 8, VEC>")], {}),
+    "decode bn256": (GMM, [("launch<32, 128, 64, 1, 4, 4, VEC>",
+                            "launch<32, 256, 64, 1, 4, 3, VEC>")], {}),
 }
 GMM_SHAPES = [(8, 320, 6144, 32768), (8, 160, 6144, 32768)]
+DECODE_SHAPES = [(8, 8, 6144, 32768), (8, 8, 32768, 6144), (384, 8, 2048, 7168),
+                 (384, 28, 7168, 2048), (384, 56, 7168, 2048)]
 FLASH_SHAPES = [(4, 32, 8, 2048, 128), (4, 25, 5, 2048, 64)]
 
 
-def variant_source(name: str) -> str:
+def variant_source(name: str, variants: dict = VARIANTS) -> str:
     """The source text of one variant; raises if an edit does not apply."""
-    source, edits = VARIANTS[name]
+    source, edits, _ = variants[name]
     text = (build.CSRC / source).read_text()
     for old, new in edits:
         if old not in text:
@@ -108,12 +245,12 @@ def variant_source(name: str) -> str:
     return text
 
 
-def build_variant(name: str) -> Path:
+def build_variant(name: str, text: str) -> Path:
     out = ROOT / "build" / "ablate"
     out.mkdir(parents=True, exist_ok=True)
     stem = name.replace(" ", "_")
     src = build.CSRC / f"_ablate_{stem}.cu"     # beside the headers
-    src.write_text(variant_source(name))
+    src.write_text(text)
     lib = out / f"{stem}.so"
     try:
         subprocess.run(["/usr/local/cuda/bin/nvcc", *build.NVCC_FLAGS, "-o",
@@ -123,14 +260,36 @@ def build_variant(name: str) -> Path:
     return lib
 
 
+def use_tree(tree: Path) -> None:
+    """Import the port's modules and chip_smoke from ``tree`` instead."""
+    global build
+    for name in [m for m in sys.modules
+                 if m.split(".")[0] in ("repro_torch", "chip_smoke")]:
+        del sys.modules[name]
+    sys.path[:0] = [str(tree), str(tree / "src")]
+    build = importlib.import_module("repro_torch.kernels.build")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dry", action="store_true")
+    ap.add_argument("--only", nargs="*", default=("gmm", "stream", "flash"),
+                    help="groups of variants to run")
+    ap.add_argument("--sync-decode", type=Path, metavar="DIR",
+                    help="ablate the mma.sync decode design of tree DIR")
+    ap.add_argument("--passes", type=int, default=1,
+                    help="time the grouped-matmul variants this many times, "
+                         "every other pass in reverse order")
     a = ap.parse_args()
-    for name in VARIANTS:
-        variant_source(name)
+    variants, groups, out_name = VARIANTS, a.only, "kernel_ablation.json"
+    if a.sync_decode:
+        use_tree(a.sync_decode.resolve())
+        variants, groups = SYNC_DECODE_VARIANTS, ("decode",)
+        out_name = "kernel_ablation_sync_decode.json"
+    texts = {name: variant_source(name, variants) for name in variants}
+    chosen = [n for n in variants if n.split()[0] in groups]
     if a.dry:
-        print(f"{len(VARIANTS)} variants apply")
+        print(f"{len(variants)} variants apply")
         return 0
     import torch
 
@@ -140,8 +299,14 @@ def main() -> int:
         print("no CUDA device")
         return 1
     print(chip_smoke.nvidia_smi())
-    with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
+    # one build per distinct source text
+    first = {}
+    for name in chosen:
+        first.setdefault(texts[name], name)
+    with concurrent.futures.ThreadPoolExecutor(len(first)) as pool:
+        built = dict(zip(first.values(), pool.map(
+            build_variant, first.values(), first.keys())))
+    libs = {name: built[first[texts[name]]] for name in chosen}
     device = torch.device("cuda", 0)
     gen = torch.Generator(device).manual_seed(0)
 
@@ -149,39 +314,65 @@ def main() -> int:
         return torch.randn(shape, generator=gen, dtype=torch.bfloat16,
                            device=device).mul_(scale)
 
-    def use(name, source, bind):
+    def use(name, module, source, bind):
+        """Load ``name``'s library and set its wrapper attributes; returns
+        the attributes to restore."""
         lib = ctypes.CDLL(str(libs[name]))
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         bind(lib)
         build._libs[source] = lib
+        knobs = variants[name][2]
+        saved = {k: getattr(module, k) for k in knobs}
+        for k, v in knobs.items():
+            setattr(module, k, v)
+        if hasattr(module.plan, "cache_clear"):
+            module.plan.cache_clear()
+        return saved
+
+    def restore(module, saved):
+        for k, v in saved.items():
+            setattr(module, k, v)
+        if hasattr(module.plan, "cache_clear"):
+            module.plan.cache_clear()
 
     out = {}
-    sms = flash_attention.SMS
-    for E, C, d, f in GMM_SHAPES:
-        x, w = randn((E, C, d)), randn((E, d, f), d ** -0.5)
-        for name in (n for n in VARIANTS if n.startswith("gmm")):
-            use(name, grouped_matmul.TC_SOURCE, grouped_matmul._bind_tc)
-            out[f"{name} {(E, C, d, f)}"] = chip_smoke.median_event_ms(
-                lambda: ops.grouped_matmul(x, w), n=5, repeats=5)
-        del x, w
-    for B, H, K, S, D in FLASH_SHAPES:
+    gm = grouped_matmul
+    for group, shapes in (("gmm", GMM_SHAPES), ("stream", DECODE_SHAPES),
+                          ("decode", DECODE_SHAPES)):
+        names = [n for n in chosen if n.split()[0] == group]
+        for E, C, d, f in shapes if names else ():
+            x, w = randn((E, C, d)), randn((E, d, f), d ** -0.5)
+            for i in range(a.passes):
+                tag = f" pass {i + 1}" if a.passes > 1 else ""
+                for name in names if i % 2 == 0 else names[::-1]:
+                    saved = use(name, gm, gm.TC_SOURCE, gm._bind_tc)
+                    out[f"{name} {(E, C, d, f)}{tag}"] = \
+                        chip_smoke.median_event_ms(
+                            lambda: ops.grouped_matmul(x, w), n=5, repeats=5)
+                    restore(gm, saved)
+                out[f"{group} bmm {(E, C, d, f)}{tag}"] = \
+                    chip_smoke.median_event_ms(lambda: torch.bmm(x, w), n=5,
+                                               repeats=5)
+            del x, w
+    fa = flash_attention
+    flash = [n for n in chosen if n.split()[0] == "flash"]
+    for B, H, K, S, D in FLASH_SHAPES if flash else ():
         q = randn((B, S, H, D)).transpose(1, 2)
         k, v = (randn((B, S, K, D)).transpose(1, 2) for _ in "kv")
-        for name in (n for n in VARIANTS if n.startswith("flash")):
-            use(name, flash_attention.WGMMA_SOURCE,
-                flash_attention._bind_wgmma)
-            flash_attention.SMS = 2 ** 30 if "per_item" in name else sms
+        for name in flash:
+            saved = use(name, fa, fa.WGMMA_SOURCE, fa._bind_wgmma)
             for causal in (True, False):
                 out[f"{name} {(B, H, K, S, D)} causal {causal}"] = \
                     chip_smoke.median_event_ms(
                         lambda: ops.flash_attention(q, k, v, causal=causal),
                         n=5, repeats=10)
+            restore(fa, saved)
         del q, k, v
     build._libs.clear()
     text = json.dumps(out, indent=1)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / "kernel_ablation.json").write_text(text)
+    (ROOT / "chiprun_out" / out_name).write_text(text)
     print(text)
     return 0
 

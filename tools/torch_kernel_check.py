@@ -1,12 +1,13 @@
 """Build, check and time the port's bf16 flash attention and grouped matmul
 on the card, each check in a child process under a time limit.
 
-    python3 tools/torch_kernel_check.py [--ptxas] [--check] [--time]
-                                        [--parent DIR] [--timeout S]
+    python3 tools/torch_kernel_check.py [--ptxas] [--check [attention gmm]]
+                                        [--time] [--parent DIR] [--timeout S]
 
 ``--ptxas`` compiles both sources with ``-Xptxas -v`` and prints each
 kernel's registers, shared memory and spills.  ``--check`` runs
-``chip_smoke.check_attention`` and ``chip_smoke.check_gmm`` (every sweep
+``chip_smoke.check_attention`` and ``chip_smoke.check_gmm``, or the one
+named (every sweep
 and path shape against the plain versions, under the script's tolerances),
 each in a child process killed after ``--timeout`` seconds: a kernel that waits on a barrier that
 never completes fails its check instead of holding the card.  ``--time``
@@ -14,10 +15,12 @@ prints the kernels' device ms per launch (CUDA events over back-to-back
 launches; for attention also replayed from a CUDA graph, device time
 without the host's gaps) and host ms per call, beside
 ``scaled_dot_product_attention`` and ``torch.bmm``, at the bf16 path
-shapes (``chip_smoke.TIME_ATTENTION``, ``TIME_MASKED_ATTENTION``, the
-prefill rows of ``TIME_GMM`` and ``GMM_OFF_PATH``), and with ``--parent DIR`` (an unpacked tree of another
-commit) the same shapes on that tree's kernels, in turns: parent, this
-tree, this tree, parent.  Needs a card; exits 1 if any step failed.
+shapes (``chip_smoke.TIME_ATTENTION``, ``TIME_MASKED_ATTENTION``, every
+row of ``TIME_GMM`` and ``GMM_OFF_PATH``, small C and large, and a small
+decode shape, ``HOST_PROBE``, whose host ms is the wrapper's cost), and with
+``--parent DIR`` (an unpacked tree of another commit) the same shapes on
+that tree's kernels, in turns: parent, this tree, this tree, parent.
+Needs a card; exits 1 if any step failed.
 """
 
 from __future__ import annotations
@@ -49,6 +52,9 @@ def child(kind: str, tree: Path) -> None:
         print("RESULT " + json.dumps(time_kernels(chip_smoke, device)))
     else:
         raise ValueError(kind)
+
+
+HOST_PROBE = ("host probe", (8, 8, 256, 4096), 20, 20)
 
 
 def time_kernels(cs, device) -> dict:
@@ -88,10 +94,10 @@ def time_kernels(cs, device) -> dict:
                     and S == T else mask, is_causal=causal and not window
                     and S == T, enable_gqa=True), n=5, repeats=10)}
         del q, k, v, mask
-    gmm = [(n, s, r, p) for n, s, r, p in cs.TIME_GMM if s[1] > 64]
-    for name, (E, C, d, f), n, repeats in gmm + list(cs.GMM_OFF_PATH):
-        if C <= 64:
-            continue
+    # HOST_PROBE: a call whose device time is far below its host time, so
+    # that host_ms is the wrapper's own cost
+    rows = list(cs.TIME_GMM) + list(cs.GMM_OFF_PATH) + [HOST_PROBE]
+    for name, (E, C, d, f), n, repeats in rows:
         x = randn((E, C, d))
         w = randn((E, d, f), d ** -0.5)
         out[f"gmm {name}"] = {
@@ -167,7 +173,8 @@ def ptxas_report(procs) -> bool:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--check", nargs="*", choices=("attention", "gmm"),
+                    help="the checks to run (both when none is named)")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--timeout", type=int, default=300)
@@ -187,7 +194,8 @@ def main() -> int:
                          text=True).stdout.strip())
     ok = True
     procs = ptxas() if a.ptxas else []
-    if a.check or a.time:       # every source once, in parallel
+    checks = None if a.check is None else (a.check or ["attention", "gmm"])
+    if checks or a.time:        # every source once, in parallel
         sys.path[:0] = [str(ROOT), str(ROOT / "src")]
         import chip_smoke
         try:
@@ -199,9 +207,8 @@ def main() -> int:
     if not ok:
         print("FAILED")
         return 1
-    if a.check:
-        ok &= run_child("check_attention", ROOT, a.timeout)[0]
-        ok &= run_child("check_gmm", ROOT, a.timeout)[0]
+    for kind in checks or ():
+        ok &= run_child(f"check_{kind}", ROOT, a.timeout)[0]
     if a.time:
         turns = [ROOT, ROOT]
         if a.parent:

@@ -2,9 +2,11 @@
 """Qwen3-4B's serving step in two checkouts of the repo, in turns, on one
 card: chip_smoke.py's phase 7 (full width, 36 layers, bf16, 16 prompts
 through ServingEngine over a 4096-token cache) run once per turn, each in a
-process of its own that imports that checkout's ``chip_smoke``.
+process of its own that imports that checkout's ``chip_smoke``.  With
+``--moe``, phase 11's Grok-1 instead (full width, 4 of 64 layers, 16
+prompts over a 1024-token cache, its 12 grouped matmuls a step).
 
-    python3 tools/torch_step_ab.py PARENT_DIR CHANGE_DIR [--rounds N]
+    python3 tools/torch_step_ab.py PARENT_DIR CHANGE_DIR [--rounds N] [--moe]
 
 Runs parent, change, change, parent per round and prints, per run, the
 ms per engine step, the tokens/s and the kernels' launches, then the
@@ -27,15 +29,22 @@ import json, sys, torch
 sys.path.insert(0, {root!r})
 import chip_smoke
 torch.zeros(1, device="cuda")       # start CUDA, as chip_smoke's phases do
-cfg = chip_smoke.get_arch(chip_smoke.ARCH)
-run, _ = chip_smoke.drive_serving(torch.device("cuda", 0), cfg, n_prefill=1)
+if {moe}:
+    cfg = chip_smoke.get_arch(chip_smoke.MOE_ARCH).scaled(
+        n_layers=chip_smoke.MOE_LAYERS)
+    kw = dict(chip_smoke.MOE_SERVE, n_prefill=1)
+else:
+    cfg, kw = chip_smoke.get_arch(chip_smoke.ARCH), dict(n_prefill=1)
+run, _ = chip_smoke.drive_serving(torch.device("cuda", 0), cfg, **kw)
 print("RESULT " + json.dumps({{k: run[k] for k in (
-    "ms_per_engine_step", "tokens_per_s", "engine_steps", "launches")}}))
+    "ms_per_engine_step", "prefill_ms_per_call", "tokens_per_s",
+    "engine_steps", "launches")}}))
 """
 
 
-def one(root: Path) -> dict:
-    proc = subprocess.run([sys.executable, "-c", RUN.format(root=str(root))],
+def one(root: Path, moe: bool) -> dict:
+    proc = subprocess.run([sys.executable, "-c",
+                           RUN.format(root=str(root), moe=moe)],
                           cwd=root, capture_output=True, text=True,
                           timeout=900)
     if proc.returncode != 0:
@@ -50,6 +59,8 @@ def main() -> int:
     ap.add_argument("parent", type=Path)
     ap.add_argument("change", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--moe", action="store_true",
+                    help="Grok-1's serving step (phase 11) instead")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -61,7 +72,7 @@ def main() -> int:
     steps = {"parent": [], "change": []}
     for _ in range(args.rounds):
         for name in ("parent", "change", "change", "parent"):
-            run = one(getattr(args, name).resolve())
+            run = one(getattr(args, name).resolve(), args.moe)
             steps[name].append(run["ms_per_engine_step"])
             print(name, json.dumps(run), flush=True)
     print(json.dumps({name: {"median_ms_per_engine_step":
