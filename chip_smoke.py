@@ -41,7 +41,9 @@ Phases, in order; any failure raises and exits non-zero:
      prefill and ring and Whisper-tiny's encoder, decoder and
      cross-attention included, 2e-5 in f32, and in bf16 2**-6 rtol plus
      2**-5 of each output row's RMS; bf16 decode also at the engine's live
-     length and at ragged lengths that hit each tile and split boundary);
+     length and at ragged lengths that hit each tile and split boundary;
+     two bf16 decode launches at decode_32k and at the dense serving shape
+     give the same bits);
   7. the serving path at full width: Qwen3-4B (36 layers, bf16, seeded
      random weights), prompts fetched over the simulated WAN by
      ``build_stack``, a 4 x 2048 prefill and continuous-batching decode of
@@ -403,6 +405,10 @@ TIME_MASKED_ATTENTION = [
     for name, (shape, dtype, causal, window) in zip(
         ("hymba", "whisper encoder", "whisper self", "whisper cross"),
         [c for c in FLASH_MASK_PATH_CASES if c[1] == torch.bfloat16])]
+# Launched twice on the same inputs in phase 6, whose outputs must be the
+# same bits: bf16 decode at decode_32k and at the dense serving path's
+# shape (each row's CTAs folded in a fixed order).
+DECODE_REPEAT_CASES = [TIME_DECODE, (SLOTS, 8, 4, MAX_SEQ, 128)]
 # The live length of each serving path's cache half way through its engine
 # run (models/attention.py passes min(pos + 1, T) to every slot, pos one
 # shared count of the steps: 318 steps for Qwen3-4B and Hymba, 158 for
@@ -451,7 +457,8 @@ GMM_PATH_CASES = [(GMM_DECODE, torch.bfloat16),
                   (KIMI_GMM_DECODE_DOWN, torch.bfloat16),
                   (KIMI_GMM_PREFILL, torch.bfloat16),
                   (KIMI_GMM_PREFILL_DOWN, torch.bfloat16),
-                  (GMM_DECODE, torch.float32), (GMM_PREFILL, torch.float32)]
+                  (GMM_DECODE, torch.float32), (GMM_PREFILL, torch.float32),
+                  (GMM_PREFILL_DOWN, torch.float32)]
 # Timed: gate/up and down projections at decode and in a prefill chunk,
 # with (back-to-back launches, repeats) sized to keep the phase in seconds.
 TIME_GMM = [("decode", GMM_DECODE, 5, 5),
@@ -469,10 +476,12 @@ TIME_GMM = [("decode", GMM_DECODE, 5, 5),
 # within GMM_PATH_TOL (phase 10) and timed (phase 16), as TIME_GMM.
 GMM_OFF_PATH = [("grok prefill b1", (8, 160, 6144, 32768), 5, 5),
                 ("kimi prefill b4", (384, 56, 7168, 2048), 3, 3)]
-# The f32 kernel timed at Grok-1's decode and prefill chunk (phase 16),
-# beside torch.bmm in f32 with TF32 off, as TIME_GMM.
+# The f32 kernel timed at Grok-1's decode, prefill chunk and its down
+# projection (phase 16), beside torch.bmm in f32 with TF32 off, as
+# TIME_GMM.
 TIME_GMM_F32 = [("decode f32", GMM_DECODE, 2, 3),
-                ("prefill f32", GMM_PREFILL, 1, 3)]
+                ("prefill f32", GMM_PREFILL, 1, 3),
+                ("prefill down f32", GMM_PREFILL_DOWN, 1, 3)]
 # Launched twice on the same inputs in phase 10, whose outputs must be the
 # same bits: the small-C stream's down projections, Grok-1's (its CTAs'
 # ranges cut the last items, whose pieces a second pass adds in a fixed
@@ -953,15 +962,6 @@ def check_attention(device) -> dict:
             compare(f"flash {dtype} {(B, H, K, S, T, D)} cross",
                     ops.flash_attention(q, k, v, causal=False),
                     ref.mha_reference(q, k, v, causal=False), dtype)
-        for B, K, G, T, D in DECODE_CASES:
-            q, k, v = (randn(s, dtype) for s in ((B, K, G, D), (B, K, T, D),
-                                                  (B, K, T, D)))
-            lengths = torch.randint(1, T + 1, (B,), generator=gen,
-                                    device=device)
-            compare(f"decode {dtype} {(B, K, G, T, D)}",
-                    ops.flash_decode(q, k, v, lengths),
-                    ref.decode_reference(q.reshape(B, K * G, D), k, v,
-                                         lengths).reshape(B, K, G, D), dtype)
     for (B, H, K, S, D), dtype in FLASH_PATH_CASES:
         q = randn((B, S, H, D), dtype).transpose(1, 2)
         k, v = (randn((B, S, K, D), dtype).transpose(1, 2) for _ in "kv")
@@ -983,6 +983,33 @@ def check_attention(device) -> dict:
         if dtype == torch.bfloat16:
             path["flash_attention"] = max(path["flash_attention"], err)
         del q, k, v, want
+    path["flash_decode"] = check_decode(device)
+    return path
+
+
+def check_decode(device) -> float:
+    """Phase 6's flash decode checks: the sweeps (``DECODE_CASES``, random
+    lengths, ``TOL``), every path shape at lengths 1, T // 3 and T, and in
+    bf16 at its live length and at ``ragged_lengths`` (``path_tol``), and
+    two bf16 launches at each ``DECODE_REPEAT_CASES`` shape, which must
+    give the same bits.  Returns the largest bf16 max|diff| at the path
+    shapes."""
+    gen = torch.Generator(device).manual_seed(7)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, K, G, T, D in DECODE_CASES:
+            q, k, v = (randn(s, dtype) for s in ((B, K, G, D), (B, K, T, D),
+                                                  (B, K, T, D)))
+            lengths = torch.randint(1, T + 1, (B,), generator=gen,
+                                    device=device)
+            compare(f"decode {dtype} {(B, K, G, T, D)}",
+                    ops.flash_decode(q, k, v, lengths),
+                    ref.decode_reference(q.reshape(B, K * G, D), k, v,
+                                         lengths).reshape(B, K, G, D), dtype)
+    path = 0.0
     for (B, K, G, T, D), dtype in DECODE_PATH_CASES:
         q = randn((B, K, G, D), dtype)
         k, v = (randn((B, T, K, D), dtype).transpose(1, 2) for _ in "kv")
@@ -999,7 +1026,20 @@ def check_attention(device) -> dict:
                           ops.flash_decode(q, k, v, lengths), want, dtype,
                           path_tol(want, dtype))
             if dtype == torch.bfloat16:
-                path["flash_decode"] = max(path["flash_decode"], err)
+                path = max(path, err)
+    for B, K, G, T, D in DECODE_REPEAT_CASES:
+        q = randn((B, K, G, D), torch.bfloat16)
+        k, v = (randn((B, T, K, D), torch.bfloat16).transpose(1, 2)
+                for _ in "kv")
+        lengths = torch.full((B,), T, dtype=torch.int32, device=device)
+        first = ops.flash_decode(q, k, v, lengths)
+        second = ops.flash_decode(q, k, v, lengths)
+        if not torch.equal(first, second):
+            raise AssertionError(f"decode {(B, K, G, T, D)}: two launches on "
+                                 "the same inputs differ")
+        print(f"check decode {(B, K, G, T, D)} bf16: two launches "
+              "bit-identical")
+        del q, k, v, first, second
     return path
 
 
@@ -1173,6 +1213,7 @@ def check_f32_path(device, cfg, prompts, *, prefill_len: int = CHECK_PREFILL,
     runs = []
     for dev, p in ((device, params),
                    (cpu, tree_map(lambda t: t.to(cpu), params))):
+        reset_launches()
         model = build_model(cfg, device=dev)
         logits = make_prefill_step(model)(
             p, {k: v.to(dev) for k, v in batch.items()})
@@ -1184,11 +1225,13 @@ def check_f32_path(device, cfg, prompts, *, prefill_len: int = CHECK_PREFILL,
         for _ in range(n_steps):
             engine.step()
             steps.append(engine.last_logits.to(cpu))
-        runs.append((logits.to(cpu), torch.stack(steps)))
-    (card_prefill, card_steps), (cpu_prefill, cpu_steps) = runs
+        runs.append((logits.to(cpu), torch.stack(steps), launch_counts()))
+    (card_prefill, card_steps, card_launches), (cpu_prefill, cpu_steps, _) \
+        = runs
     out = {"prefill_max_abs_diff":
            float((card_prefill - cpu_prefill).abs().max()),
            "decode_max_abs_diff": float((card_steps - cpu_steps).abs().max())}
+    print("f32 path launches on the card:", json.dumps(card_launches))
     print("f32 path, card vs CPU:", json.dumps(out))
     if not max(out.values()) <= CHECK_TOL:
         raise AssertionError(f"the card's f32 logits differ from the CPU "

@@ -19,12 +19,20 @@
 // that they read the same weight tile while it is in L2.  A loop over d
 // stages a 16-deep slice of x and of w through shared memory as f32,
 // double-buffered: the next slice is loaded from device memory into
-// registers (16-byte loads, neighbouring threads on neighbouring addresses)
-// while the current one is multiplied.  Each thread keeps a TM x TN block of
-// f32 accumulators.  The row tile follows the rows: BM = 8 for at most 8
-// rows (decode: one thread holds all 8 rows of one column, so each weight
-// value is read from shared memory once), 32 for at most 32 and 64 above,
-// so a CTA does no work for rows past C beyond its last partial tile.
+// registers (16-byte loads) while the current one is multiplied.  Each
+// thread keeps a TM x TN block of f32 accumulators.  The row tile follows
+// the rows: BM = 8 for at most 8 rows (decode: one thread holds all 8 rows
+// of one column, so each weight value is read from shared memory once), 32
+// for at most 32 and 64 above (Grok-1's 320-row chunk in five whole
+// tiles), so a CTA does no work for rows past C beyond its last partial
+// tile.
+//
+// What bounds it on an H100: shared memory, before the FMA units.  An SM
+// reads 128 bytes of shared memory a clock and runs 128 fmaf a clock; a
+// thread's TM x TN tile reads TM + TN floats for TM TN fmaf a step of d.
+// At 64 rows the thread tile is 8 x 8 (16 floats for 64 fmaf, as fast as
+// the FMA units take them) rather than 4 x 8 (12 for 32: shared memory
+// then takes 1.5 times the products' time).
 //
 // Operands are read through strides (element strides of the expert and row
 // axes; the last axis must be contiguous).  VEC = 1 takes 16-byte loads and
@@ -218,7 +226,7 @@ int launch(const void* x, const void* w, void* o, int E, int C, int d, int f,
 }
 
 // tile 0: BM = 8 (8 x 1 per thread, 128 threads); 1: BM = 32 (4 x 4, 256);
-// 2: BM = 64 (4 x 8, 256).
+// 2: BM = 64 (8 x 8, 128).
 template <typename T, bool VEC>
 int dispatch_tile(const void* x, const void* w, void* o, int E, int C, int d,
                   int f, const long long* st, int tile, cudaStream_t stream) {
@@ -228,7 +236,7 @@ int dispatch_tile(const void* x, const void* w, void* o, int E, int C, int d,
     case 1:
       return launch<T, 32, 4, 4, VEC>(x, w, o, E, C, d, f, st, stream);
     case 2:
-      return launch<T, 64, 4, 8, VEC>(x, w, o, E, C, d, f, st, stream);
+      return launch<T, 64, 8, 8, VEC>(x, w, o, E, C, d, f, st, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -53,8 +53,12 @@ BN = 128                        # output columns per CTA of the f32 kernel
 MAX_GRID_YZ = 65535             # column tiles on grid.y, experts on grid.z
 MAX_INT = 2 ** 31 - 1           # C, d and f go in as C ints
 # Row tiles of the f32 kernel's three variants, smallest first: a launch
-# takes the first that holds all C rows, else the largest.
+# takes the first that holds all C rows, else the largest; each with its
+# thread tile (rows x columns a thread, the source's dispatch_tile): one
+# thread a column at decode, 4 x 4, and 8 x 8 at 64 rows (Grok-1's 320-row
+# chunk is five whole tiles).
 ROW_TILES = (8, 32, 64)
+F32_THREAD_TILES = ((8, 1), (4, 4), (8, 8))
 # The bf16 kernels' variants, as ``grouped_matmul_tc.cu::dispatch`` has
 # them: (rows, columns, depth of a slice, warps, ring stages); a call whose
 # rows TMA can read takes the first whose rows hold C, else the last.  The
@@ -185,6 +189,39 @@ def plan(E: int, C: int, d: int, f: int, dtype: torch.dtype,
                     stream_ctas(E * cols, slices))
     bm, bn, bk, _, stages = TC_VARIANTS[v]
     return Plan("wgmma", regime, v, bm, bn, bk, stages, CLUSTER)
+
+
+def f32_smem_bytes(p: Plan) -> int:
+    """Static shared memory of one f32 CTA: ``stages`` buffers of a slice
+    of x (``bk`` x ``bm``, k-major) and of w (``bk`` x ``bn``)."""
+    return p.stages * p.bk * (p.bm + p.bn) * 4
+
+
+def f32_threads(p: Plan) -> int:
+    """Threads of one f32 CTA: one per thread tile of the CTA's tile."""
+    tm, tn = F32_THREAD_TILES[p.variant]
+    return p.bm // tm * (p.bn // tn)
+
+
+def f32_grid(p: Plan, E: int, C: int, f: int) -> tuple:
+    """The f32 launch's grid: row tiles (the fastest, so that the row
+    tiles of a column tile run together), column tiles, experts."""
+    return (-(-C // p.bm), -(-f // p.bn), E)
+
+
+def f32_thread_outputs(p: Plan, tid: int) -> list:
+    """The Python twin of the f32 kernel's outputs of thread ``tid``, as
+    (row, column) offsets in its CTA's tile: with a TM x TN thread tile,
+    threads ty = tid // (bn / TN) and tx = tid % (bn / TN) hold rows ty TM
+    + i (i < TM) and, in runs of nv = min(TN, 4) columns, columns g bn /
+    (TN / nv) + tx nv + j (g < TN / nv, j < nv)."""
+    tm, tn = F32_THREAD_TILES[p.variant]
+    cols = p.bn // tn
+    ty, tx = divmod(tid, cols)
+    nv = min(tn, 4)
+    ng = tn // nv
+    return [(ty * tm + i, g * (p.bn // ng) + tx * nv + j)
+            for i in range(tm) for g in range(ng) for j in range(nv)]
 
 
 def stream_rows(C: int) -> int:
@@ -419,6 +456,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["grouped_matmul", "check_args", "row_tile", "plan", "Plan",
+           "f32_smem_bytes", "f32_threads", "f32_grid", "f32_thread_outputs",
            "stream_rows", "stream_ctas", "stream_smem_bytes", "stream_stages",
            "stream_units", "stream_ranges", "stream_pieces", "stream_folds",
            "stream_cuts", "tma_smem_bytes", "tma_layout", "tma_grid"]

@@ -422,6 +422,28 @@ def test_decode_device_split_covers_every_live_length(B, K, G, T, D):
             assert all(hi > lo for lo, hi in chunks)
 
 
+@pytest.mark.parametrize("B,K,G,T,D", DECODE_SHAPES)
+def test_decode_split_takes_every_live_key_at_ragged_lengths(B, K, G, T, D):
+    """In one batch of ragged lengths (1, 63, 64, 65, T - 1 and T) each
+    row's CTAs (``tc_chunk`` over the plan's split) take every live key
+    exactly once, and at full length every CTA of every row streams the
+    same number of 64-key tiles: at decode_32k 256 of the 512, two CTAs a
+    row, 256 CTAs in all."""
+    p = decode_attention.plan(B, K, G, T, D, torch.bfloat16)
+    lengths = [(1, 63, 64, 65, T - 1, T)[b % 6] for b in range(B)]
+    for n in lengths:
+        keys = [t for r in range(p.split)
+                for t in range(*decode_attention.tc_chunk(r, p.split, n))]
+        assert keys == list(range(n))
+    tiles = [(hi - lo) // p.tile for lo, hi in
+             (decode_attention.tc_chunk(r, p.split, T)
+              for r in range(p.split))]
+    assert max(tiles) - min(tiles) <= 1
+    if (B, K, G, T, D) == (16, 8, 4, 32768, 128):
+        assert p.split == 2 and tiles == [256, 256]
+        assert p.grid == (2, 128)
+
+
 def test_decode_plan_matches_the_source():
     """The plan's tile, stages, warps and largest split are those of
     flash_decode_tc.cu, whose C entry launches (split, B*K) CTAs; the

@@ -560,6 +560,28 @@ def test_decode_path_tolerance_admits_bf16_weights(length):
         chip_smoke.compare("lost", lost, want, torch.bfloat16, tol)
 
 
+@pytest.mark.parametrize("length", [160, 4096])
+def test_decode_fold_order_is_fixed(length):
+    """The emulated kernel, whose warps fold in the CTA and whose CTAs fold
+    in rank 0 in a fixed order, gives the same bits twice at the dense
+    serving shape, at the live and at the full length, within the path
+    tolerance of the reference."""
+    B, K, G, T, D = chip_smoke.TIME_DECODES[1][1]
+    split = chip_smoke.decode_attention.plan(B, K, G, T, D,
+                                             torch.bfloat16).split
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               .bfloat16() for s in ((B, K, G, D), (B, K, T, D),
+                                     (B, K, T, D)))
+    first = _tc_decode(q, k, v, length, split)
+    assert torch.equal(first, _tc_decode(q, k, v, length, split))
+    want = chip_smoke.ref.decode_reference(
+        q.reshape(B, K * G, D), k, v, torch.full((B,), length)).reshape(
+            B, K, G, D)
+    chip_smoke.compare("emulated twice", first, want, torch.bfloat16,
+                       chip_smoke.path_tol(want, torch.bfloat16))
+
+
 def test_decode_is_checked_and_timed_at_live_and_ragged_lengths():
     """Every bf16 decode path shape has a live length, the cache's length
     half way through its engine run (every slot attends to the shared

@@ -1,6 +1,7 @@
 """The host-side arithmetic of the port's warp-specialised bf16 kernels
 on the CPU: ``csrc/flash_attention_wgmma.cu`` and the prefill and small-C
-regimes of ``csrc/grouped_matmul_tc.cu``.
+regimes of ``csrc/grouped_matmul_tc.cu``; and of the f32 grouped matmul's
+kernel (``csrc/grouped_matmul.cu``).
 
 The kernels run only on the card; what they take from the host is checked
 here at every bf16 path shape of ``chip_smoke.py`` and its reference
@@ -9,8 +10,9 @@ sweeps: the TMA tensor maps (16-byte strides, boxes of at most 256 and
 views described without a copy), the shared memory of a CTA, the Python
 twin of the attention kernel's key-tile range and mask-free test against
 the mask itself, the grouped matmul's grid and clusters against the
-output they must cover, and the Python twin of the small-C stream's walk
-and second pass against every slice of every item."""
+output they must cover, the Python twin of the small-C stream's walk
+and second pass against every slice of every item, and the f32 kernel's
+grid and threads against every output of every f32 shape checked."""
 
 import importlib.util
 from pathlib import Path
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 import chip_smoke
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import grouped_matmul as gm
 
@@ -508,7 +511,7 @@ def test_ablation_variants_apply_to_the_sources():
     spec = importlib.util.spec_from_file_location("torch_kernel_ablate", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    modules = {mod.GMM: gm, mod.FLASH: fa}
+    modules = {mod.GMM: gm, mod.FLASH: fa, mod.F32: gm, mod.FDEC: da}
     for name, (source, edits, knobs) in mod.VARIANTS.items():
         text = mod.variant_source(name)
         assert (text != (mod.build.CSRC / source).read_text()) == bool(edits)
@@ -516,9 +519,74 @@ def test_ablation_variants_apply_to_the_sources():
     assert {"stream base", "stream no_mma", "stream no_load",
             "stream stages4"} <= set(mod.VARIANTS)
     assert mod.VARIANTS["stream bn128"][2]["STREAM_BN"] == 128
+    # the f32 grouped matmul and the bf16 decode: products, loads, layout
+    # and tile or ring depth, here and (OLD_VARIANTS) on the parent's
+    # sources
+    for group, names in (("f32", ("x_store_vec", "tm4tn8", "tm8tn16")),
+                         ("fdec", ("stages2", "stages4", "split1",
+                                   "no_prefetch"))):
+        for v in ("base", "no_mma", "no_load") + names:
+            assert f"{group} {v}" in mod.VARIANTS
+        for v in ("base", "no_mma", "no_load"):
+            assert f"{group} {v}" in mod.OLD_VARIANTS
+    assert "f32 x_store_vec" in mod.OLD_VARIANTS
     # the replaced design's variants name its 32-row tile
     for name, (source, edits, knobs) in mod.SYNC_DECODE_VARIANTS.items():
         assert source == mod.GMM and not knobs
         assert all("launch<32, 128, 64, 1, 4, 4, VEC>" == old
                    or "acc[i][j]" in old or "load_chunk<VEC>" in old
                    for old, _ in edits), name
+
+
+# (E, C, d, f) of every f32 grouped matmul chip_smoke checks: the sweep,
+# the edges, the strided view and the path shapes.
+F32_SHAPES = sorted(set(chip_smoke.GMM_CASES + chip_smoke.GMM_EDGE_CASES)
+                    | {(3, 40, 64, 300)}
+                    | {s for s, dt in chip_smoke.GMM_PATH_CASES
+                       if dt == torch.float32})
+
+
+@pytest.mark.parametrize("shape", F32_SHAPES)
+def test_f32_grid_covers_every_output_once(shape):
+    """The f32 kernel's grid and its threads' outputs (the Python twin
+    ``f32_thread_outputs``) cover each of the E x C x f outputs exactly
+    once after the stores' masks (row < C, column < f), with row tiles
+    fastest on the grid; the 64-row tiles divide Grok-1's 320 rows."""
+    E, C, d, f = shape
+    p = gm.plan(E, C, d, f, torch.float32)
+    gx, gy, gz = gm.f32_grid(p, E, C, f)
+    assert gz == E and gx * p.bm >= C > (gx - 1) * p.bm
+    assert gy * p.bn >= f > (gy - 1) * p.bn
+    per_thread = [gm.f32_thread_outputs(p, t)
+                  for t in range(gm.f32_threads(p))]
+    tile = sorted(rc for outs in per_thread for rc in outs)
+    assert tile == [(r, c) for r in range(p.bm) for c in range(p.bn)]
+    hits = np.zeros((C, f), np.int64)
+    for bx in range(gx):
+        for by in range(gy):
+            rows = np.array([r for r, _ in tile]) + bx * p.bm
+            cols = np.array([c for _, c in tile]) + by * p.bn
+            keep = (rows < C) & (cols < f)
+            np.add.at(hits, (rows[keep], cols[keep]), 1)
+    assert (hits == 1).all()
+    if C == 320:
+        assert C % p.bm == 0 and p.bm == gm.ROW_TILES[-1]
+
+
+@pytest.mark.parametrize("tile", range(len(gm.ROW_TILES)))
+def test_f32_tiles_fit_shared_memory(tile):
+    """Every f32 variant's two slices of x and w fit the 48 KB of static
+    shared memory, its threads split a slice of w evenly, and at 64 rows a
+    thread's 8 x 8 tile reads 16 floats of shared memory for 64 fmaf a
+    step of d (the 4 x 8 tile it replaced read 12 for 32)."""
+    C = gm.ROW_TILES[tile]
+    p = gm.plan(8, C, 6144, 32768, torch.float32)
+    assert p.variant == tile and p.bm == C and (p.bk, p.stages) == (16, 2)
+    assert gm.f32_smem_bytes(p) <= 48 * 1024
+    threads = gm.f32_threads(p)
+    assert threads <= 1024 and threads % 32 == 0
+    assert p.bk * p.bn // 4 % threads == 0
+    tm, tn = gm.F32_THREAD_TILES[tile]
+    assert p.bm % tm == 0 and p.bn % tn == 0
+    if C == 64:
+        assert (tm, tn) == (8, 8) and (tm + tn) / (tm * tn) == 0.25

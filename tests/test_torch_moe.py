@@ -398,8 +398,9 @@ def test_grouped_matmul_cuda_source():
     for text in (src, tc):
         assert "cuda_error_string" in text and "cudaGetLastError" in text
     assert "constexpr int kBN = 128;" in src and grouped_matmul.BN == 128
-    for bm in grouped_matmul.ROW_TILES:
-        assert f"launch<T, {bm}," in src
+    for bm, (tm, tn) in zip(grouped_matmul.ROW_TILES,
+                            grouped_matmul.F32_THREAD_TILES):
+        assert f"launch<T, {bm}, {tm}, {tn}, VEC>" in src
     # f32 stays on the CUDA cores; bf16 runs the small-C stream and the
     # prefill kernel warp-specialised under TMA on wgmma, and mma.sync
     # where TMA cannot read, from the headers.

@@ -1,11 +1,12 @@
-"""Ablations of the port's warp-specialised bf16 kernels on the card:
-each variant is the source with one part taken out (or the wrapper with
-one choice changed), built beside the real one and timed at a path shape,
-so that the difference says what that part costs.  The variants' outputs
-are wrong by design; only their times count.
+"""Ablations of the port's kernels on the card: each variant is the source
+with one part taken out (or the wrapper with one choice changed), built
+beside the real one and timed at a path shape, so that the difference says
+what that part costs.  The variants' outputs are wrong by design; only
+their times count.
 
     python3 tools/torch_kernel_ablate.py [--dry] [--only GROUP ...] [--passes N]
     python3 tools/torch_kernel_ablate.py --sync-decode DIR [--dry]
+    python3 tools/torch_kernel_ablate.py --old DIR [--only f32 fdec] [--passes N]
 
 Grouped matmul, prefill ("gmm": ``csrc/grouped_matmul_tc.cu``'s
 ``gmm_tma_kernel``, at Grok-1's (8, 320, 6144, 32768) and (8, 160, 6144,
@@ -47,7 +48,29 @@ warpgroups take turns at (the kernel: at D > 64 only); ``stages3``
 deepens the K/V ring to 3 slots; ``one_cta_per_item`` launches the same
 kernel with a CTA per work item instead of a persistent CTA per SM.
 
-Each grouped-matmul group also times ``torch.bmm`` at its shapes.  Prints
+Grouped matmul, f32 ("f32": ``csrc/grouped_matmul.cu`` at Grok-1's
+(8, 320, 6144, 32768) and its down projection, TF32 off): ``no_mma``
+adds each loaded value once instead of the products (the shared-memory
+reads stay); ``no_load`` loads nothing from device memory; ``x_store_vec``
+stores x's slice as 16-byte rows instead of transposed floats;
+``tm4tn8`` and ``tm8tn16`` take a 4 x 8 or 8 x 16 thread tile at 64 rows
+instead of 8 x 8.
+
+Flash decode, bf16 ("fdec": ``csrc/flash_decode_tc.cu`` at decode_32k
+(16, 8, 4, 32768, 128), events and CUDA graph, and the dense serving cache
+(8, 8, 4, 4096, 128) at 4096 and 160 keys, from a graph): ``no_mma`` keeps
+ldmatrix and drops mma.sync; ``no_load`` issues no copy; ``stages2`` and
+``stages4`` give the cp.async ring 2 or 4 slots (4 hold one CTA an SM, so
+one CTA a row); ``split1`` takes one CTA a row with 3 slots; ``prefetch2``
+asks L2 for the K rows two tiles ahead, ``no_prefetch`` for none;
+``l2_128`` asks L2 for 128 bytes a copy instead of 256; ``evict_first``
+marks K and V evict-first in L2.  ``--old DIR`` runs the f32 group's
+``base``, ``no_mma``, ``no_load`` and ``x_store_vec`` and the decode
+group on tree DIR's sources and wrappers (e.g. the parent commit unpacked
+with ``git archive``), and writes ``kernel_ablation_old.json``.
+
+Each grouped-matmul group also times ``torch.bmm`` at its shapes (the f32
+group with TF32 off), the decode group SDPA from a graph.  Prints
 the card's name and power limit and one JSON object of device ms per
 launch (CUDA events, median), and writes it to
 ``chiprun_out/kernel_ablation.json`` (``kernel_ablation_sync_decode.json``
@@ -73,6 +96,118 @@ from repro_torch.kernels import build  # noqa: E402
 
 GMM = "grouped_matmul_tc.cu"
 FLASH = "flash_attention_wgmma.cu"
+F32 = "grouped_matmul.cu"
+FDEC = "flash_decode_tc.cu"
+# Flash decode, bf16 (csrc/flash_decode_tc.cu, at decode_32k and the dense
+# serving cache): mma.sync out, copies out, the cp.async ring's depth, one
+# CTA a row, and no L2 prefetch of the next tile's K rows.
+FDEC_VARIANTS = {
+    "fdec base": (FDEC, [], {}),
+    # ldmatrix kept, mma.sync taken out
+    "fdec no_mma": (FDEC, [
+        ("      mma_bf16_16816(s[0], a, kf);\n"
+         "      mma_bf16_16816(s[1], a, kf + 2);\n",
+         "      s[0][0] += __uint_as_float((kf[0] ^ kf[1] ^ kf[2] ^ kf[3] ^ a[0])\n"
+         "                                 & 0x3f800000u);\n"),
+        ("      mma_bf16_16816(acc[j], pf, vf);\n"
+         "      mma_bf16_16816(acc[j + 1], pf, vf + 2);\n",
+         "      acc[j][0] += __uint_as_float((vf[0] ^ vf[1] ^ pf[0]) & 0x3f800000u);\n"
+         "      acc[j + 1][0] += __uint_as_float((vf[2] ^ vf[3] ^ pf[2])\n"
+         "                                       & 0x3f800000u);\n")], {}),
+    "fdec no_load": (FDEC, [
+        ("    cp_async16_l2_256(\n"
+         "        dst + r * (D + 8) + col,\n"
+         "        ok ? src + static_cast<long long>(t0 + r) * stride + col : src,\n"
+         "        ok ? 16 : 0);\n", "    (void)ok; (void)col;\n"),
+        ("      if (nt + 1 < n_tiles && tp < t_end && (threadIdx.x % 2 == 0 || D > 64))\n"
+         "        prefetch_l2(kp + tp * skt + (threadIdx.x % 2) * 64);\n",
+         "      (void)tp;\n")], {}),
+    "fdec stages2": (FDEC, [("constexpr int kStages = 3;",
+                             "constexpr int kStages = 2;")], {"TC_STAGES": 2}),
+    # 4 slots (139 KB at D = 128) hold one CTA an SM: one CTA a row
+    "fdec stages4": (FDEC, [("constexpr int kStages = 3;",
+                             "constexpr int kStages = 4;")],
+                     {"TC_STAGES": 4, "TC_CTAS_PER_SM": 1}),
+    # 3 slots, one CTA a row (128 at decode_32k): the split's share
+    "fdec split1": (FDEC, [], {"TC_CTAS_PER_SM": 1}),
+    # L2 asked for the K rows two tiles past the newest in flight
+    "fdec prefetch2": (FDEC, [(
+        "      const int tp = (tile_lo + nt + 1) * kTile + threadIdx.x / 2;\n"
+        "      if (nt + 1 < n_tiles",
+        "      const int tp = (tile_lo + nt + 2) * kTile + threadIdx.x / 2;\n"
+        "      if (nt + 2 < n_tiles")], {}),
+    # the copies ask L2 for 128 bytes instead of 256, or mark K and V
+    # evict-first in L2
+    "fdec l2_128": (FDEC, [(
+        "    cp_async16_l2_256(\n",
+        "    asm volatile(\"cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\\n\"\n"
+        "                 :: \"r\"(smem_addr(dst + r * (D + 8) + col)),\n"
+        "                 \"l\"(ok ? src + static_cast<long long>(t0 + r) * stride + col : src),\n"
+        "                 \"r\"(ok ? 16 : 0) : \"memory\");\n"
+        "    if (false) cp_async16_l2_256(\n")], {}),
+    "fdec evict_first": (FDEC, [(
+        "    cp_async16_l2_256(\n",
+        "    uint64_t pol;\n"
+        "    asm volatile(\"createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\" : \"=l\"(pol));\n"
+        "    asm volatile(\"cp.async.cg.shared.global.L2::cache_hint.L2::256B [%0], [%1], 16, %2, %3;\\n\"\n"
+        "                 :: \"r\"(smem_addr(dst + r * (D + 8) + col)),\n"
+        "                 \"l\"(ok ? src + static_cast<long long>(t0 + r) * stride + col : src),\n"
+        "                 \"r\"(ok ? 16 : 0), \"l\"(pol) : \"memory\");\n"
+        "    if (false) cp_async16_l2_256(\n")], {}),
+    "fdec no_prefetch": (FDEC, [(
+        "      if (nt + 1 < n_tiles && tp < t_end && (threadIdx.x % 2 == 0 || D > 64))\n"
+        "        prefetch_l2(kp + tp * skt + (threadIdx.x % 2) * 64);\n",
+        "      (void)tp;\n")], {}),
+}
+# The f32 grouped matmul (csrc/grouped_matmul.cu, at Grok-1's prefill chunk
+# and its down projection), here and in a tree before its 8 x 8 tile
+# (--old DIR, e.g. the parent commit unpacked with git archive, with that
+# tree's wrappers): products out (each loaded value added once, so the
+# shared-memory reads stay), loads out, and x's slice stored as 16-byte
+# rows in load order instead of transposed floats (a wrong layout: only
+# the time counts).
+F32_COMMON = {
+    "f32 base": (F32, [], {}),
+    # no products: each loaded value is added once, so the shared-memory
+    # reads stay
+    "f32 no_mma": (F32, [(
+        "#pragma unroll\n"
+        "      for (int i = 0; i < TM; ++i)\n"
+        "#pragma unroll\n"
+        "        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);\n",
+        "#pragma unroll\n"
+        "      for (int i = 0; i < TM; ++i) acc[i][0] += a[i];\n"
+        "#pragma unroll\n"
+        "      for (int j = 0; j < TN; ++j) acc[0][j] += b[j];\n")], {}),
+    "f32 no_load": (F32, [
+        ("        load_chunk<T, VEC>(xe + (m0 + r) * sxc, k0 + kc, d, m0 + r < C,\n"
+         "                           a_reg[i]);\n",
+         "        for (int j = 0; j < V; ++j) a_reg[i][j] = 1.f + r + kc;\n"),
+        ("      load_chunk<T, VEC>(we + (k0 + r) * swd, n0 + nc, f, k0 + r < d,\n"
+         "                         b_reg[i]);\n",
+         "      for (int j = 0; j < V; ++j) b_reg[i][j] = 1.f + r + nc;\n")], {}),
+    # x's slice stored as 16-byte rows in load order instead of transposed
+    # one float at a time (a wrong layout: only the time counts)
+    "f32 x_store_vec": (F32, [(
+        "#pragma unroll\n"
+        "        for (int j = 0; j < V; ++j) As[buf][kc + j][r] = a_reg[i][j];\n",
+        "        (void)r; (void)kc;\n"
+        "        *reinterpret_cast<float4*>(&As[buf][0][0] + c * V) = make_float4(\n"
+        "            a_reg[i][0], a_reg[i][1], a_reg[i][2], a_reg[i][3]);\n")], {}),
+}
+# Here also the first design's 4 x 8 thread tile at 64 rows, and 8 x 16.
+F32_VARIANTS = {
+    **F32_COMMON,
+    "f32 tm4tn8": (F32, [(
+        "      return launch<T, 64, 8, 8, VEC>(x, w, o, E, C, d, f, st, stream);",
+        "      return launch<T, 64, 4, 8, VEC>(x, w, o, E, C, d, f, st, stream);")],
+        {"F32_THREAD_TILES": ((8, 1), (4, 4), (4, 8))}),
+    "f32 tm8tn16": (F32, [(
+        "      return launch<T, 64, 8, 8, VEC>(x, w, o, E, C, d, f, st, stream);",
+        "      return launch<T, 64, 8, 16, VEC>(x, w, o, E, C, d, f, st, stream);")],
+        {"F32_THREAD_TILES": ((8, 1), (4, 4), (8, 16))}),
+}
+OLD_VARIANTS = {**F32_COMMON, **FDEC_VARIANTS}
 # variant -> (source, [(text, replacement), ...], {wrapper attribute: value})
 VARIANTS = {
     "gmm base": (GMM, [], {}),
@@ -205,6 +340,8 @@ VARIANTS = {
                                "constexpr int kStages = 3;")], {}),
     # the same source, launched with one CTA per work item
     "flash one_cta_per_item": (FLASH, [], {"SMS": 2 ** 30}),
+    **FDEC_VARIANTS,
+    **F32_VARIANTS,
 }
 # The small-C design the stream replaced, for a tree that holds it
 # (--sync-decode): its 32-row decode tile, launch<32, 128, 64, 1, 4, 4, VEC>.
@@ -232,6 +369,12 @@ GMM_SHAPES = [(8, 320, 6144, 32768), (8, 160, 6144, 32768)]
 DECODE_SHAPES = [(8, 8, 6144, 32768), (8, 8, 32768, 6144), (384, 8, 2048, 7168),
                  (384, 28, 7168, 2048), (384, 56, 7168, 2048)]
 FLASH_SHAPES = [(4, 32, 8, 2048, 128), (4, 25, 5, 2048, 64)]
+# f32: Grok-1's prefill chunk and its down projection
+F32_SHAPES = [(8, 320, 6144, 32768), (8, 320, 32768, 6144)]
+# bf16 decode (B, K, G, T, D, live length): decode_32k, the dense serving
+# cache whole and at its live length
+FDEC_SHAPES = [(16, 8, 4, 32768, 128, 32768), (8, 8, 4, 4096, 128, 4096),
+               (8, 8, 4, 4096, 128, 160)]
 
 
 def variant_source(name: str, variants: dict = VARIANTS) -> str:
@@ -273,10 +416,14 @@ def use_tree(tree: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dry", action="store_true")
-    ap.add_argument("--only", nargs="*", default=("gmm", "stream", "flash"),
+    ap.add_argument("--only", nargs="*",
+                    default=("gmm", "stream", "flash", "f32", "fdec"),
                     help="groups of variants to run")
     ap.add_argument("--sync-decode", type=Path, metavar="DIR",
                     help="ablate the mma.sync decode design of tree DIR")
+    ap.add_argument("--old", type=Path, metavar="DIR",
+                    help="ablate the f32 grouped matmul and bf16 flash "
+                         "decode that tree DIR holds")
     ap.add_argument("--passes", type=int, default=1,
                     help="time the grouped-matmul variants this many times, "
                          "every other pass in reverse order")
@@ -286,15 +433,20 @@ def main() -> int:
         use_tree(a.sync_decode.resolve())
         variants, groups = SYNC_DECODE_VARIANTS, ("decode",)
         out_name = "kernel_ablation_sync_decode.json"
+    if a.old:
+        use_tree(a.old.resolve())
+        variants, out_name = OLD_VARIANTS, "kernel_ablation_old.json"
     texts = {name: variant_source(name, variants) for name in variants}
     chosen = [n for n in variants if n.split()[0] in groups]
     if a.dry:
         print(f"{len(variants)} variants apply")
         return 0
     import torch
+    import torch.nn.functional as F
 
     import chip_smoke
-    from repro_torch.kernels import flash_attention, grouped_matmul, ops
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     grouped_matmul, ops)
     if not torch.cuda.is_available():
         print("no CUDA device")
         return 1
@@ -303,15 +455,23 @@ def main() -> int:
     first = {}
     for name in chosen:
         first.setdefault(texts[name], name)
+    def try_build(name, text):
+        try:
+            return build_variant(name, text)
+        except subprocess.CalledProcessError:
+            print(f"!! {name} did not build: left out")
+            return None
+
     with concurrent.futures.ThreadPoolExecutor(len(first)) as pool:
         built = dict(zip(first.values(), pool.map(
-            build_variant, first.values(), first.keys())))
+            try_build, first.values(), first.keys())))
+    chosen = [n for n in chosen if built[first[texts[n]]] is not None]
     libs = {name: built[first[texts[name]]] for name in chosen}
     device = torch.device("cuda", 0)
     gen = torch.Generator(device).manual_seed(0)
 
-    def randn(shape, scale=1.0):
-        return torch.randn(shape, generator=gen, dtype=torch.bfloat16,
+    def randn(shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, dtype=dtype,
                            device=device).mul_(scale)
 
     def use(name, module, source, bind):
@@ -355,6 +515,48 @@ def main() -> int:
                     chip_smoke.median_event_ms(lambda: torch.bmm(x, w), n=5,
                                                repeats=5)
             del x, w
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = [n for n in chosen if n.split()[0] == "f32"]
+    for E, C, d, f in F32_SHAPES if names else ():
+        x = randn((E, C, d), dtype=torch.float32)
+        w = randn((E, d, f), d ** -0.5, torch.float32)
+        for i in range(a.passes):
+            tag = f" pass {i + 1}" if a.passes > 1 else ""
+            for name in names if i % 2 == 0 else names[::-1]:
+                saved = use(name, gm, gm.SOURCE, gm._bind)
+                out[f"{name} {(E, C, d, f)}{tag}"] = chip_smoke.median_event_ms(
+                    lambda: ops.grouped_matmul(x, w), n=1, repeats=5)
+                restore(gm, saved)
+            out[f"f32 bmm {(E, C, d, f)}{tag}"] = chip_smoke.median_event_ms(
+                lambda: torch.bmm(x, w), n=1, repeats=5)
+        del x, w
+    da = decode_attention
+    names = [n for n in chosen if n.split()[0] == "fdec"]
+    for B, K, G, T, D, n in FDEC_SHAPES if names else ():
+        q = randn((B, K, G, D))
+        k, v = (randn((B, T, K, D)).transpose(1, 2) for _ in "kv")
+        lengths = torch.full((B,), n, dtype=torch.int32, device=device)
+        mask = (torch.arange(T, device=device)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        q_h = q.reshape(B, K * G, 1, D)
+        shape = (B, K, G, T, D)
+        for i in range(a.passes):
+            tag = f" pass {i + 1}" if a.passes > 1 else ""
+            for name in names if i % 2 == 0 else names[::-1]:
+                saved = use(name, da, da.TC_SOURCE, da._bind_tc)
+                fn = lambda: ops.flash_decode(q, k, v, lengths)  # noqa: E731
+                if n == T == 32768:
+                    out[f"{name} {shape} len {n}{tag}"] = \
+                        chip_smoke.median_event_ms(fn, n=10, repeats=10)
+                out[f"{name} {shape} len {n} graph{tag}"] = \
+                    chip_smoke.median_graph_ms(fn, n=20, repeats=10)
+                restore(da, saved)
+            out[f"fdec sdpa {shape} len {n} graph{tag}"] = \
+                chip_smoke.median_graph_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q_h, k, v, attn_mask=mask, enable_gqa=True),
+                    n=20, repeats=10)
+        del q, k, v, mask
     fa = flash_attention
     flash = [n for n in chosen if n.split()[0] == "flash"]
     for B, H, K, S, D in FLASH_SHAPES if flash else ():

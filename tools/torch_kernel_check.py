@@ -1,26 +1,33 @@
-"""Build, check and time the port's bf16 flash attention and grouped matmul
-on the card, each check in a child process under a time limit.
+"""Build, check and time the port's flash attention, flash decode and
+grouped matmul on the card, each check in a child process under a time
+limit.
 
-    python3 tools/torch_kernel_check.py [--ptxas] [--check [attention gmm]]
-                                        [--time] [--parent DIR] [--timeout S]
+    python3 tools/torch_kernel_check.py [--ptxas]
+        [--check [attention decode gmm]] [--time] [--parent DIR]
+        [--timeout S]
 
-``--ptxas`` compiles both sources with ``-Xptxas -v`` and prints each
-kernel's registers, shared memory and spills.  ``--check`` runs
-``chip_smoke.check_attention`` and ``chip_smoke.check_gmm``, or the one
-named (every sweep
-and path shape against the plain versions, under the script's tolerances),
-each in a child process killed after ``--timeout`` seconds: a kernel that waits on a barrier that
-never completes fails its check instead of holding the card.  ``--time``
-prints the kernels' device ms per launch (CUDA events over back-to-back
-launches; for attention also replayed from a CUDA graph, device time
+``--ptxas`` compiles the bf16 flash attention, both grouped matmuls and
+the bf16 flash decode with ``-Xptxas -v`` and prints each kernel's
+registers, shared memory and spills.
+``--check`` runs ``chip_smoke.check_attention`` (flash attention and
+flash decode), ``chip_smoke.check_decode`` (flash decode alone) and
+``chip_smoke.check_gmm`` (both dtypes), or the ones named (every sweep and
+path shape against the plain versions, under the script's tolerances, and
+the two-launch bit checks), each in a child process killed after
+``--timeout`` seconds: a kernel that waits on a barrier that never
+completes fails its check instead of holding the card.  ``--time`` prints
+the kernels' device ms per launch (CUDA events over back-to-back launches;
+for attention and decode also replayed from a CUDA graph, device time
 without the host's gaps) and host ms per call, beside
-``scaled_dot_product_attention`` and ``torch.bmm``, at the bf16 path
-shapes (``chip_smoke.TIME_ATTENTION``, ``TIME_MASKED_ATTENTION``, every
-row of ``TIME_GMM`` and ``GMM_OFF_PATH``, small C and large, and a small
-decode shape, ``HOST_PROBE``, whose host ms is the wrapper's cost), and with
-``--parent DIR`` (an unpacked tree of another commit) the same shapes on
-that tree's kernels, in turns: parent, this tree, this tree, parent.
-Needs a card; exits 1 if any step failed.
+``scaled_dot_product_attention`` and ``torch.bmm``, at the path shapes
+(``chip_smoke.TIME_ATTENTION``, ``TIME_MASKED_ATTENTION``, every row of
+``TIME_DECODES`` at the full cache and the live length, every row of
+``TIME_GMM``, ``GMM_OFF_PATH`` and ``TIME_GMM_F32``, the f32 rows beside
+``torch.bmm`` with TF32 off, and a small decode shape, ``HOST_PROBE``,
+whose host ms is the wrapper's cost), and with ``--parent DIR`` (an
+unpacked tree of another commit) the same shapes on that tree's kernels,
+in turns: parent, this tree, this tree, parent.  Needs a card; exits 1 if
+any step failed.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ def child(kind: str, tree: Path) -> None:
     device = torch.device("cuda", 0)
     if kind == "check_attention":
         print(json.dumps({"path_max_abs": chip_smoke.check_attention(device)}))
+    elif kind == "check_decode":
+        print(json.dumps({"path_max_abs": chip_smoke.check_decode(device)}))
     elif kind == "check_gmm":
         out = chip_smoke.check_gmm(device)
         print(json.dumps({str(k): v for k, v in out.items()}))
@@ -58,15 +67,15 @@ HOST_PROBE = ("host probe", (8, 8, 256, 4096), 20, 20)
 
 
 def time_kernels(cs, device) -> dict:
-    """Device ms per launch of both kernels and their library calls at the
-    bf16 path shapes."""
+    """Device ms per launch of the kernels and their library calls at the
+    path shapes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     gen = torch.Generator(device).manual_seed(9)
 
-    def randn(shape, scale=1.0):
-        return torch.randn(shape, generator=gen, dtype=torch.bfloat16,
+    def randn(shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, dtype=dtype,
                            device=device).mul_(scale)
 
     out = {}
@@ -94,12 +103,37 @@ def time_kernels(cs, device) -> dict:
                     and S == T else mask, is_causal=causal and not window
                     and S == T, enable_gqa=True), n=5, repeats=10)}
         del q, k, v, mask
+    for name, (B, K, G, T, D) in cs.TIME_DECODES:
+        q = randn((B, K, G, D))
+        k, v = (randn((B, T, K, D)).transpose(1, 2) for _ in "kv")
+        for n in sorted({T, cs.DECODE_LIVE.get((B, K, G, T, D), T)}):
+            lengths = torch.full((B,), n, dtype=torch.int32, device=device)
+            mask = (torch.arange(T, device=device)[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            q_h = q.reshape(B, K * G, 1, D)
+
+            def kernel(q=q, k=k, v=v, lengths=lengths):
+                return ops.flash_decode(q, k, v, lengths)
+
+            def sdpa(q_h=q_h, k=k, v=v, mask=mask):
+                return F.scaled_dot_product_attention(
+                    q_h, k, v, attn_mask=mask, enable_gqa=True)
+
+            out[f"{name} len {n}"] = {
+                "ms": cs.median_event_ms(kernel, n=10, repeats=10),
+                "graph_ms": cs.median_graph_ms(kernel, n=20, repeats=10),
+                "host_ms": cs.median_host_ms(kernel, n=10, repeats=10),
+                "sdpa_graph_ms": cs.median_graph_ms(sdpa, n=20, repeats=10)}
+        del q, k, v
+    torch.backends.cuda.matmul.allow_tf32 = False
     # HOST_PROBE: a call whose device time is far below its host time, so
     # that host_ms is the wrapper's own cost
-    rows = list(cs.TIME_GMM) + list(cs.GMM_OFF_PATH) + [HOST_PROBE]
-    for name, (E, C, d, f), n, repeats in rows:
-        x = randn((E, C, d))
-        w = randn((E, d, f), d ** -0.5)
+    rows = [(*row, torch.bfloat16) for row in
+            list(cs.TIME_GMM) + list(cs.GMM_OFF_PATH) + [HOST_PROBE]]
+    rows += [(*row, torch.float32) for row in cs.TIME_GMM_F32]
+    for name, (E, C, d, f), n, repeats, dtype in rows:
+        x = randn((E, C, d), dtype=dtype)
+        w = randn((E, d, f), d ** -0.5, dtype)
         out[f"gmm {name}"] = {
             "ms": cs.median_event_ms(lambda: ops.grouped_matmul(x, w), n=n,
                                      repeats=repeats),
@@ -126,7 +160,7 @@ def run_child(kind: str, tree: Path, timeout: int):
         return False, None
     lines = proc.stdout.splitlines()
     keep = [ln for ln in lines if not ln.startswith("check ")
-            or "path" in ln or "gmm" in ln]
+            or "path" in ln or "gmm" in ln or "bit-identical" in ln]
     print("\n".join(keep[-80:]))
     if proc.returncode != 0:
         print(proc.stderr[-6000:])
@@ -147,7 +181,8 @@ def ptxas() -> list:
     out_dir.mkdir(exist_ok=True)
     lib_dir.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in ("flash_attention_wgmma.cu", "grouped_matmul_tc.cu"):
+    for name in ("flash_attention_wgmma.cu", "grouped_matmul_tc.cu",
+                 "grouped_matmul.cu", "flash_decode_tc.cu"):
         cmd = [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
                str(lib_dir / f"{name}.so"), str(build.CSRC / name)]
         procs.append((name, subprocess.Popen(
@@ -173,8 +208,10 @@ def ptxas_report(procs) -> bool:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--check", nargs="*", choices=("attention", "gmm"),
-                    help="the checks to run (both when none is named)")
+    ap.add_argument("--check", nargs="*",
+                    choices=("attention", "decode", "gmm"),
+                    help="the checks to run (attention and gmm when none "
+                         "is named)")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--timeout", type=int, default=300)
