@@ -334,6 +334,18 @@ FLASH_CASES = [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 2, 96, 32),
 FLASH_CROSS_CASES = [(2, 4, 4, 37, 100, 64), (1, 6, 6, 130, 75, 32),
                      (2, 10, 2, 64, 200, 16), (1, 5, 1, 1, 129, 64)]
 FLASH_WINDOWS = (0, 16, 100)
+# f32 sweeps on the f32 kernel's tile edges, (B,H,K,S,T,D), causal,
+# window, under TOL at each of its query blocks (64 and 128 rows,
+# 128-key tiles): S = 127, 128 and 129 rows, windows of 100 and 200 keys
+# that straddle a 128-key tile, and one key against 130 queries.
+FLASH_F32_EDGES = [((1, 4, 2, 127, 127, 128), True, 0),
+                   ((1, 4, 2, 128, 128, 112), True, 0),
+                   ((2, 4, 1, 129, 129, 64), True, 0),
+                   ((1, 4, 2, 129, 129, 32), False, 0),
+                   ((1, 4, 4, 300, 300, 128), True, 100),
+                   ((1, 5, 1, 400, 400, 64), True, 200),
+                   ((1, 4, 2, 130, 1, 64), False, 0),
+                   ((1, 4, 2, 130, 1, 16), False, 0)]
 FLASH_PATH_CASES = [((PREFILL_B, 32, 8, PREFILL_S, 128), torch.bfloat16),
                     ((1, 32, 8, CHECK_PREFILL, 128), torch.float32),
                     ((2, 48, 8, 2048, 128), torch.bfloat16),
@@ -405,6 +417,22 @@ TIME_MASKED_ATTENTION = [
     for name, (shape, dtype, causal, window) in zip(
         ("hymba", "whisper encoder", "whisper self", "whisper cross"),
         [c for c in FLASH_MASK_PATH_CASES if c[1] == torch.bfloat16])]
+# Timed in f32 (phase 9): Qwen3-4B's prefill, every f32 shape of the
+# serving paths' checks (FLASH_PATH_CASES, FLASH_MASK_PATH_CASES) and a
+# full-width D = 64 shape with Hymba's window: (name, (B,H,K,S,T,D),
+# causal, window).
+TIME_ATTENTION_F32 = [
+    ("flash_attention f32", (PREFILL_B, 32, 8, PREFILL_S, PREFILL_S, 128),
+     True, 0),
+    ("flash_attention f32 d64", (4, 25, 5, 2048, 2048, 64), True, 1024)] + [
+    (f"flash_attention f32 {name}", shape, causal, window)
+    for name, (shape, causal, window) in zip(
+        ("qwen check", "kimi check", "hymba check", "whisper encoder check",
+         "whisper self check", "whisper cross check"),
+        [((B, H, K, S, S, D), True, 0) for (B, H, K, S, D), dtype
+         in FLASH_PATH_CASES if dtype == torch.float32]
+        + [(shape, causal, window) for shape, dtype, causal, window
+           in FLASH_MASK_PATH_CASES if dtype == torch.float32])]
 # Launched twice on the same inputs in phase 6, whose outputs must be the
 # same bits: bf16 decode at decode_32k and at the dense serving path's
 # shape (each row's CTAs folded in a fixed order).
@@ -932,9 +960,23 @@ def ragged_lengths(B: int, K: int, G: int, T: int, D: int) -> list:
     return [min(max(edges[i % len(edges)], 1), T) for i in range(B)]
 
 
+def flash_blocks(q, k, v, *, causal: bool = True, window: int = 0) -> list:
+    """(label, output) of ``ops.flash_attention``; for f32 on the card, of
+    the f32 kernel at each of its query blocks (``F32_BLOCKS``), since a
+    sweep's small shapes would otherwise take only the one the plan
+    picks."""
+    if q.device.type != "cuda" or q.dtype != torch.float32:
+        return [("", ops.flash_attention(q, k, v, causal=causal,
+                                         window=window))]
+    return [(f" block {bq}", flash_attention.flash_attention(
+        q, k, v, causal=causal, window=window, block_q=bq))
+        for bq in flash_attention.F32_BLOCKS]
+
+
 def check_attention(device) -> dict:
     """Phase 6: flash attention and flash decode against their plain
-    versions on the same inputs.  The sweeps use contiguous tensors and
+    versions on the same inputs.  The sweeps (f32 at every query block of
+    its kernel, and ``FLASH_F32_EDGES``) use contiguous tensors and
     ``TOL``; the serving path's shapes use the model's layouts ((B,S,H,D)
     activations and the (B,T,K,D) cache), which the kernels read through
     strides, and ``path_tol``.  Returns the largest max|diff| of each
@@ -944,24 +986,33 @@ def check_attention(device) -> dict:
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, dtype=dtype, device=device)
 
+    def sweep(name, q, k, v, dtype, causal=True, window=0):
+        want = ref.mha_reference(q, k, v, causal=causal, window=window)
+        for label, got in flash_blocks(q, k, v, causal=causal,
+                                       window=window):
+            compare(name + label, got, want, dtype)
+
     path = {"flash_attention": 0.0, "flash_decode": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for B, H, K, S, D in FLASH_CASES:
             q, k, v = (randn(s, dtype) for s in ((B, H, S, D), (B, K, S, D),
                                                   (B, K, S, D)))
             for window in FLASH_WINDOWS:
-                compare(f"flash {dtype} {(B, H, K, S, D)} window {window}",
-                        ops.flash_attention(q, k, v, window=window),
-                        ref.mha_reference(q, k, v, window=window), dtype)
-            compare(f"flash {dtype} {(B, H, K, S, D)} not causal",
-                    ops.flash_attention(q, k, v, causal=False),
-                    ref.mha_reference(q, k, v, causal=False), dtype)
+                sweep(f"flash {dtype} {(B, H, K, S, D)} window {window}",
+                      q, k, v, dtype, window=window)
+            sweep(f"flash {dtype} {(B, H, K, S, D)} not causal", q, k, v,
+                  dtype, causal=False)
         for B, H, K, S, T, D in FLASH_CROSS_CASES:
             q, k, v = (randn(s, dtype) for s in ((B, H, S, D), (B, K, T, D),
                                                   (B, K, T, D)))
-            compare(f"flash {dtype} {(B, H, K, S, T, D)} cross",
-                    ops.flash_attention(q, k, v, causal=False),
-                    ref.mha_reference(q, k, v, causal=False), dtype)
+            sweep(f"flash {dtype} {(B, H, K, S, T, D)} cross", q, k, v,
+                  dtype, causal=False)
+    dtype = torch.float32
+    for (B, H, K, S, T, D), causal, window in FLASH_F32_EDGES:
+        q, k, v = (randn(s, dtype) for s in ((B, H, S, D), (B, K, T, D),
+                                              (B, K, T, D)))
+        sweep(f"flash {dtype} {(B, H, K, S, T, D)} causal {causal} window "
+              f"{window}", q, k, v, dtype, causal=causal, window=window)
     for (B, H, K, S, D), dtype in FLASH_PATH_CASES:
         q = randn((B, S, H, D), dtype).transpose(1, 2)
         k, v = (randn((B, S, K, D), dtype).transpose(1, 2) for _ in "kv")
@@ -1287,9 +1338,10 @@ def time_attention(device, kind: str) -> dict:
     """Phase 9: each attention kernel's device ms per launch, the host's ms
     per call, its plain version's ms and one PyTorch call's ms
     (``scaled_dot_product_attention``, timed only) at the timed shapes:
-    ``TIME_ATTENTION`` in bf16 (and Qwen3-4B's in f32 as well) and
-    ``TIME_MASKED_ATTENTION`` in bf16 with their masks (SDPA given the
-    same mask as a boolean ``attn_mask``), ``TIME_DECODES`` in bf16, at
+    ``TIME_ATTENTION`` in bf16, ``TIME_MASKED_ATTENTION`` in bf16 and
+    ``TIME_ATTENTION_F32`` in f32 with their masks (SDPA given the same
+    mask as a boolean ``attn_mask``, or ``is_causal`` for a causal S = T
+    without a window), ``TIME_DECODES`` in bf16, at
     the full cache and at ``DECODE_LIVE``'s live lengths, and
     ``TIME_DECODE_F32`` in f32 at the full cache.  Each bf16 decode row
     also times the CUDA-core decode kernel on the same inputs
@@ -1303,32 +1355,29 @@ def time_attention(device, kind: str) -> dict:
         return torch.randn(shape, generator=gen, dtype=dtype, device=device)
 
     out = {}
-    for label, (B, H, K, S, D) in TIME_ATTENTION:
-        dtypes = (torch.bfloat16, torch.float32) \
-            if (B, H, K, S, D) == TIME_PREFILL else (torch.bfloat16,)
-        for dtype in dtypes:
-            q = randn((B, S, H, D), dtype).transpose(1, 2)
-            k, v = (randn((B, S, K, D), dtype).transpose(1, 2) for _ in "kv")
-
-            def kernel(q=q, k=k, v=v):
-                return ops.flash_attention(q, k, v)
-
-            nbytes, flops, bound_ms, bound_by = attention_bound(
-                kind, B, H, K, S, S, D, q.element_size())
-            out[f"{label} {dtype}"] = {
-                "shape": [B, H, K, S, D],
-                "ms": median_event_ms(kernel, n=5, repeats=10),
-                "host_ms_per_call": median_host_ms(kernel, n=5, repeats=10),
-                "plain_ms": median_event_ms(
-                    lambda: ref.mha_reference(q, k, v), n=2, repeats=3),
-                "library_ms": median_event_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=True, enable_gqa=True),
-                    n=5, repeats=10),
-                "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
-                "bound_by": bound_by}
-            del q, k, v
     dtype = torch.bfloat16
+    for label, (B, H, K, S, D) in TIME_ATTENTION:
+        q = randn((B, S, H, D), dtype).transpose(1, 2)
+        k, v = (randn((B, S, K, D), dtype).transpose(1, 2) for _ in "kv")
+
+        def kernel(q=q, k=k, v=v):
+            return ops.flash_attention(q, k, v)
+
+        nbytes, flops, bound_ms, bound_by = attention_bound(
+            kind, B, H, K, S, S, D, q.element_size())
+        out[f"{label} {dtype}"] = {
+            "shape": [B, H, K, S, D],
+            "ms": median_event_ms(kernel, n=5, repeats=10),
+            "host_ms_per_call": median_host_ms(kernel, n=5, repeats=10),
+            "plain_ms": median_event_ms(
+                lambda: ref.mha_reference(q, k, v), n=2, repeats=3),
+            "library_ms": median_event_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True),
+                n=5, repeats=10),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        del q, k, v
     for label, (B, H, K, S, T, D), causal, window in TIME_MASKED_ATTENTION:
         q = randn((B, S, H, D), dtype).transpose(1, 2)
         k, v = (randn((B, T, K, D), dtype).transpose(1, 2) for _ in "kv")
@@ -1358,6 +1407,40 @@ def time_attention(device, kind: str) -> dict:
             "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
             "bound_by": bound_by}
         del q, k, v, mask
+    dtype = torch.float32
+    for label, (B, H, K, S, T, D), causal, window in TIME_ATTENTION_F32:
+        q = randn((B, S, H, D), dtype).transpose(1, 2)
+        k, v = (randn((B, T, K, D), dtype).transpose(1, 2) for _ in "kv")
+        keep = (torch.arange(S, device=device)[:, None]
+                - torch.arange(T, device=device)[None, :])
+        mask = ((keep >= 0) if causal else torch.ones_like(keep, dtype=bool))
+        if window:
+            mask &= keep < window
+
+        def kernel(q=q, k=k, v=v, causal=causal, window=window):
+            return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+        def sdpa(q=q, k=k, v=v, mask=mask, causal=causal and not window
+                 and S == T):
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=None if causal else mask,
+                is_causal=causal, enable_gqa=True)
+
+        nbytes, flops, bound_ms, bound_by = attention_bound(
+            kind, B, H, K, S, T, D, 4, causal, window)
+        out[label] = {
+            "shape": [B, H, K, S, T, D], "causal": causal, "window": window,
+            "block_q": flash_attention.plan(B, H, S, D, dtype).block_q,
+            "ms": median_event_ms(kernel, n=3, repeats=5),
+            "host_ms_per_call": median_host_ms(kernel, n=3, repeats=5),
+            "plain_ms": median_event_ms(
+                lambda: ref.mha_reference(q, k, v, causal=causal,
+                                          window=window), n=1, repeats=3),
+            "library_ms": median_event_ms(sdpa, n=3, repeats=5),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        del q, k, v, mask
+    dtype = torch.bfloat16
     decode_rows = [(name, shape, shape[3]) for name, shape in TIME_DECODES]
     decode_rows += [(f"{name} live {DECODE_LIVE[shape]}", shape,
                      DECODE_LIVE[shape]) for name, shape in TIME_DECODES

@@ -8,11 +8,15 @@ for ``sm_90a`` at first use and bound with ``ctypes`` (``build.py``):
 (FlashAttention-3's shape: a TMA producer warpgroup and two consumer
 warpgroups on ``wgmma``, P kept in registers), and
 ``csrc/flash_attention.cu`` takes f32 on the CUDA cores (IEEE products:
-TF32 would miss the f32 tolerance).  Their plain version is
-``ref.mha_reference``; :func:`plan` says which kernel and which blocks a
-call takes, and :func:`tma_layout`, :func:`key_tiles` and
-:func:`mask_free` are the host-side and Python twins of the bf16 kernel's
-tensor maps, key-tile range and mask test, which the CPU tests check.
+TF32 would miss the f32 tolerance; 8 x 8 thread tiles in both products,
+K and V streamed through a ring of 64-column panels by cp.async).  Their
+plain version is ``ref.mha_reference``; :func:`plan` says which kernel
+and which blocks a call takes, and :func:`tma_layout`, :func:`key_tiles`
+and :func:`mask_free` are the host-side and Python twins of the bf16
+kernel's tensor maps, key-tile range and mask test, :func:`f32_smem_bytes`,
+:func:`f32_thread_scores`, :func:`f32_thread_outputs` and
+:func:`f32_k_swizzle` those of the f32 kernel's shared memory, thread
+tiles and K layout, which the CPU tests check.
 
 Bound: operations.  At the prefill shape the model drives (B=4, H=32,
 K=8, S=T=2048, D=128, causal) the work is 137.5 GFLOP against 167.8 MB:
@@ -31,7 +35,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,7 +46,7 @@ WGMMA_SOURCE = _build.CSRC / "flash_attention_wgmma.cu"  # bf16, wgmma
 SOURCES = (SOURCE, WGMMA_SOURCE)
 HEAD_DIMS = (16, 32, 64, 112, 128)  # 16: smoke_config(); 112: Kimi-K2
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_GRID_Y = 65535              # the f32 kernel puts B*H on grid.y
+MAX_GRID_Y = 65535              # the f32 kernel's query blocks on grid.y
 SMS = 132                       # streaming multiprocessors of an H100
 # The bf16 kernel's blocks, as ``flash_attention_wgmma.cu`` has them: 128
 # query rows a CTA (64 per consumer warpgroup), 128-key tiles through a ring
@@ -53,13 +57,19 @@ BLOCK_Q, BLOCK_KV, STAGES, WG_ROWS = 128, 128, 2, 64
 WGMMA_WARPS = 12
 PANEL = 64                      # columns of one box: 128 bytes of bf16
 SMEM_LIMIT = 232448             # shared memory a block may use on an H100
+# The f32 kernel's blocks, as ``flash_attention.cu`` has them: 256 threads
+# (a 16 x 16 grid), 128-key tiles, K and V streamed as panels of 64 columns
+# through a ring of 3 slots; a CTA takes 128 query rows (an 8 x 8 thread
+# tile) where that fills the SMs, else 64 (4 x 8).
+F32_BLOCKS = (64, 128)
+F32_BLOCK_K, F32_THREADS, F32_SLOTS, F32_PANEL = 128, 256, 3, 64
 
 
 class Plan(NamedTuple):
     """How one call runs: ``kernel`` "cuda_core" (f32) or "wgmma" (bf16);
     ``block_q`` query rows and ``warps`` warps per CTA, keys in tiles of
-    ``block_k`` through a ring of ``stages`` buffers; ``grid`` (query
-    blocks, B*H) for f32, (persistent CTAs, 1) for bf16."""
+    ``block_k`` through a ring of ``stages`` buffers (f32: panels); ``grid``
+    (B*H, query blocks) for f32, (persistent CTAs, 1) for bf16."""
     kernel: str
     block_q: int
     block_k: int
@@ -95,25 +105,38 @@ def check_args(q, k, v, causal: bool, window: int) -> None:
         raise ValueError(f"H={H} not a multiple of K={K}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
-    if min(B, S, T) < 1 or B * H > MAX_GRID_Y:
-        raise ValueError(f"need B, S, T >= 1 and B*H <= {MAX_GRID_Y}, got "
-                         f"B={B} H={H} S={S} T={T}")
+    rows = min(F32_BLOCKS)
+    if min(B, S, T) < 1 or -(-S // rows) > MAX_GRID_Y:
+        raise ValueError(f"need B, S, T >= 1 and S <= {rows * MAX_GRID_Y}, "
+                         f"got B={B} H={H} S={S} T={T}")
     if not isinstance(causal, bool):
         raise TypeError(f"causal must be a bool, got {causal!r}")
     if isinstance(window, bool) or not isinstance(window, int) or window < 0:
         raise ValueError(f"window must be an int >= 0, got {window!r}")
 
 
+def f32_block_q(B: int, H: int, S: int) -> int:
+    """The f32 kernel's query rows a CTA: the largest of ``F32_BLOCKS``
+    whose blocks give every SM a CTA (one fits an SM), else the
+    smallest, so that a small call keeps the SMs busy."""
+    fill = [bq for bq in F32_BLOCKS if -(-S // bq) * B * H >= SMS]
+    return max(fill) if fill else min(F32_BLOCKS)
+
+
 def plan(B: int, H: int, S: int, D: int, dtype: torch.dtype) -> Plan:
     """The launch of a call with q (B,H,S,D) in ``dtype``: f32 on the
-    CUDA-core kernel (64 query rows, 32-key tiles staged as f32, 8 warps),
-    bf16 on the wgmma kernel (128 query rows, 128-key tiles through a
-    2-slot TMA ring, three warpgroups; one CTA per SM, or per work item if
-    there are fewer, see :func:`work_items`)."""
+    CUDA-core kernel (:func:`f32_block_q` query rows, 128-key tiles
+    streamed as 64-column panels through a 3-slot cp.async ring, 8 warps;
+    a CTA per (b*h, query block)), bf16 on the wgmma kernel (128 query
+    rows, 128-key tiles through a 2-slot TMA ring, three warpgroups; one
+    CTA per SM, or per work item if there are fewer, see
+    :func:`work_items`)."""
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     if dtype == torch.float32:
-        return Plan("cuda_core", 64, 32, 8, 1, (-(-S // 64), B * H))
+        bq = f32_block_q(B, H, S)
+        return Plan("cuda_core", bq, F32_BLOCK_K, F32_THREADS // 32,
+                    F32_SLOTS, (B * H, -(-S // bq)))
     if dtype != torch.bfloat16:
         raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
     return Plan("wgmma", BLOCK_Q, BLOCK_KV, WGMMA_WARPS, STAGES,
@@ -143,6 +166,48 @@ def smem_bytes(D: int) -> int:
     dp = padded_head_dim(D)
     return (BLOCK_Q + 2 * STAGES * BLOCK_KV) * dp * 2 + 1024 \
         + (2 + 4 * STAGES) * 8 + 1024
+
+
+def f32_panels(D: int) -> Tuple[int, int]:
+    """(panels, width): the f32 kernel streams each K or V tile as this
+    many panels of ``width`` columns (64, or D below 64)."""
+    return -(-D // F32_PANEL), min(D, F32_PANEL)
+
+
+def f32_smem_bytes(D: int, block_q: int) -> int:
+    """Dynamic shared memory of one f32 CTA (the source's ``smem_bytes``):
+    Q (block_q x D), P (block_q x 128) and the ring's slots of 128 keys x
+    one panel, as f32."""
+    return 4 * (block_q * D + block_q * F32_BLOCK_K
+                + F32_SLOTS * F32_BLOCK_K * f32_panels(D)[1])
+
+
+def f32_thread_scores(block_q: int, t: int) -> list:
+    """The (row, key) scores of a query block and key tile that thread t of
+    the f32 kernel computes: rows ty + 16 i, keys tx + 16 j (tx, ty = t %
+    16, t // 16)."""
+    tx, ty = t % 16, t // 16
+    return [(ty + 16 * i, tx + 16 * j) for i in range(block_q // 16)
+            for j in range(F32_BLOCK_K // 16)]
+
+
+def f32_thread_outputs(block_q: int, D: int, t: int) -> list:
+    """The (row, column) outputs thread t of the f32 kernel accumulates and
+    stores: its rows, and in each panel p the ``width // 16`` columns from
+    64 p + tx * width // 16 that lie below D."""
+    tx, ty = t % 16, t // 16
+    n, width = f32_panels(D)
+    vw = width // 16
+    return [(ty + 16 * i, F32_PANEL * p + tx * vw + e)
+            for i in range(block_q // 16) for p in range(n)
+            for e in range(vw) if F32_PANEL * p + tx * vw + e < D]
+
+
+def f32_k_swizzle(D: int, key: int) -> int:
+    """The XOR applied to the 16-byte chunk index of key row ``key`` of a K
+    panel in the f32 kernel's ring (the source's ``k_swizzle``)."""
+    chunks = f32_panels(D)[1] // 4
+    return key & 7 if chunks >= 8 else (key >> 1) & (chunks - 1)
 
 
 def tma_layout(x: torch.Tensor, rows: int) -> Tuple[int, ...]:
@@ -186,7 +251,7 @@ def _bind(lib) -> None:
     fn = lib.flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -209,9 +274,12 @@ def kernel_layout(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    block_q: Optional[int] = None) -> torch.Tensor:
     """The kernel's wrapper: q (B,H,S,D), k/v (B,K,T,D) CUDA tensors ->
-    (B,H,S,D) in q's dtype and memory layout.
+    (B,H,S,D) in q's dtype and memory layout.  ``block_q`` (f32 only, one
+    of ``F32_BLOCKS``) overrides the plan's query rows a CTA, so that a
+    check can hold each block against the plain version.
 
     Launches on the current stream and does not synchronise.  Raises on a
     tensor that is not on a CUDA sm_90 device, on bad inputs, on inputs
@@ -220,6 +288,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     global launches
     check_args(q, k, v, causal, window)
+    if block_q is not None and (q.dtype != torch.float32
+                                or block_q not in F32_BLOCKS):
+        raise ValueError(f"block_q {block_q} is for the f32 kernel, one of "
+                         f"{F32_BLOCKS}; got it with {q.dtype}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention has no backward kernel: "
                            "training runs the plain attention "
@@ -232,6 +304,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, H, S, D = q.shape
     K, T = k.shape[1], k.shape[2]
     p = plan(B, H, S, D, q.dtype)
+    if block_q is not None:
+        p = p._replace(block_q=block_q, grid=(B * H, -(-S // block_q)))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, K,
             S, T, D)
     tail = (int(causal), window, D ** -0.5)
@@ -241,7 +315,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o)
                                                  for s in t.stride()[:3]))
             lib = _build.load(SOURCE, _bind)
-            err = lib.flash_attention_fwd(*ptrs, strides, *tail, stream)
+            err = lib.flash_attention_fwd(*ptrs, strides, *tail, p.block_q,
+                                          stream)
         else:
             maps = (ctypes.c_longlong * 33)(
                 *tma_layout(q, BLOCK_Q), *tma_layout(k, BLOCK_KV),
@@ -257,4 +332,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 __all__ = ["flash_attention", "check_args", "plan", "Plan", "kernel_layout",
            "padded_head_dim", "smem_bytes", "tma_layout", "key_tiles",
-           "mask_free", "work_items"]
+           "mask_free", "work_items", "f32_block_q", "f32_panels",
+           "f32_smem_bytes", "f32_thread_scores", "f32_thread_outputs",
+           "f32_k_swizzle"]

@@ -317,7 +317,9 @@ def test_flash_plan_picks_the_kernel_by_dtype(B, H, S, D):
     assert bf.stages >= 2
     f32 = flash_attention.plan(B, H, S, D, torch.float32)
     assert f32.kernel == "cuda_core"
-    assert f32.grid[0] * f32.block_q >= S > (f32.grid[0] - 1) * f32.block_q
+    assert f32.block_q in flash_attention.F32_BLOCKS
+    assert f32.grid[0] == B * H      # heads on x, query blocks on y
+    assert f32.grid[1] * f32.block_q >= S > (f32.grid[1] - 1) * f32.block_q
     with pytest.raises(ValueError):
         flash_attention.plan(B, H, S, 48, torch.bfloat16)
     with pytest.raises(ValueError):
@@ -341,16 +343,29 @@ def test_flash_plan_matches_the_sources():
     shared memory are those the kernels launch."""
     f32 = flash_attention.plan(2, 4, 200, 64, torch.float32)
     bf = flash_attention.plan(2, 4, 200, 64, torch.bfloat16)
-    for p, name, bk in ((f32, "flash_attention.cu", "kBK"),
-                        (bf, "flash_attention_wgmma.cu", "kBKV")):
-        src = (build.CSRC / name).read_text()
-        c = _constants(src)
-        assert (c["kBQ"], c[bk], c["kThreads"] // 32) == \
-            (p.block_q, p.block_k, p.warps), name
-    assert "const dim3 grid((S + kBQ - 1) / kBQ, B * H);" in \
-        (build.CSRC / "flash_attention.cu").read_text()
-    assert f32.grid == (-(-200 // 64), 8)
     src = (build.CSRC / "flash_attention_wgmma.cu").read_text()
+    c = _constants(src)
+    assert (c["kBQ"], c["kBKV"], c["kThreads"] // 32) == \
+        (bf.block_q, bf.block_k, bf.warps)
+    f32_src = (build.CSRC / "flash_attention.cu").read_text()
+    c = _constants(f32_src)
+    assert (c["kBK"], c["kThreads"] // 32, c["kSlots"], c["kPanel"]) == (
+        f32.block_k, f32.warps, f32.stages, flash_attention.F32_PANEL)
+    assert c["kThreads"] == flash_attention.F32_THREADS == 16 * 16
+    # the query rows a CTA are a template parameter: one instance each
+    for bq in flash_attention.F32_BLOCKS:
+        assert f"case {bq}:\n      return launch<D, {bq}>(" in f32_src, bq
+    assert "const dim3 grid(B * H, (S + BQ - 1) / BQ);" in f32_src
+    assert "const int qb = gridDim.y - 1 - blockIdx.y;" in f32_src
+    assert f32.block_q == 64 and f32.grid == (8, -(-200 // 64))
+    big = flash_attention.plan(4, 32, 2048, 128, torch.float32)
+    assert big.block_q == 128 and big.grid == (128, 16)
+    assert "BQ * D + BQ * kBK +\n                             kSlots * kBK * " \
+        "Panels<D>::kWidth" in f32_src       # f32_smem_bytes' terms
+    for D in flash_attention.HEAD_DIMS:
+        n, width = flash_attention.f32_panels(D)
+        assert n * flash_attention.F32_PANEL >= D > (n - 1) * \
+            flash_attention.F32_PANEL and width == min(D, 64)
     assert "flash_wgmma_kernel<D><<<ctas, kThreads, smem, stream>>>" in src
     assert "q0 = (n_qb - 1 - i / BH) * kBQ;" in src    # work_items' order
     assert bf.grid == (min(flash_attention.SMS, 2 * 4 * 2), 1)
@@ -499,3 +514,264 @@ def test_no_try_around_the_kernels():
                  "build.py"):
         tree = ast.parse((KERNELS / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
+
+
+# ---- the f32 kernel (csrc/flash_attention.cu): Python twins --------------
+
+F32_SHAPES = [
+    (4, 32, 8, 2048, 2048, 128),     # Qwen3-4B's prefill
+    (4, 25, 5, 2048, 2048, 64),      # a full-width D = 64 shape
+    (1, 32, 8, 256, 256, 128),       # the f32 checks' shapes: Qwen3-4B,
+    (1, 64, 8, 256, 256, 112),       # Kimi-K2, Hymba, Whisper's encoder,
+    (1, 25, 5, 1050, 1050, 64),      # decoder and cross-attention
+    (1, 6, 6, 1500, 1500, 64),
+    (1, 6, 6, 448, 448, 64),
+    (1, 6, 6, 448, 1500, 64),
+]
+
+
+@pytest.mark.parametrize("block_q", flash_attention.F32_BLOCKS)
+@pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
+def test_f32_thread_tiles_cover_the_block_once(D, block_q):
+    """The Python twin of the kernel's thread-to-element mapping: the 256
+    threads' scores cover each (row, key) of a query block and key tile
+    once, their outputs each (row, column) of the block once; the CTA's
+    shared memory fits.  At 128 rows each thread's tiles are 8 x 8 in
+    S = Q K^T and, at D = 128, in O += P V: 0.25 floats read an fmaf."""
+    fa = flash_attention
+    scores = [rk for t in range(fa.F32_THREADS)
+              for rk in fa.f32_thread_scores(block_q, t)]
+    assert sorted(scores) == [(r, k) for r in range(block_q)
+                              for k in range(fa.F32_BLOCK_K)]
+    outs = [rc for t in range(fa.F32_THREADS)
+            for rc in fa.f32_thread_outputs(block_q, D, t)]
+    assert sorted(outs) == [(r, c) for r in range(block_q)
+                            for c in range(D)]
+    assert fa.f32_smem_bytes(D, block_q) <= fa.SMEM_LIMIT
+    rows = block_q // 16
+    keys = len(fa.f32_thread_scores(block_q, 0)) // rows
+    cols = -(-D // 64) * (min(D, 64) // 16)      # with the columns past D
+    assert (rows + keys) / (rows * keys) == (0.25 if block_q == 128
+                                             else 0.375)
+    if (D, block_q) == (128, 128):
+        assert (rows, keys, cols) == (8, 8, 8)
+        assert fa.f32_smem_bytes(D, block_q) == 229376
+
+
+def _bank_groups(addrs):
+    """The 4-bank groups (16-byte slots) of float indices in shared
+    memory."""
+    return [(a // 4) % 8 for a in addrs]
+
+
+@pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
+def test_f32_shared_memory_reads_and_writes_without_conflicts(D):
+    """The K panel's swizzle is a permutation of each row's 16-byte
+    chunks under which the 8 keys a quarter warp reads at one step of d
+    (tx .. tx + 7 of one ty, key tx + 16 j) fall on 8 distinct bank
+    groups; the half-warps' P writes (step j: even rows write key
+    tx + 16 j, odd rows tx + 16 (j ^ 1)) fall on 32 distinct banks."""
+    fa = flash_attention
+    n, width = fa.f32_panels(D)
+    chunks = width // 4
+    for key in range(fa.F32_BLOCK_K):
+        assert sorted(c ^ fa.f32_k_swizzle(D, key)
+                      for c in range(chunks)) == list(range(chunks))
+    for j in range(fa.F32_BLOCK_K // 16):
+        for c in range(chunks):
+            for q0 in (0, 8):
+                addrs = [(tx + 16 * j) * width
+                         + 4 * (c ^ fa.f32_k_swizzle(D, tx + 16 * j))
+                         for tx in range(q0, q0 + 8)]
+                assert len(set(_bank_groups(addrs))) == 8, (j, c)
+    for j in range(fa.F32_BLOCK_K // 16):
+        banks = [((ty + 0) * fa.F32_BLOCK_K + tx + 16 * (j ^ (ty & 1))) % 32
+                 for ty in (2, 3) for tx in range(16)]
+        assert len(set(banks)) == 32
+
+
+@pytest.mark.parametrize("shape", F32_SHAPES)
+def test_f32_block_choice_keeps_the_sms_busy(shape):
+    """plan() takes 128-row blocks only where they give every SM a CTA;
+    elsewhere 64-row blocks launch as many CTAs as the 64-row kernel
+    before them, so no f32 path shape runs on fewer SMs."""
+    B, H, K, S, T, D = shape
+    p = flash_attention.plan(B, H, S, D, torch.float32)
+    ctas = p.grid[0] * p.grid[1]
+    parent = -(-S // 64) * B * H
+    assert ctas >= min(parent, flash_attention.SMS)
+    assert ctas >= parent or ctas >= flash_attention.SMS
+    assert p.block_q == (128 if -(-S // 128) * B * H >= flash_attention.SMS
+                         else 64)
+
+
+def _emulate_f32(q, k, v, causal, window, block_q):
+    """The f32 kernel's schedule and arithmetic in numpy, one CTA at a
+    time: shared memory as flat arrays filled with NaN, Q and the ring's
+    panels stored as the kernel stores them (K swizzled, zero past T and
+    D), each panel issued, committed, waited for and read in the kernel's
+    order (a panel read from a slot that holds another, or before its
+    group was waited for, fails), S and P V in the threads' tiles, P
+    written by the half-warps' alternation, row sums reduced at the
+    end."""
+    fa = flash_attention
+    BK, NT, SLOTS, PANEL = (fa.F32_BLOCK_K, fa.F32_THREADS, fa.F32_SLOTS,
+                            fa.F32_PANEL)
+    B, H, S, D = q.shape
+    K, T = k.shape[1], k.shape[2]
+    NP, W = fa.f32_panels(D)
+    VW, TM, KJ = W // 16, block_q // 16, BK // 16
+    scale2 = np.float32(np.float32(D ** -0.5) * np.float32(1.4426950408889634))
+    tid = np.arange(NT)
+    tx, ty = tid % 16, tid // 16
+    rows = ty[:, None] + 16 * np.arange(TM)[None, :]
+    keys = tx[:, None] + 16 * np.arange(KJ)[None, :]
+    sw = np.array([fa.f32_k_swizzle(D, int(x)) for x in tx])
+    o = np.full(q.shape, np.nan, np.float32)
+    n_qb = -(-S // block_q)
+    for bh in range(B * H):
+        b, h = divmod(bh, H)
+        kvh = h // (H // K)
+        for qb in reversed(range(n_qb)):
+            q0 = qb * block_q
+            Qs = np.zeros((block_q, D), np.float32)
+            Qs[:min(block_q, S - q0)] = q[b, h, q0:q0 + block_q]
+            Ps = np.full(block_q * BK, np.nan, np.float32)
+            ring = np.full((SLOTS, BK * W), np.nan, np.float32)
+            held, groups, pending, done = [None] * SLOTS, [], [], set()
+            k_lo = max(0, q0 - window + 1) // BK * BK if window > 0 else 0
+            k_hi = min(T, q0 + block_q, S) if causal else T
+            n_tiles = -(-(k_hi - k_lo) // BK) if k_hi > k_lo else 0
+
+            def issue(n):
+                t, w = divmod(n, 2 * NP)
+                if t >= n_tiles:
+                    return
+                is_v, col0 = w >= NP, (w % NP) * PANEL
+                src = (v if is_v else k)[b, kvh]
+                k0 = k_lo + t * BK
+                slot = np.full((BK, W), np.nan, np.float32)
+                for key in range(BK):
+                    for c in range(W // 4):
+                        ok = k0 + key < T and col0 + 4 * c < D
+                        phys = c if is_v else c ^ fa.f32_k_swizzle(D, key)
+                        slot[key, 4 * phys:4 * phys + 4] = \
+                            src[k0 + key, col0 + 4 * c:col0 + 4 * c + 4] \
+                            if ok else 0
+                ring[n % SLOTS] = slot.reshape(-1)
+                held[n % SLOTS] = n
+                pending.append(n)
+
+            def commit():
+                groups.append(list(pending))
+                pending.clear()
+
+            def wait(n_pending):
+                for g in groups[:len(groups) - n_pending]:
+                    done.update(g)
+
+            def read(n):
+                assert held[n % SLOTS] == n and n in done, n
+                return ring[n % SLOTS]
+
+            def qk(s, p, n):
+                panel = read(n)
+                for c in range(min(W, D - p * PANEL) // 4):
+                    for e in range(4):
+                        kv = panel[keys * W + ((c ^ sw) * 4)[:, None] + e]
+                        qv = Qs.reshape(-1)[rows * D + p * PANEL + 4 * c + e]
+                        s += qv[:, :, None] * kv[:, None, :]
+
+            issue(0)
+            commit()
+            if NP == 1:
+                issue(1)
+                commit()
+            m = np.full((NT, TM), -1e30, np.float32)
+            l = np.zeros((NT, TM), np.float32)
+            acc = np.zeros((NT, TM, NP * VW), np.float32)
+            for t in range(n_tiles):
+                k0, n0 = k_lo + t * BK, t * 2 * NP
+                s = np.zeros((NT, TM, KJ), np.float32)
+                if NP == 2:
+                    wait(0)
+                    issue(n0 + 1)
+                    commit()
+                    issue(n0 + 2)
+                    commit()
+                    qk(s, 0, n0)
+                    wait(1)
+                    issue(n0 + 3)
+                    commit()
+                    qk(s, 1, n0 + 1)
+                else:
+                    wait(1)
+                    issue(n0 + 2)
+                    commit()
+                    qk(s, 0, n0)
+                x = s * scale2
+                qpos = (q0 + rows)[:, :, None]
+                kpos = (k0 + keys)[:, None, :]
+                ok = (kpos < T) & (qpos >= 0)
+                if causal:
+                    ok &= qpos >= kpos
+                if window > 0:
+                    ok &= (qpos - kpos) < window
+                x = np.where(ok, x, np.float32(-1e30))
+                mx = x.max(-1).reshape(16, 16, TM).max(1)    # the row's 16
+                m_new = np.maximum(m, np.repeat(mx, 16, 0))
+                corr = np.exp2(m - m_new)
+                m = m_new
+                p = np.exp2(x - m_new[:, :, None])
+                l = l * corr + p.sum(-1)
+                acc *= corr[:, :, None]
+                odd = ty & 1
+                for i in range(TM):
+                    for j in range(KJ):
+                        Ps[(ty + 16 * i) * BK + tx + 16 * (j ^ odd)] = \
+                            p[tid, i, j ^ odd]
+                wait(0 if NP == 2 else 1)
+                issue(n0 + (4 if NP == 2 else 3))
+                commit()
+                vs = [read(n0 + NP + w) for w in range(NP)]
+                for key in range(BK):
+                    pv = Ps[rows * BK + key]
+                    vv = np.concatenate(
+                        [vp[key * W + tx[:, None] * VW + np.arange(VW)]
+                         for vp in vs], 1)
+                    acc += pv[:, :, None] * vv[:, None, :]
+            den = np.maximum(np.repeat(l.reshape(16, 16, TM).sum(1), 16, 0),
+                             np.float32(1e-30))
+            for t in range(NT):
+                for r, col in flash_attention.f32_thread_outputs(block_q, D,
+                                                                 t):
+                    if q0 + r < S:
+                        w, e = divmod(col, PANEL)
+                        o[b, h, q0 + r, col] = \
+                            acc[t, (r - ty[t]) // 16, w * VW + e - tx[t] * VW] \
+                            / den[t, (r - ty[t]) // 16]
+    return o
+
+
+@pytest.mark.parametrize("block_q", flash_attention.F32_BLOCKS)
+@pytest.mark.parametrize("shape,causal,window", [
+    ((1, 2, 1, 129, 129, 128), True, 0),     # past one 128-row block
+    ((1, 2, 1, 200, 200, 112), True, 100),   # a window across a key tile
+    ((1, 1, 1, 300, 300, 32), True, 100),    # three key tiles, skipped ones
+    ((1, 2, 1, 127, 127, 16), True, 0),
+    ((1, 2, 2, 130, 1, 64), False, 0),       # one key for 130 queries
+    ((1, 2, 2, 37, 100, 64), False, 0),      # cross-attention, S < T
+])
+def test_f32_kernel_twin_matches_the_plain_version(shape, causal, window,
+                                                   block_q):
+    """The kernel's data flow, emulated (``_emulate_f32``), equals the
+    plain version within the f32 tolerance: every value it reads was
+    stored where it reads it, in time."""
+    B, H, K, S, T, D = shape
+    rng = np.random.default_rng(29)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, H, S, D), (B, K, T, D), (B, K, T, D)))
+    want = ref.mha_reference(*(torch.from_numpy(x) for x in (q, k, v)),
+                             causal=causal, window=window).numpy()
+    got = _emulate_f32(q, k, v, causal, window, block_q)
+    np.testing.assert_allclose(got, want, **_tol("f32"))

@@ -777,6 +777,35 @@ def test_family_phases_run_each_config_at_full_width_and_depth():
     assert all(S != T for _, _, _, S, T, _ in chip_smoke.FLASH_CROSS_CASES)
 
 
+def test_f32_attention_is_checked_on_its_tile_edges_and_timed_on_its_paths():
+    """Phase 6 holds the f32 kernel (128-key tiles, 64- and 128-row
+    blocks) at S = 127, 128 and 129, under windows that straddle a
+    128-key tile and with one key against 130 queries; phase 9 times it
+    at Qwen3-4B's prefill, a full-width D = 64 shape with a 1024-key
+    window, and every f32 shape of the serving paths' checks."""
+    edges = chip_smoke.FLASH_F32_EDGES
+    assert {S for (_, _, _, S, _, _), _, _ in edges} >= {127, 128, 129}
+    assert ((1, 4, 2, 130, 1, 64), False, 0) in edges
+
+    def straddles(S, window):
+        return any(i - window + 1 < t <= i for i in range(S)
+                   for t in range(128, S, 128))
+    assert any(window and straddles(S, window)
+               for (_, _, _, S, _, _), _, window in edges)
+    assert {D for (*_, D), _, _ in edges} == set(
+        chip_smoke.flash_attention.HEAD_DIMS)
+    timed = {(shape, causal, window)
+             for _, shape, causal, window in chip_smoke.TIME_ATTENTION_F32}
+    assert ((4, 32, 8, 2048, 2048, 128), True, 0) in timed
+    assert ((4, 25, 5, 2048, 2048, 64), True, 1024) in timed
+    path = {((B, H, K, S, S, D), True, 0) for (B, H, K, S, D), dt
+            in chip_smoke.FLASH_PATH_CASES if dt == torch.float32}
+    path |= {(shape, causal, window) for shape, dt, causal, window
+             in chip_smoke.FLASH_MASK_PATH_CASES if dt == torch.float32}
+    assert len(path) == 6 and path <= timed
+    assert len(timed) == len(chip_smoke.TIME_ATTENTION_F32) == 8
+
+
 def test_bounds_of_the_masked_attention_shapes():
     """Hymba's prefill keeps 1024 keys a row past the window: 4 x 25 x 64
     x 4 flops for each of 1,573,376 pairs; Whisper's encoder all 1500^2,

@@ -506,12 +506,13 @@ def test_ablation_variants_apply_to_the_sources():
     every variant's edits still apply, each but the bases and the wrapper's
     choices changes its source, and every wrapper attribute a variant sets
     exists; the small-C stream has its no_mma, no_load, ring and width
-    variants."""
+    variants, the f32 flash attention its products, loads and blocks."""
     path = Path(__file__).resolve().parents[1] / "tools/torch_kernel_ablate.py"
     spec = importlib.util.spec_from_file_location("torch_kernel_ablate", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    modules = {mod.GMM: gm, mod.FLASH: fa, mod.F32: gm, mod.FDEC: da}
+    modules = {mod.GMM: gm, mod.FLASH: fa, mod.F32: gm, mod.FDEC: da,
+               mod.FA32: fa}
     for name, (source, edits, knobs) in mod.VARIANTS.items():
         text = mod.variant_source(name)
         assert (text != (mod.build.CSRC / source).read_text()) == bool(edits)
@@ -530,6 +531,13 @@ def test_ablation_variants_apply_to_the_sources():
         for v in ("base", "no_mma", "no_load"):
             assert f"{group} {v}" in mod.OLD_VARIANTS
     assert "f32 x_store_vec" in mod.OLD_VARIANTS
+    # the f32 flash attention: products, loads, the 64-row block and the
+    # 64-key tile; products and loads also on the kernel before it
+    for v in ("base", "no_mma", "no_load", "bq64", "bk64"):
+        assert f"fa32 {v}" in mod.VARIANTS
+    for v in ("base", "no_mma", "no_load"):
+        assert mod.OLD_VARIANTS[f"fa32 {v}"][0] == mod.FA32
+    assert mod.VARIANTS["fa32 bq64"][2] == {"F32_BLOCKS": (64,)}
     # the replaced design's variants name its 32-row tile
     for name, (source, edits, knobs) in mod.SYNC_DECODE_VARIANTS.items():
         assert source == mod.GMM and not knobs

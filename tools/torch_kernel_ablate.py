@@ -64,13 +64,32 @@ ldmatrix and drops mma.sync; ``no_load`` issues no copy; ``stages2`` and
 one CTA a row); ``split1`` takes one CTA a row with 3 slots; ``prefetch2``
 asks L2 for the K rows two tiles ahead, ``no_prefetch`` for none;
 ``l2_128`` asks L2 for 128 bytes a copy instead of 256; ``evict_first``
-marks K and V evict-first in L2.  ``--old DIR`` runs the f32 group's
-``base``, ``no_mma``, ``no_load`` and ``x_store_vec`` and the decode
-group on tree DIR's sources and wrappers (e.g. the parent commit unpacked
-with ``git archive``), and writes ``kernel_ablation_old.json``.
+marks K and V evict-first in L2.
+
+Flash attention, f32 ("fa32": ``csrc/flash_attention.cu`` at Qwen3-4B's
+(4, 32, 8, 2048, 2048, 128) causal and a full-width D = 64 shape, (4, 25,
+5, 2048, 2048, 64) causal with a 1024-key window, beside SDPA in f32 with
+the same mask): ``no_mma`` adds each value read from shared memory once
+instead of the products of S = Q K^T and O += P V (the reads stay);
+``no_load`` issues no copy of K or V (the ring's waits and barriers
+stay); ``no_exp`` takes the exponentials out of the softmax;
+``qk_copies`` unrolls the loop over K's panels (a copy of the S loop
+each), ``qk_unroll_all`` also the S loop within a panel; ``pv_unroll4``
+unrolls P V 4 times instead of 2; ``bq64`` takes 64-row blocks (a 4 x 8
+thread tile) where the plan takes 128; ``bk64`` takes 64-key tiles (an
+8 x 4 score tile a thread).
+
+``--old DIR`` runs the f32 group's ``base``, ``no_mma``, ``no_load`` and
+``x_store_vec``, the decode group and the fa32 group's ``base``,
+``no_mma`` and ``no_load`` (edits of the 64-row, 32-key kernel that the
+128-row design replaced) on tree DIR's sources and wrappers (e.g. the
+parent commit unpacked with ``git archive``), and writes
+``kernel_ablation_old.json``; with ``--dry`` it checks that those edits
+apply to DIR's sources.
 
 Each grouped-matmul group also times ``torch.bmm`` at its shapes (the f32
-group with TF32 off), the decode group SDPA from a graph.  Prints
+group with TF32 off), the decode group SDPA from a graph, the fa32 group
+SDPA in f32.  Prints
 the card's name and power limit and one JSON object of device ms per
 launch (CUDA events, median), and writes it to
 ``chiprun_out/kernel_ablation.json`` (``kernel_ablation_sync_decode.json``
@@ -207,7 +226,108 @@ F32_VARIANTS = {
         "      return launch<T, 64, 8, 16, VEC>(x, w, o, E, C, d, f, st, stream);")],
         {"F32_THREAD_TILES": ((8, 1), (4, 4), (8, 16))}),
 }
-OLD_VARIANTS = {**F32_COMMON, **FDEC_VARIANTS}
+FA32 = "flash_attention.cu"
+# The f32 flash attention as it was before its 128-row redesign (64-row
+# blocks, 32-key tiles loaded to registers and stored between two
+# barriers, a 4 x 2 score tile a thread), for --old DIR: products out
+# (each value read from shared memory added once) and K/V loads out.
+FA32_OLD_VARIANTS = {
+    "fa32 base": (FA32, [], {}),
+    "fa32 no_mma": (FA32, [
+        ("#pragma unroll\n"
+         "      for (int i = 0; i < kRows; ++i)\n"
+         "#pragma unroll\n"
+         "        for (int j = 0; j < kCols; ++j) {\n"
+         "          float t = s[i][j];\n"
+         "          t = fmaf(qv[i].x, kv[j].x, t);\n"
+         "          t = fmaf(qv[i].y, kv[j].y, t);\n"
+         "          t = fmaf(qv[i].z, kv[j].z, t);\n"
+         "          t = fmaf(qv[i].w, kv[j].w, t);\n"
+         "          s[i][j] = t;\n"
+         "        }\n",
+         "#pragma unroll\n"
+         "      for (int i = 0; i < kRows; ++i) {\n"
+         "        s[i][0] += qv[i].x + qv[i].w;\n"
+         "        s[i][1] += qv[i].y + qv[i].z;\n"
+         "      }\n"
+         "#pragma unroll\n"
+         "      for (int j = 0; j < kCols; ++j) {\n"
+         "        s[0][j] += kv[j].x + kv[j].y;\n"
+         "        s[1][j] += kv[j].z + kv[j].w;\n"
+         "      }\n"),
+        ("#pragma unroll\n"
+         "          for (int c = 0; c < kNC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);\n"
+         "        }\n",
+         "          acc[i][0] += p;\n"
+         "        }\n"
+         "#pragma unroll\n"
+         "        for (int c = 0; c < kNC; ++c) acc[0][c] += vv[c];\n")], {}),
+    "fa32 no_load": (FA32, [(
+        "    load_tile<T, D>(kp, sks, k0, T_len, kBK, Ks, kLdQK);\n"
+        "    load_tile<T, D>(vp, svs, k0, T_len, kBK, Vs, D);\n",
+        "    (void)kp; (void)vp;\n")], {}),
+}
+OLD_VARIANTS = {**F32_COMMON, **FDEC_VARIANTS, **FA32_OLD_VARIANTS}
+# The f32 flash attention (csrc/flash_attention.cu): products out (each
+# value read from shared memory added once), K/V copies out, exponentials
+# out, the loops' copies and unrolling, 64-row blocks (a 4 x 8 thread
+# tile) and 64-key tiles (8 x 4 scores a thread).
+FA32_VARIANTS = {
+    "fa32 base": (FA32, [], {}),
+    "fa32 no_mma": (FA32, [
+        ("#pragma unroll\n"
+         "        for (int j = 0; j < kKeys; ++j) {\n"
+         "          float t = s[i][j];\n"
+         "          t = fmaf(qv.x, kv[j].x, t);\n"
+         "          t = fmaf(qv.y, kv[j].y, t);\n"
+         "          t = fmaf(qv.z, kv[j].z, t);\n"
+         "          t = fmaf(qv.w, kv[j].w, t);\n"
+         "          s[i][j] = t;\n"
+         "        }\n",
+         "        s[i][0] += qv.x + qv.w;\n"
+         "        s[i][1] += qv.y + qv.z;\n"
+         "#pragma unroll\n"
+         "        for (int j = 0; j < kKeys; ++j)\n"
+         "          if (i == 0) {\n"
+         "            s[0][j] += kv[j].x + kv[j].y;\n"
+         "            s[1][j] += kv[j].z + kv[j].w;\n"
+         "          }\n"),
+        ("#pragma unroll\n"
+         "      for (int i = 0; i < TM; ++i) {\n"
+         "        const float p = lane(pv[i], u);\n"
+         "#pragma unroll\n"
+         "        for (int c = 0; c < NP * VW; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);\n"
+         "      }\n",
+         "#pragma unroll\n"
+         "      for (int i = 0; i < TM; ++i) acc[i][0] += lane(pv[i], u);\n"
+         "#pragma unroll\n"
+         "      for (int c = 0; c < NP * VW; ++c) acc[0][c] += vv[c];\n")],
+        {}),
+    "fa32 no_load": (FA32, [(
+        "      cp_async16(dst + e * kStep * W, ok ? src + e * stride : kp,\n"
+        "                 ok ? 16 : 0);\n",
+        "      (void)dst; (void)ok; (void)src; (void)stride;\n")], {}),
+    # the exponentials taken out (the softmax's other arithmetic stays)
+    "fa32 no_exp": (FA32, [
+        ("      const float corr = exp2f(m[i] - m_new);",
+         "      const float corr = m[i] - m_new;"),
+        ("        s[i][j] = exp2f(s[i][j] - m_new);",
+         "        s[i][j] = s[i][j] - m_new;")], {}),
+    # K's panels unrolled (a copy of the S loop each), the S loop unrolled
+    # whole within a panel, P V 4 times instead of 2
+    "fa32 qk_copies": (FA32, [("#pragma unroll 1\n    for (int p = 0;",
+                               "#pragma unroll\n    for (int p = 0;")], {}),
+    "fa32 qk_unroll_all": (FA32, [
+        ("#pragma unroll 1\n    for (int p = 0;",
+         "#pragma unroll\n    for (int p = 0;"),
+        ("#pragma unroll 1\n  for (int c4 = 0;",
+         "#pragma unroll\n  for (int c4 = 0;")], {}),
+    "fa32 pv_unroll4": (FA32, [("#pragma unroll 2\n  for (int kk = 0;",
+                                "#pragma unroll 4\n  for (int kk = 0;")], {}),
+    "fa32 bq64": (FA32, [], {"F32_BLOCKS": (64,)}),
+    "fa32 bk64": (FA32, [("constexpr int kBK = 128;", "constexpr int kBK = 64;")],
+                  {"F32_BLOCK_K": 64}),
+}
 # variant -> (source, [(text, replacement), ...], {wrapper attribute: value})
 VARIANTS = {
     "gmm base": (GMM, [], {}),
@@ -342,6 +462,7 @@ VARIANTS = {
     "flash one_cta_per_item": (FLASH, [], {"SMS": 2 ** 30}),
     **FDEC_VARIANTS,
     **F32_VARIANTS,
+    **FA32_VARIANTS,
 }
 # The small-C design the stream replaced, for a tree that holds it
 # (--sync-decode): its 32-row decode tile, launch<32, 128, 64, 1, 4, 4, VEC>.
@@ -371,6 +492,10 @@ DECODE_SHAPES = [(8, 8, 6144, 32768), (8, 8, 32768, 6144), (384, 8, 2048, 7168),
 FLASH_SHAPES = [(4, 32, 8, 2048, 128), (4, 25, 5, 2048, 64)]
 # f32: Grok-1's prefill chunk and its down projection
 F32_SHAPES = [(8, 320, 6144, 32768), (8, 320, 32768, 6144)]
+# f32 flash attention ((B, H, K, S, T, D), causal, window): Qwen3-4B's
+# prefill and a full-width D = 64 shape with Hymba's window
+FA32_SHAPES = [((4, 32, 8, 2048, 2048, 128), True, 0),
+               ((4, 25, 5, 2048, 2048, 64), True, 1024)]
 # bf16 decode (B, K, G, T, D, live length): decode_32k, the dense serving
 # cache whole and at its live length
 FDEC_SHAPES = [(16, 8, 4, 32768, 128, 32768), (8, 8, 4, 4096, 128, 4096),
@@ -417,16 +542,17 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dry", action="store_true")
     ap.add_argument("--only", nargs="*",
-                    default=("gmm", "stream", "flash", "f32", "fdec"),
+                    default=("gmm", "stream", "flash", "f32", "fdec", "fa32"),
                     help="groups of variants to run")
     ap.add_argument("--sync-decode", type=Path, metavar="DIR",
                     help="ablate the mma.sync decode design of tree DIR")
     ap.add_argument("--old", type=Path, metavar="DIR",
-                    help="ablate the f32 grouped matmul and bf16 flash "
-                         "decode that tree DIR holds")
+                    help="ablate the f32 grouped matmul, bf16 flash "
+                         "decode and f32 flash attention that tree DIR "
+                         "holds")
     ap.add_argument("--passes", type=int, default=1,
-                    help="time the grouped-matmul variants this many times, "
-                         "every other pass in reverse order")
+                    help="time the f32 and decode variants this many "
+                         "times, every other pass in reverse order")
     a = ap.parse_args()
     variants, groups, out_name = VARIANTS, a.only, "kernel_ablation.json"
     if a.sync_decode:
@@ -558,6 +684,31 @@ def main() -> int:
                     n=20, repeats=10)
         del q, k, v, mask
     fa = flash_attention
+    names = [n for n in chosen if n.split()[0] == "fa32"]
+    for (B, H, K, S, T, D), causal, window in FA32_SHAPES if names else ():
+        q = randn((B, S, H, D), dtype=torch.float32).transpose(1, 2)
+        k, v = (randn((B, T, K, D), dtype=torch.float32).transpose(1, 2)
+                for _ in "kv")
+        keep = (torch.arange(S, device=device)[:, None]
+                - torch.arange(T, device=device)[None, :])
+        mask = (keep >= 0) if causal else torch.ones_like(keep, dtype=bool)
+        if window:
+            mask &= keep < window
+        shape = f"{(B, H, K, S, T, D)} causal {causal} window {window}"
+        for i in range(a.passes):
+            tag = f" pass {i + 1}" if a.passes > 1 else ""
+            for name in names if i % 2 == 0 else names[::-1]:
+                saved = use(name, fa, fa.SOURCE, fa._bind)
+                out[f"{name} {shape}{tag}"] = chip_smoke.median_event_ms(
+                    lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                window=window),
+                    n=2, repeats=5)
+                restore(fa, saved)
+            out[f"fa32 sdpa {shape}{tag}"] = chip_smoke.median_event_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True),
+                n=2, repeats=5)
+        del q, k, v, mask
     flash = [n for n in chosen if n.split()[0] == "flash"]
     for B, H, K, S, D in FLASH_SHAPES if flash else ():
         q = randn((B, S, H, D)).transpose(1, 2)

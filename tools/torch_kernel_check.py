@@ -6,8 +6,8 @@ limit.
         [--check [attention decode gmm]] [--time] [--parent DIR]
         [--timeout S]
 
-``--ptxas`` compiles the bf16 flash attention, both grouped matmuls and
-the bf16 flash decode with ``-Xptxas -v`` and prints each kernel's
+``--ptxas`` compiles both flash attentions, both grouped matmuls and the
+bf16 flash decode with ``-Xptxas -v`` and prints each kernel's
 registers, shared memory and spills.
 ``--check`` runs ``chip_smoke.check_attention`` (flash attention and
 flash decode), ``chip_smoke.check_decode`` (flash decode alone) and
@@ -20,13 +20,16 @@ the kernels' device ms per launch (CUDA events over back-to-back launches;
 for attention and decode also replayed from a CUDA graph, device time
 without the host's gaps) and host ms per call, beside
 ``scaled_dot_product_attention`` and ``torch.bmm``, at the path shapes
-(``chip_smoke.TIME_ATTENTION``, ``TIME_MASKED_ATTENTION``, every row of
+(``chip_smoke.TIME_ATTENTION``, ``TIME_MASKED_ATTENTION``, in f32 every
+row of ``TIME_ATTENTION_F32`` beside SDPA in f32, every row of
 ``TIME_DECODES`` at the full cache and the live length, every row of
 ``TIME_GMM``, ``GMM_OFF_PATH`` and ``TIME_GMM_F32``, the f32 rows beside
 ``torch.bmm`` with TF32 off, and a small decode shape, ``HOST_PROBE``,
 whose host ms is the wrapper's cost), and with ``--parent DIR`` (an
 unpacked tree of another commit) the same shapes on that tree's kernels,
-in turns: parent, this tree, this tree, parent.  Needs a card; exits 1 if
+in turns: parent, this tree, this tree, parent (the f32 attention rows
+are this tree's, passed to each child, so that both trees time the same
+shapes).  Needs a card; exits 1 if
 any step failed.
 """
 
@@ -42,9 +45,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def child(kind: str, tree: Path) -> None:
+def child(kind: str, tree: Path, f32_rows: list) -> None:
     """Runs in the child process, with ``tree``'s modules first on the
-    path."""
+    path; ``f32_rows`` are the f32 attention rows to time."""
     sys.path[:0] = [str(tree), str(tree / "src")]
     import torch
 
@@ -58,7 +61,8 @@ def child(kind: str, tree: Path) -> None:
         out = chip_smoke.check_gmm(device)
         print(json.dumps({str(k): v for k, v in out.items()}))
     elif kind == "time":
-        print("RESULT " + json.dumps(time_kernels(chip_smoke, device)))
+        print("RESULT " + json.dumps(time_kernels(chip_smoke, device,
+                                                  f32_rows)))
     else:
         raise ValueError(kind)
 
@@ -66,9 +70,9 @@ def child(kind: str, tree: Path) -> None:
 HOST_PROBE = ("host probe", (8, 8, 256, 4096), 20, 20)
 
 
-def time_kernels(cs, device) -> dict:
+def time_kernels(cs, device, f32_rows) -> dict:
     """Device ms per launch of the kernels and their library calls at the
-    path shapes."""
+    path shapes (the f32 attention at ``f32_rows``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -79,12 +83,15 @@ def time_kernels(cs, device) -> dict:
                            device=device).mul_(scale)
 
     out = {}
-    rows = [(name, (B, H, K, S, S, D), True, 0)
+    rows = [(name, (B, H, K, S, S, D), True, 0, torch.bfloat16)
             for name, (B, H, K, S, D) in cs.TIME_ATTENTION]
-    rows += list(cs.TIME_MASKED_ATTENTION)
-    for name, (B, H, K, S, T, D), causal, window in rows:
-        q = randn((B, S, H, D)).transpose(1, 2)
-        k, v = (randn((B, T, K, D)).transpose(1, 2) for _ in "kv")
+    rows += [(*row, torch.bfloat16) for row in cs.TIME_MASKED_ATTENTION]
+    rows += [(name, tuple(shape), causal, window, torch.float32)
+             for name, shape, causal, window in f32_rows]
+    for name, (B, H, K, S, T, D), causal, window, dtype in rows:
+        q = randn((B, S, H, D), dtype=dtype).transpose(1, 2)
+        k, v = (randn((B, T, K, D), dtype=dtype).transpose(1, 2)
+                for _ in "kv")
         keep = (torch.arange(S, device=device)[:, None]
                 - torch.arange(T, device=device)[None, :])
         mask = (keep >= 0) if causal else torch.ones_like(keep, dtype=bool)
@@ -145,10 +152,10 @@ def time_kernels(cs, device) -> dict:
     return out
 
 
-def run_child(kind: str, tree: Path, timeout: int):
+def run_child(kind: str, tree: Path, timeout: int, f32_rows=()):
     """(ok, last RESULT json or None) of one child process."""
     cmd = [sys.executable, str(Path(__file__).resolve()), "--child", kind,
-           "--tree", str(tree)]
+           "--tree", str(tree), "--f32-rows", json.dumps(list(f32_rows))]
     print(f"== {kind} on {tree}, limit {timeout} s", flush=True)
     try:
         proc = subprocess.run(cmd, timeout=timeout, capture_output=True,
@@ -181,8 +188,9 @@ def ptxas() -> list:
     out_dir.mkdir(exist_ok=True)
     lib_dir.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in ("flash_attention_wgmma.cu", "grouped_matmul_tc.cu",
-                 "grouped_matmul.cu", "flash_decode_tc.cu"):
+    for name in ("flash_attention_wgmma.cu", "flash_attention.cu",
+                 "grouped_matmul_tc.cu", "grouped_matmul.cu",
+                 "flash_decode_tc.cu"):
         cmd = [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
                str(lib_dir / f"{name}.so"), str(build.CSRC / name)]
         procs.append((name, subprocess.Popen(
@@ -217,9 +225,10 @@ def main() -> int:
     ap.add_argument("--timeout", type=int, default=300)
     ap.add_argument("--child")
     ap.add_argument("--tree", type=Path, default=ROOT)
+    ap.add_argument("--f32-rows", default="[]")
     a = ap.parse_args()
     if a.child:
-        child(a.child, a.tree)
+        child(a.child, a.tree, json.loads(a.f32_rows))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -251,8 +260,9 @@ def main() -> int:
         if a.parent:
             turns = [a.parent, ROOT, ROOT, a.parent]
         results = []
+        f32_rows = chip_smoke.TIME_ATTENTION_F32
         for tree in turns:
-            good, res = run_child("time", tree, a.timeout)
+            good, res = run_child("time", tree, a.timeout, f32_rows)
             ok &= good
             results.append({"tree": str(tree), "ms": res})
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
