@@ -2,7 +2,9 @@
 H100: builds the port's CUDA kernels, holds each against its plain PyTorch
 version, drives the image lane (and its arena bench), the dense Qwen3-4B
 serving path, the Grok-1 and Kimi-K2 MoE serving paths, the Hymba-1.5B,
-xLSTM-350M and Whisper-tiny serving paths, the Qwen3-4B, Grok-1,
+xLSTM-350M and Whisper-tiny serving paths, the Qwen3-14B, Yi-34B,
+StableLM-2-1.6B and InternVL2-2B serving paths, the reference's
+prefill_32k and decode_32k cells of six of them, the Qwen3-4B, Grok-1,
 Hymba-1.5B, xLSTM-350M and Whisper-tiny training paths (Grok-1 also on
 int8 AdamW moments, with the state restored onto a device mesh) and the
 1000-host multi-host loader end to
@@ -43,30 +45,42 @@ Phases, in order; any failure raises and exits non-zero:
      2**-5 of each output row's RMS; bf16 decode also at the engine's live
      length and at ragged lengths that hit each tile and split boundary;
      two bf16 decode launches at decode_32k and at the dense serving shape
-     give the same bits);
+     give the same bits; phases L-O's prefill, decode and f32 check shapes
+     (G = 5, 7, 1 over 32 kv heads at D = 64, and 2); each 32k cell's
+     attention (``FLASH_32K_CASES``), held one kv group at a time on the
+     first and the last group, and its decode at its batch
+     (``DECODE_32K_CASES``) at lengths 1, T // 3, T and ragged);
   7. the serving path at full width: Qwen3-4B (36 layers, bf16, seeded
      random weights), prompts fetched over the simulated WAN by
      ``build_stack``, a 4 x 2048 prefill and continuous-batching decode of
-     16 prompts, with the kernels' launches counted;
+     16 prompts, with the kernels' launches counted; then, on the same
+     weights, the prefill_32k and decode_32k cells (``drive_cells``: one
+     row of 32,768 tokens, two calls; 4 serve steps from a seeded cache of
+     32,768 tokens at its batch of ``DECODE_32K_BATCH``, the last over
+     every key), each with exact launches, its ms, peak memory and cuts;
   8. the same path in f32 at 2 layers on the card and on the CPU (the
      kernels' plain versions): prefill and decode logits within 1e-3;
   9. the attention kernels' times at every bf16 path shape (Qwen3-4B's,
      Grok-1's, Kimi-K2's, Hymba's and Whisper-tiny's, each with its mask)
      against their bounds, plain versions and
-     ``scaled_dot_product_attention``; flash decode also at the engine's
-     live lengths, and beside the CUDA-core decode kernel in bf16; f32
+     ``scaled_dot_product_attention``; flash attention at three 32k shapes
+     (Qwen3-4B's prefill_32k, G = 7, and D = 64 over 32 kv heads); flash
+     decode also at the engine's live lengths and at each decode_32k
+     cell's shape, and beside the CUDA-core decode kernel in bf16; f32
      flash decode at the dense serving shape beside SDPA in f32;
  10. grouped matmul == its plain version on the card: the reference's
      sweep, ragged and unaligned edges and strided views (f32 1e-4; bf16
      5e-2 rtol / 5e-1 atol), and every shape of the Grok-1 and Kimi-K2
-     MoE paths, and two prefill chunks off them (bf16 within two ulps,
+     MoE paths (Grok-1's prefill_32k chunk and decode_32k step among
+     them), and a prefill chunk off them (bf16 within two ulps,
      2**-6 rtol / 1e-3 atol; f32 1e-4); two launches at Grok-1's and
      Kimi-K2's decode down projections give the same bits;
  11. the MoE serving path at full width: Grok-1 (4 of its 64 layers, bf16,
      seeded random weights), prompts fetched over the simulated WAN, a
      2 x 2048 prefill and continuous-batching decode of 16 prompts, with
      the kernels' launches counted (the Qwen3-4B phases' tensors are freed
-     first);
+     first), then its 32k cells as phase 7's (prefill_32k's 64 MoE chunks:
+     3 x 4 x 64 grouped-matmul launches a call);
  12. the same path in f32 at 2 layers and d_ff 2048 on the card and on the
      CPU: prefill and decode logits within 1e-3;
  13. Kimi-K2 serving at full width (1 of its 61 layers, head dim 112, 384
@@ -94,6 +108,17 @@ Phases, in order; any failure raises and exits non-zero:
      cross) and 8 flash-decode launches per engine step (4 self, 4 cross
      over the 1500 frames), and the f32 check of the whole model; each of
      D, E and F prints its seconds;
+  L, M, N, O. Qwen3-14B (whole: 40 layers, G = 5), Yi-34B (30 of its 60
+     layers: whole, its bf16 weights leave no room for a 32k cache; G =
+     7), StableLM-2-1.6B (whole, 32 kv heads at D = 64) and InternVL2-2B
+     (whole, G = 2, with 256 patch embeddings) served at full width as
+     phase 13 (8 prompts of 64 tokens over the simulated WAN, a 2 x 2048
+     prefill, 8 slots over a 1024-token cache, 16 new tokens), with
+     exactly L flash-attention launches per prefill call and L
+     flash-decode launches per engine step, then each config's 32k cells
+     as phase 7's, then the f32 check at 2 layers on the card and on the
+     CPU (InternVL2's on 512 tokens, past its patches): logits within
+     1e-3; each prints its depth, its decode_32k batch and its seconds;
  14. the training path at full width and depth: Qwen3-4B (36 layers,
      bf16, remat, seeded random weights; phase F's tensors freed first),
      token records fetched over the simulated WAN by ``build_stack``'s
@@ -166,9 +191,9 @@ Phases, in order; any failure raises and exits non-zero:
      then the f32 check of the whole model on 1 x 2080 tokens with frames;
      each of I, J and K prints its seconds;
  16. the grouped matmul's times at the Grok-1 and Kimi-K2 decode and
-     prefill shapes, and at the two chunks off the path, against its
-     bound, plain version and ``torch.bmm``; in f32 at Grok-1's decode
-     and prefill chunk beside ``torch.bmm`` without TF32;
+     prefill shapes, Grok-1's 32k cells' shapes, and at the chunk off the
+     path, against its bound, plain version and ``torch.bmm``; in f32 at
+     Grok-1's decode and prefill chunk beside ``torch.bmm`` without TF32;
   B. the multi-host path on the card's host: ``bench_torch_multihost``'s
      ``--scale --quick`` cell (1,000 hosts over three federated clusters on
      routes local, med and high, through the port's ``MultiHostRun``), its
@@ -186,10 +211,12 @@ Phases, in order; any failure raises and exits non-zero:
      count walks the sLSTM's 4096 steps a layer in Python on ``meta``
      tensors, too slow for this run); its kernel calls per prefill
      call and per decode step, times the calls and steps, equal the
-     launches phases 7 and 11 counted; each step and call these phases
-     timed is printed beside its roofline bound on the H100 (the largest
-     of the compute, memory and collective terms, ``launch.mesh.HW``) and
-     the share; it prints its seconds;
+     launches phases 7 and 11 counted, and so do those of each 32k cell
+     at its depth and batch (decode_32k at pos 32767); each step and call
+     these phases timed, the 32k cells' too, is printed beside its
+     roofline bound on the H100 (the largest of the compute, memory and
+     collective terms, ``launch.mesh.HW``) and the share; it prints its
+     seconds;
  17. one JSON line of kernels, then the result line.
 
 Needs a CUDA card; without one it exits non-zero and prints no result.
@@ -213,14 +240,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.utils.flop_counter import FlopCounterMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from benchmarks import bench_torch_multihost, bench_torch_roofline  # noqa: E402
 from benchmarks import bench_torch_wirefmt, torch_gate  # noqa: E402
-from repro_torch.configs.base import (ArchConfig, ShapeConfig,  # noqa: E402
-                                      get_arch)
+from repro_torch.configs.base import (SHAPES, ArchConfig,  # noqa: E402
+                                      ShapeConfig, get_arch)
 from repro_torch.core import KVStore, LoaderConfig, build_stack  # noqa: E402
 from repro_torch.data.datasets import (SyntheticPixelDataset,  # noqa: E402
                                        SyntheticTokenDataset, ingest)
@@ -245,8 +273,8 @@ from repro_torch.train.loop import TrainLoopConfig, run_training  # noqa: E402
 from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
                                          adamw_update)
 from repro_torch.train.step import (  # noqa: E402
-    abstract_state, init_state, make_prefill_step, make_train_step,
-    state_logical_axes)
+    abstract_state, init_state, make_prefill_step, make_serve_step,
+    make_train_step, state_logical_axes)
 
 # The main path: LoaderConfig's default batch, 256x256x3 uint8 frames,
 # 224x224 crops.
@@ -322,6 +350,46 @@ FAMILY_PHASES = {
                slots=8, max_seq=448, new_tokens=32, n_prefill=3),
           dict(prefill_len=448, max_seq=448)),
 }
+# The four configs that no earlier phase serves (phases L, M, N and O),
+# each at full width, bf16, seeded random weights, through drive_family
+# with KIMI_SERVE's sizes (8 prompts of 64 tokens over the simulated WAN,
+# a 2 x 2048 prefill, 8 slots over a 1024-token cache, 16 new tokens, 2
+# prefill calls):
+# - Qwen3-14B whole: 40 query heads over 8 kv heads (G = 5), d_model 5120;
+# - Yi-34B at 30 of its 60 layers: 56 query heads over 8 (G = 7); its
+#   33.9e9 parameters whole take 67.9 GB in bf16 (derived), which leaves
+#   no room for decode_32k's cache on an 80 GB card: 30 layers take 34.4
+#   GB (derived) and leave a batch of 4 for it (decode_32k_batch);
+# - StableLM-2-1.6B whole: 32 query heads over 32 kv heads (G = 1), D = 64;
+# - InternVL2-2B whole: 16 query heads over 8 (G = 2), D = 128, with
+#   make_batch's 256 patch embeddings through batch_extras.
+# Their f32 checks run 2 layers at full width (check_f32_path's sizes);
+# InternVL2's prefills 512 tokens, so that text follows its 256 patches.
+# phase -> (config, layers run (None: all), the f32 check's cut and sizes)
+CONFIG_PHASES = {
+    "L": ("qwen3_14b", None, dict(n_layers=CHECK_LAYERS)),
+    "M": ("yi_34b", 30, dict(n_layers=CHECK_LAYERS)),
+    "N": ("stablelm_1_6b", None, dict(n_layers=CHECK_LAYERS)),
+    "O": ("internvl2_2b", None, dict(n_layers=CHECK_LAYERS,
+                                     prefill_len=512)),
+}
+# The reference's prefill_32k and decode_32k cells (configs/base.py
+# SHAPES), run through make_prefill_step and make_serve_step on the
+# parameters a serving phase holds, before it frees them: Qwen3-4B (phase
+# 7), Grok-1 at phase 11's 4 layers, and phases L-O's configs at their
+# depth (drive_cells).  prefill_32k: one row of 32,768 tokens (the
+# reference's batch of 32 cut to 1: at Qwen3-4B's vocabulary the f32 logits
+# of one row take 19.9 GB, derived, and unembed adds an f32 copy of the
+# embedding), 2 calls, the second timed.  decode_32k: a cache from
+# init_cache(B, 32768), its K and V drawn from a seeded generator and its
+# pos set to 32768 - 4, then 4 serve steps, the last over all 32,768 keys
+# (writes stay inside the cache); the batch of 128 cut to the largest
+# power of two whose bf16 weights and cache leave CARD_FREE of the card's
+# CARD_GB free (decode_32k_batch: the batches below).
+SEQ_32K = 32768
+PREFILL_32K_CALLS, DECODE_32K_STEPS = 2, 4
+CARD_GB, CARD_FREE = 80, 0.2
+DECODE_32K_BATCH = {"7": 8, "11": 32, "L": 4, "M": 4, "N": 8, "O": 16}
 # Kernel sweeps: the reference's (tests/test_kernels.py:17-62) with head
 # dim 112 added, and the serving paths' own shapes: Qwen3-4B's, Grok-1's
 # (48 query heads over 8 kv heads) and Kimi-K2's (64 over 8 at head dim
@@ -350,7 +418,27 @@ FLASH_PATH_CASES = [((PREFILL_B, 32, 8, PREFILL_S, 128), torch.bfloat16),
                     ((1, 32, 8, CHECK_PREFILL, 128), torch.float32),
                     ((2, 48, 8, 2048, 128), torch.bfloat16),
                     ((2, 64, 8, 2048, 112), torch.bfloat16),
-                    ((1, 64, 8, CHECK_PREFILL, 112), torch.float32)]
+                    ((1, 64, 8, CHECK_PREFILL, 112), torch.float32),
+                    ((2, 40, 8, 2048, 128), torch.bfloat16),
+                    ((2, 56, 8, 2048, 128), torch.bfloat16),
+                    ((2, 32, 32, 2048, 64), torch.bfloat16),
+                    ((2, 16, 8, 2048, 128), torch.bfloat16)]
+# Phases L-O's f32 checks' prefills (B,H,K,S,D), checked in f32 as the path
+# shapes are: Qwen3-14B's, Yi-34B's, StableLM's and InternVL2's (512
+# tokens).
+FLASH_CONFIG_F32_CASES = [(1, 40, 8, CHECK_PREFILL, 128),
+                          (1, 56, 8, CHECK_PREFILL, 128),
+                          (1, 32, 32, CHECK_PREFILL, 64),
+                          (1, 16, 8, 512, 128)]
+# The prefill_32k cells' attention (B,H,K,S,D), bf16, causal: Qwen3-4B's,
+# Grok-1's, Qwen3-14B's, Yi-34B's (G = 7), StableLM's (32 kv heads at D =
+# 64) and InternVL2's.  The plain version's (B,K,G,S,T) f32 scores would
+# take 137 GB at Qwen3-4B's 32 heads, so phase 6 holds the kernel's output
+# one kv group at a time (``grouped_reference``, G x 4.3 GB), on the first
+# and the last group.
+FLASH_32K_CASES = [(1, 32, 8, SEQ_32K, 128), (1, 48, 8, SEQ_32K, 128),
+                   (1, 40, 8, SEQ_32K, 128), (1, 56, 8, SEQ_32K, 128),
+                   (1, 32, 32, SEQ_32K, 64), (1, 16, 8, SEQ_32K, 128)]
 DECODE_CASES = [(2, 2, 2, 256, 64), (1, 4, 1, 100, 32), (3, 1, 8, 512, 128),
                 (2, 2, 2, 40, 16), (2, 8, 8, 300, 112), (2, 5, 5, 300, 64),
                 (3, 1, 5, 77, 16)]
@@ -364,7 +452,23 @@ DECODE_PATH_CASES = [((SLOTS, 8, 4, MAX_SEQ, 128), torch.bfloat16),
                      ((8, 6, 1, 448, 64), torch.bfloat16),
                      ((8, 6, 1, 1500, 64), torch.bfloat16),
                      ((8, 6, 1, 448, 64), torch.float32),
-                     ((8, 6, 1, 1500, 64), torch.float32)]
+                     ((8, 6, 1, 1500, 64), torch.float32),
+                     ((8, 8, 5, 1024, 128), torch.bfloat16),
+                     ((8, 8, 7, 1024, 128), torch.bfloat16),
+                     ((8, 32, 1, 1024, 64), torch.bfloat16),
+                     ((8, 8, 2, 1024, 128), torch.bfloat16),
+                     ((8, 8, 5, CHECK_MAX_SEQ, 128), torch.float32),
+                     ((8, 8, 7, CHECK_MAX_SEQ, 128), torch.float32),
+                     ((8, 32, 1, CHECK_MAX_SEQ, 64), torch.float32),
+                     ((8, 8, 2, CHECK_MAX_SEQ, 128), torch.float32)]
+# The decode_32k cells' decode (B,K,G,T,D) at their batches
+# (DECODE_32K_BATCH), bf16, in the order of FLASH_32K_CASES: checked in
+# phase 6 at lengths 1, T // 3 and T and at ragged lengths, and timed in
+# phase 9.  G = 7 and G = 2 run as padded rows of the tensor-core kernel's
+# 8-row A operand, as G = 4, 5 and 6 do.
+DECODE_32K_CASES = [(8, 8, 4, SEQ_32K, 128), (32, 8, 6, SEQ_32K, 128),
+                    (4, 8, 5, SEQ_32K, 128), (4, 8, 7, SEQ_32K, 128),
+                    (8, 32, 1, SEQ_32K, 64), (16, 8, 2, SEQ_32K, 128)]
 # The other families' attention at their path shapes, where the mask is not
 # Qwen3-4B's causal S = T: (B,H,K,S,T,D), dtype, causal, window.  Hymba's
 # prefill (25 query heads over 5 kv heads, a 1024-token window, S past it)
@@ -399,14 +503,31 @@ TIME_PREFILL = (PREFILL_B, 32, 8, PREFILL_S, 128)
 TIME_DECODE = (16, 8, 4, 32768, 128)
 TIME_ATTENTION = [("flash_attention", TIME_PREFILL),
                   ("flash_attention grok", (2, 48, 8, 2048, 128)),
-                  ("flash_attention kimi", (2, 64, 8, 2048, 112))]
+                  ("flash_attention kimi", (2, 64, 8, 2048, 112)),
+                  ("flash_attention qwen3-14b", (2, 40, 8, 2048, 128)),
+                  ("flash_attention yi", (2, 56, 8, 2048, 128)),
+                  ("flash_attention stablelm", (2, 32, 32, 2048, 64)),
+                  ("flash_attention internvl2", (2, 16, 8, 2048, 128))]
+# Timed at 32k (phase 9): Qwen3-4B's prefill_32k and the two code paths it
+# does not take, G = 7 (Yi-34B) and D = 64 over 32 kv heads (StableLM);
+# the plain version one kv group at a time over every group.
+TIME_ATTENTION_32K = [("flash_attention 32k", FLASH_32K_CASES[0]),
+                      ("flash_attention 32k yi", FLASH_32K_CASES[3]),
+                      ("flash_attention 32k stablelm", FLASH_32K_CASES[4])]
 TIME_DECODES = [("flash_decode", TIME_DECODE),
                 ("flash_decode serving", (SLOTS, 8, 4, MAX_SEQ, 128)),
                 ("flash_decode grok", (8, 8, 6, 1024, 128)),
                 ("flash_decode kimi", (8, 8, 8, 1024, 112)),
                 ("flash_decode hymba", (8, 5, 5, 1024, 64)),
                 ("flash_decode whisper self", (8, 6, 1, 448, 64)),
-                ("flash_decode whisper cross", (8, 6, 1, 1500, 64))]
+                ("flash_decode whisper cross", (8, 6, 1, 1500, 64)),
+                ("flash_decode qwen3-14b", (8, 8, 5, 1024, 128)),
+                ("flash_decode yi", (8, 8, 7, 1024, 128)),
+                ("flash_decode stablelm", (8, 32, 1, 1024, 64)),
+                ("flash_decode internvl2", (8, 8, 2, 1024, 128))] + [
+    (f"flash_decode 32k {name}", shape) for name, shape in zip(
+        ("qwen3-4b", "grok", "qwen3-14b", "yi", "stablelm", "internvl2"),
+        DECODE_32K_CASES)]
 # The f32 decode kernel at the dense serving path's shape, beside SDPA in
 # f32 (phase 9).
 TIME_DECODE_F32 = ("flash_decode serving f32", (SLOTS, 8, 4, MAX_SEQ, 128))
@@ -440,12 +561,14 @@ DECODE_REPEAT_CASES = [TIME_DECODE, (SLOTS, 8, 4, MAX_SEQ, 128)]
 # The live length of each serving path's cache half way through its engine
 # run (models/attention.py passes min(pos + 1, T) to every slot, pos one
 # shared count of the steps: 318 steps for Qwen3-4B and Hymba, 158 for
-# Grok-1, 79 for Kimi-K2, 190 for Whisper-tiny, whose cross-attention
-# always reads all 1500 frames): checked in phase 6 and timed in phase 9
-# beside the full cache.
+# Grok-1, 79 for Kimi-K2 and phases L-O, 190 for Whisper-tiny, whose
+# cross-attention always reads all 1500 frames): checked in phase 6 and
+# timed in phase 9 beside the full cache.
 DECODE_LIVE = {(SLOTS, 8, 4, MAX_SEQ, 128): 160, (8, 8, 6, 1024, 128): 80,
                (8, 8, 8, 1024, 112): 40, (8, 5, 5, 1024, 64): 160,
-               (8, 6, 1, 448, 64): 95, (8, 6, 1, 1500, 64): 1500}
+               (8, 6, 1, 448, 64): 95, (8, 6, 1, 1500, 64): 1500,
+               (8, 8, 5, 1024, 128): 40, (8, 8, 7, 1024, 128): 40,
+               (8, 32, 1, 1024, 64): 40, (8, 8, 2, 1024, 128): 40}
 
 # The MoE serving path: Grok-1 at full width (d_model 6144, 48 query heads
 # over 8 KV heads, d_ff 32768, 8 experts, top-2, vocab 131072), 4 of its 64
@@ -462,7 +585,8 @@ MOE_CHECK_D_FF = 2048
 # not 16-byte aligned), and every shape the path gives the kernel: decode
 # (8 slots x C=1 rows per expert), a 512-token prefill chunk of the 2 x 2048
 # batch (C = 160 per row), and the down projection of each; decode and the
-# prefill chunk in f32 as well.
+# prefill chunk in f32 as well; Grok-1's prefill_32k chunk (one row: C =
+# 160) and its decode_32k step (32 slots), each with its down projection.
 GMM_CASES = [(4, 64, 96, 64), (2, 100, 64, 48), (8, 32, 128, 128)]
 GMM_EDGE_CASES = [(3, 1, 200, 72), (2, 1, 99, 37), (3, 13, 1000, 300),
                   (1, 77, 24, 129)]
@@ -470,6 +594,10 @@ GMM_DECODE = (8, 8, 6144, 32768)
 GMM_DECODE_DOWN = (8, 8, 32768, 6144)
 GMM_PREFILL = (8, 320, 6144, 32768)
 GMM_PREFILL_DOWN = (8, 320, 32768, 6144)
+GMM_PREFILL_B1 = (8, 160, 6144, 32768)
+GMM_PREFILL_B1_DOWN = (8, 160, 32768, 6144)
+GMM_DECODE_32K = (8, DECODE_32K_BATCH["11"], 6144, 32768)
+GMM_DECODE_32K_DOWN = (8, DECODE_32K_BATCH["11"], 32768, 6144)
 # Kimi-K2's: 384 experts, d 7168, d_ff 2048, top-8; decode gives
 # C = ceil(8 * 1.25 / 384) = 1 per slot, a prefill chunk
 # ceil(512 * 8 * 1.25 / 384) = 14 per row, times 2 rows.
@@ -486,7 +614,11 @@ GMM_PATH_CASES = [(GMM_DECODE, torch.bfloat16),
                   (KIMI_GMM_PREFILL, torch.bfloat16),
                   (KIMI_GMM_PREFILL_DOWN, torch.bfloat16),
                   (GMM_DECODE, torch.float32), (GMM_PREFILL, torch.float32),
-                  (GMM_PREFILL_DOWN, torch.float32)]
+                  (GMM_PREFILL_DOWN, torch.float32),
+                  (GMM_PREFILL_B1, torch.bfloat16),
+                  (GMM_PREFILL_B1_DOWN, torch.bfloat16),
+                  (GMM_DECODE_32K, torch.bfloat16),
+                  (GMM_DECODE_32K_DOWN, torch.bfloat16)]
 # Timed: gate/up and down projections at decode and in a prefill chunk,
 # with (back-to-back launches, repeats) sized to keep the phase in seconds.
 TIME_GMM = [("decode", GMM_DECODE, 5, 5),
@@ -496,14 +628,16 @@ TIME_GMM = [("decode", GMM_DECODE, 5, 5),
             ("kimi decode", KIMI_GMM_DECODE, 3, 3),
             ("kimi decode down", KIMI_GMM_DECODE_DOWN, 3, 3),
             ("kimi prefill", KIMI_GMM_PREFILL, 3, 3),
-            ("kimi prefill down", KIMI_GMM_PREFILL_DOWN, 3, 3)]
-# Prefill chunks of batch sizes the paths do not run, where the bf16
-# kernel takes tiles of its own (grouped_matmul.plan): Grok-1 at one row
-# of 2048 tokens (C = 160, one wgmma CTA of 160 rows) and Kimi-K2 at four
+            ("kimi prefill down", KIMI_GMM_PREFILL_DOWN, 3, 3),
+            ("prefill b1", GMM_PREFILL_B1, 5, 5),
+            ("prefill b1 down", GMM_PREFILL_B1_DOWN, 5, 5),
+            ("decode 32k", GMM_DECODE_32K, 5, 5),
+            ("decode 32k down", GMM_DECODE_32K_DOWN, 5, 5)]
+# A prefill chunk of a batch size the paths do not run, where the bf16
+# kernel takes a tile of its own (grouped_matmul.plan): Kimi-K2 at four
 # rows (C = 4 x 14 = 56, the 64-row mma.sync tile).  Checked in bf16
 # within GMM_PATH_TOL (phase 10) and timed (phase 16), as TIME_GMM.
-GMM_OFF_PATH = [("grok prefill b1", (8, 160, 6144, 32768), 5, 5),
-                ("kimi prefill b4", (384, 56, 7168, 2048), 3, 3)]
+GMM_OFF_PATH = [("kimi prefill b4", (384, 56, 7168, 2048), 3, 3)]
 # The f32 kernel timed at Grok-1's decode, prefill chunk and its down
 # projection (phase 16), beside torch.bmm in f32 with TF32 off, as
 # TIME_GMM.
@@ -788,10 +922,12 @@ def drive_multihost_scale() -> None:
                              "benchmarks/baselines/multihost_scale.json")
 
 
-def median_event_ms(fn, n: int = 20, repeats: int = 20) -> float:
+def median_event_ms(fn, n: int = 20, repeats: int = 20,
+                    warmup: int = 3) -> float:
     """Median over ``repeats`` of the device time of ``n`` back-to-back
-    calls between one pair of CUDA events, per call."""
-    for _ in range(3):
+    calls between one pair of CUDA events, per call, after ``warmup``
+    calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -973,6 +1109,20 @@ def flash_blocks(q, k, v, *, causal: bool = True, window: int = 0) -> list:
         for bq in flash_attention.F32_BLOCKS]
 
 
+def grouped_reference(q, k, v, groups, *, causal: bool = True,
+                      window: int = 0):
+    """The plain version one kv group at a time: for each g of
+    ``groups``, (g, ``ref.mha_reference`` of query heads g*G..(g+1)*G-1
+    against kv head g), which is that group's slice of the whole plain
+    version's output, with G times the (S,T) f32 scores of one head where
+    the whole takes H times."""
+    G = q.shape[1] // k.shape[1]
+    for g in groups:
+        yield g, ref.mha_reference(q[:, g * G:(g + 1) * G], k[:, g:g + 1],
+                                   v[:, g:g + 1], causal=causal,
+                                   window=window)
+
+
 def check_attention(device) -> dict:
     """Phase 6: flash attention and flash decode against their plain
     versions on the same inputs.  The sweeps (f32 at every query block of
@@ -1013,7 +1163,8 @@ def check_attention(device) -> dict:
                                               (B, K, T, D)))
         sweep(f"flash {dtype} {(B, H, K, S, T, D)} causal {causal} window "
               f"{window}", q, k, v, dtype, causal=causal, window=window)
-    for (B, H, K, S, D), dtype in FLASH_PATH_CASES:
+    for (B, H, K, S, D), dtype in FLASH_PATH_CASES + [
+            (shape, torch.float32) for shape in FLASH_CONFIG_F32_CASES]:
         q = randn((B, S, H, D), dtype).transpose(1, 2)
         k, v = (randn((B, S, K, D), dtype).transpose(1, 2) for _ in "kv")
         want = ref.mha_reference(q, k, v)
@@ -1069,15 +1220,10 @@ def check_decode(device) -> float:
             live = DECODE_LIVE[B, K, G, T, D]
             runs += [(f"live length {live}", [live] * B),
                      ("ragged lengths", ragged_lengths(B, K, G, T, D))]
-        for label, n in runs:
-            lengths = torch.tensor(n, dtype=torch.int32, device=device)
-            want = ref.decode_reference(q.reshape(B, K * G, D), k, v,
-                                        lengths).reshape(B, K, G, D)
-            err = compare(f"decode path {dtype} {(B, K, G, T, D)} {label}",
-                          ops.flash_decode(q, k, v, lengths), want, dtype,
-                          path_tol(want, dtype))
-            if dtype == torch.bfloat16:
-                path = max(path, err)
+        err = check_decode_runs(f"decode path {dtype} {(B, K, G, T, D)}",
+                                q, k, v, runs)
+        if dtype == torch.bfloat16:
+            path = max(path, err)
     for B, K, G, T, D in DECODE_REPEAT_CASES:
         q = randn((B, K, G, D), torch.bfloat16)
         k, v = (randn((B, T, K, D), torch.bfloat16).transpose(1, 2)
@@ -1091,6 +1237,59 @@ def check_decode(device) -> float:
         print(f"check decode {(B, K, G, T, D)} bf16: two launches "
               "bit-identical")
         del q, k, v, first, second
+    return path
+
+
+def check_decode_runs(name: str, q, k, v, runs: list) -> float:
+    """Flash decode on q (B,K,G,D) against k and v (B,K,T,D) at each
+    (label, B lengths) of ``runs``, held to its plain version within
+    ``path_tol``; returns the largest max|diff|."""
+    B, K, G, D = q.shape
+    err = 0.0
+    for label, n in runs:
+        lengths = torch.tensor(n, dtype=torch.int32, device=q.device)
+        want = ref.decode_reference(q.reshape(B, K * G, D), k, v,
+                                    lengths).reshape(B, K, G, D)
+        err = max(err, compare(f"{name} {label}",
+                               ops.flash_decode(q, k, v, lengths), want,
+                               q.dtype, path_tol(want, q.dtype)))
+    return err
+
+
+def check_attention_32k(device) -> dict:
+    """Phase 6 at the 32k cells' shapes, in bf16 within ``path_tol``,
+    in the model's layouts: flash attention at each of
+    ``FLASH_32K_CASES``, its output held one kv group at a time on the
+    first and the last group (``grouped_reference``), and flash decode at
+    each of ``DECODE_32K_CASES`` at lengths 1, T // 3 and T and at
+    ``ragged_lengths``.  Returns the largest max|diff| of each kernel."""
+    gen = torch.Generator(device).manual_seed(8)
+    dtype = torch.bfloat16
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+    path = {"flash_attention": 0.0, "flash_decode": 0.0}
+    for B, H, K, S, D in FLASH_32K_CASES:
+        q = randn((B, S, H, D)).transpose(1, 2)
+        k, v = (randn((B, S, K, D)).transpose(1, 2) for _ in "kv")
+        got = ops.flash_attention(q, k, v)
+        G = H // K
+        for g, want in grouped_reference(q, k, v, sorted({0, K - 1})):
+            err = compare(f"flash 32k {dtype} {(B, H, K, S, D)} kv group {g}",
+                          got[:, g * G:(g + 1) * G], want, dtype,
+                          path_tol(want, dtype))
+            path["flash_attention"] = max(path["flash_attention"], err)
+            del want
+        del q, k, v, got
+    for B, K, G, T, D in DECODE_32K_CASES:
+        q = randn((B, K, G, D))
+        k, v = (randn((B, T, K, D)).transpose(1, 2) for _ in "kv")
+        runs = [(f"length {n}", [n] * B) for n in (1, T // 3, T)]
+        runs += [("ragged lengths", ragged_lengths(B, K, G, T, D))]
+        path["flash_decode"] = max(path["flash_decode"], check_decode_runs(
+            f"decode 32k {dtype} {(B, K, G, T, D)}", q, k, v, runs))
+        del q, k, v
     return path
 
 
@@ -1118,12 +1317,14 @@ def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
                   prompt_len: int = PROMPT_LEN, prefill_b: int = PREFILL_B,
                   prefill_s: int = PREFILL_S, slots: int = SLOTS,
                   max_seq: int = MAX_SEQ, new_tokens: int = NEW_TOKENS,
-                  n_prefill: int = N_PREFILL) -> dict:
+                  n_prefill: int = N_PREFILL, cells: dict = None) -> dict:
     """Phase 7: the serving path through the entry points a user calls:
     prompts fetched by the loader, ``make_prefill_step`` on a
     (prefill_b, prefill_s) batch, then ``ServingEngine.run`` on the
     prompts.  Returns the kernels' launches in this run, what it formed,
-    and its times.  The prompts are returned for phase 8."""
+    and its times.  The prompts are returned for phase 8.  With
+    ``cells`` (``drive_cells``' sizes), the engine is dropped and the 32k
+    cells run on the same parameters, under ``"cells"``."""
     model = build_model(cfg, device=device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -1192,8 +1393,147 @@ def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
         "first_tokens": reqs[0].out_tokens[:8]})
     if device.type == "cuda":
         out["peak_GB"] = torch.cuda.max_memory_allocated(device) / 1e9
+    if cells is not None:
+        del engine
+        out["cells"] = drive_cells(model, params, **cells)
     print(f"serving path {cfg.name}:", json.dumps(out))
     return out, prompts
+
+
+def drive_cells(model, params: dict, *, decode_batch: int,
+                seq: int = SEQ_32K, prefill_calls: int = PREFILL_32K_CALLS,
+                decode_steps: int = DECODE_32K_STEPS) -> dict:
+    """The prefill_32k and decode_32k cells on ``params``: prefill_32k,
+    ``prefill_calls`` calls of ``make_prefill_step`` on one row of ``seq``
+    seeded tokens (``make_batch``, with a VLM's patch embeddings), the
+    last timed; decode_32k, ``decode_steps`` steps of ``make_serve_step``
+    from a cache of ``init_cache(decode_batch, seq)`` whose K and V are
+    drawn from a seeded generator and whose pos starts ``decode_steps``
+    short of ``seq``, so that the last step reads all ``seq`` keys, each
+    step's argmax the next token, the steps after the first timed.  Each
+    cell's logits must be f32, finite and of its shape, and its launches
+    ``cell_launches`` per call or step on the card (none on the CPU).
+    Returns each cell's ms, runs, launches, peak memory and cuts."""
+    cfg, device = model.cfg, model.device
+    on_card = device.type == "cuda"
+    gen = torch.Generator(device).manual_seed(32)
+    depth = f"{cfg.n_layers} of {get_arch(cfg.name).n_layers} layers"
+    out = {}
+
+    def run(kind, shape, fn, runs):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        times, logits = [], None
+        for _ in range(runs):
+            del logits          # one (B, S, V) f32 tensor at a time
+            sync(device)
+            t0 = time.perf_counter()
+            logits = fn()
+            sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = launch_counts()
+        want = {k: n * runs for k, n in
+                cell_launches(cfg, kind, seq).items()} if on_card else {}
+        if tuple(logits.shape) != shape or logits.dtype != torch.float32 \
+                or not all_finite(logits):
+            raise AssertionError(f"{kind} cell: bad logits "
+                                 f"{tuple(logits.shape)} {logits.dtype}")
+        if {k: n for k, n in launches.items() if n} != want:
+            raise AssertionError(f"{kind} cell launched {launches}, want "
+                                 f"{want}")
+        return {"runs": runs, "ms_all": times, "launches": launches,
+                "peak_GB": (torch.cuda.max_memory_allocated(device) / 1e9
+                            if on_card else None)}
+
+    batch = model.make_batch(gen, ShapeConfig("prefill_32k", "prefill",
+                                              seq, 1))
+    prefill = make_prefill_step(model)
+    res = run("prefill", (1, seq, cfg.vocab),
+              lambda: prefill(params, batch), prefill_calls)
+    res.update(batch=1, seq=seq, ms=res["ms_all"][-1],
+               cuts={"batch": f"{SHAPES['prefill_32k'].global_batch} -> 1",
+                     "layers": depth})
+    out["prefill_32k"] = res
+    del batch
+    cache = model.init_cache(decode_batch, seq)
+    for name in ("k", "v"):
+        cache[name].normal_(generator=gen)
+    cache["pos"] = seq - decode_steps
+    state = {"cache": cache, "tokens": torch.randint(
+        0, cfg.vocab, (decode_batch, 1), generator=gen, device=device,
+        dtype=torch.int32)}
+    step = make_serve_step(model)
+
+    def one_step():
+        logits, state["cache"] = step(params, state["cache"], state["tokens"])
+        state["tokens"] = logits[:, -1].argmax(-1, keepdim=True).int()
+        return logits
+
+    res = run("decode", (decode_batch, 1, cfg.vocab), one_step, decode_steps)
+    if state["cache"]["pos"] != seq:
+        raise AssertionError(f"decode cell ended at pos "
+                             f"{state['cache']['pos']}, not {seq}")
+    res.update(batch=decode_batch, seq=seq, first_pos=seq - decode_steps,
+               ms=statistics.median(res["ms_all"][1:] or res["ms_all"]),
+               cuts={"batch": f"{SHAPES['decode_32k'].global_batch} -> "
+                              f"{decode_batch}", "layers": depth})
+    out["decode_32k"] = res
+    del state, cache
+    for name, res in out.items():
+        print(f"{name} cell, {cfg.name}:", json.dumps(res))
+    return out
+
+
+def all_finite(t: torch.Tensor, rows: int = 4096) -> bool:
+    """Whether every element of ``t`` is finite, ``rows`` rows of its last
+    dimension at a time: ``torch.isfinite`` of a whole (1, 32768, V) f32
+    logits tensor takes an f32 ``abs`` of it and two bool tensors besides,
+    26 GB at Grok-1's vocabulary (derived)."""
+    return all(bool(torch.isfinite(part).all())
+               for part in t.reshape(-1, t.shape[-1]).split(rows))
+
+
+def cell_launches(cfg, kind: str, seq: int) -> dict:
+    """Kernel launches of one ``make_prefill_step`` call (``kind``
+    "prefill", ``seq`` tokens a row) or one ``make_serve_step`` step
+    ("decode") of a dense, MoE or VLM decoder of ``cfg``: a flash attention
+    or a flash decode a layer, and for MoE three grouped matmuls a layer
+    and MoE chunk (``n_chunks(seq)`` in the prefill, one in a step)."""
+    L = cfg.n_layers
+    out = {"flash_attention" if kind == "prefill" else "flash_decode": L}
+    if cfg.n_experts:
+        out["grouped_matmul"] = 3 * L * (n_chunks(seq) if kind == "prefill"
+                                         else 1)
+    return out
+
+
+def serving_config(phase: str) -> ArchConfig:
+    """The config of a serving phase that runs the 32k cells: Qwen3-4B
+    whole (phase 7), Grok-1 at ``MOE_LAYERS`` (11), and each of
+    ``CONFIG_PHASES`` at its depth."""
+    if phase == "7":
+        return get_arch(ARCH)
+    if phase == "11":
+        return get_arch(MOE_ARCH).scaled(n_layers=MOE_LAYERS)
+    arch, layers, _ = CONFIG_PHASES[phase]
+    cfg = get_arch(arch)
+    return cfg.scaled(n_layers=layers or cfg.n_layers)
+
+
+def decode_32k_batch(cfg) -> int:
+    """decode_32k's batch on the card for ``cfg`` at its depth run: the
+    reference's 128, halved until the bf16 weights and each slot's
+    32,768-token cache (k and v, every layer) leave ``CARD_FREE`` of
+    ``CARD_GB`` free (derived from the shapes)."""
+    weights = 2 * count_params(build_model(cfg, device="cpu").param_specs())
+    slot = 2 * 2 * cfg.n_layers * SEQ_32K * cfg.n_kv_heads \
+        * cfg.resolved_head_dim
+    budget = (1 - CARD_FREE) * CARD_GB * 1e9
+    batch = SHAPES["decode_32k"].global_batch
+    while batch > 1 and weights + batch * slot > budget:
+        batch //= 2
+    return batch
 
 
 def batch_extras(model, batch: int, seq: int, seed: int = 1) -> dict:
@@ -1290,15 +1630,17 @@ def check_f32_path(device, cfg, prompts, *, prefill_len: int = CHECK_PREFILL,
     return out
 
 
-def drive_family(device, cfg, serve: dict, check: dict) -> dict:
-    """Phases D, E and F: a family's serving path through
-    ``drive_serving`` with ``launches_per_call``'s exact launch counts
-    (none on the CPU), then ``check_f32_path`` on ``cfg`` in f32 with
-    ``check``'s cuts and sizes (``n_layers``, and ``prompt``: one prompt
-    of that many of the served prompts' tokens); the card is freed after
-    each.  Prints and returns the phase's seconds with both results."""
+def drive_family(device, cfg, serve: dict, check: dict,
+                 cells: dict = None) -> dict:
+    """Phases D, E, F and L-O: a family's serving path through
+    ``drive_serving`` (with the 32k cells where ``cells`` gives their
+    sizes) with ``launches_per_call``'s exact launch counts (none on the
+    CPU), then ``check_f32_path`` on ``cfg`` in f32 with ``check``'s cuts
+    and sizes (``n_layers``, and ``prompt``: one prompt of that many of the
+    served prompts' tokens); the card is freed after each.  Prints and
+    returns the phase's seconds with both results."""
     t0 = time.perf_counter()
-    run, prompts = drive_serving(device, cfg, **serve)
+    run, prompts = drive_serving(device, cfg, **serve, cells=cells)
     check_serving_launches(run, cfg.n_layers, device.type == "cuda",
                            launches_per_call(cfg))
     free_card()
@@ -1338,7 +1680,9 @@ def time_attention(device, kind: str) -> dict:
     """Phase 9: each attention kernel's device ms per launch, the host's ms
     per call, its plain version's ms and one PyTorch call's ms
     (``scaled_dot_product_attention``, timed only) at the timed shapes:
-    ``TIME_ATTENTION`` in bf16, ``TIME_MASKED_ATTENTION`` in bf16 and
+    ``TIME_ATTENTION`` in bf16, ``TIME_ATTENTION_32K`` in bf16 (the plain
+    version one kv group at a time over every group, timed once; SDPA on
+    any backend but the math one), ``TIME_MASKED_ATTENTION`` in bf16 and
     ``TIME_ATTENTION_F32`` in f32 with their masks (SDPA given the same
     mask as a boolean ``attn_mask``, or ``is_causal`` for a causal S = T
     without a window), ``TIME_DECODES`` in bf16, at
@@ -1375,6 +1719,36 @@ def time_attention(device, kind: str) -> dict:
                 lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True),
                 n=5, repeats=10),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        del q, k, v
+    for label, (B, H, K, S, D) in TIME_ATTENTION_32K:
+        q = randn((B, S, H, D), dtype).transpose(1, 2)
+        k, v = (randn((B, S, K, D), dtype).transpose(1, 2) for _ in "kv")
+
+        def kernel(q=q, k=k, v=v):
+            return ops.flash_attention(q, k, v)
+
+        def plain(q=q, k=k, v=v, K=K):
+            for _ in grouped_reference(q, k, v, range(K)):
+                pass
+
+        def sdpa(q=q, k=k, v=v):
+            # Not the math backend, whose (B,H,S,S) scores do not fit.
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+
+        nbytes, flops, bound_ms, bound_by = attention_bound(
+            kind, B, H, K, S, S, D, q.element_size())
+        out[label] = {
+            "shape": [B, H, K, S, D],
+            "ms": median_event_ms(kernel, n=2, repeats=5),
+            "host_ms_per_call": median_host_ms(kernel, n=2, repeats=3),
+            "plain_ms": median_event_ms(plain, n=1, repeats=1, warmup=0),
+            "library_ms": median_event_ms(sdpa, n=2, repeats=5),
             "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
             "bound_by": bound_by}
         del q, k, v
@@ -2254,11 +2628,13 @@ def dry_records() -> dict:
     """Phase H's dry-run records (``dry_cell``) of what phases 7, 11, 14,
     C, G, I and K run on the card: each train step at its phase's config
     and sizes (not phase J's: its count walks the sLSTM's 4096 steps a
-    layer in Python on ``meta`` tensors, tens of minutes), and each
-    serving path's prefill call and decode step at the engine's live
-    length.  Host work only, so ``main`` runs it in a process of its own
-    beside the card's phases: Hymba's train step is most of it (its
-    Mamba scan's tree of small ops; all the counts took about 90 s at
+    layer in Python on ``meta`` tensors, tens of minutes), each serving
+    path's prefill call and decode step at the engine's live length, and
+    the 32k cells of phases 7, 11 and L-O at their depth and batch
+    (decode_32k at pos 32767, its last step's).  Host work only, so
+    ``main`` runs it in a process of its own beside the card's phases:
+    Hymba's train step is most of it (its Mamba scan's tree of small ops;
+    all the counts, the 32k cells' among them, took about 100 s at
     Hymba's 16 layers on the H100 machine's host)."""
     opt = dict(total_steps=TRAIN_STEPS, **TRAIN_OPT)
     train = {
@@ -2289,11 +2665,18 @@ def dry_records() -> dict:
         recs[f"{name} prefill call"] = dry_cell(cfg, "prefill", seq, b)
         recs[f"{name} engine step"] = dry_cell(cfg, "decode", max_seq,
                                                slots, decode_pos=live - 1)
+    for phase, batch in DECODE_32K_BATCH.items():
+        cfg = serving_config(phase)
+        recs[f"phase {phase} prefill_32k call"] = dry_cell(
+            cfg, "prefill", SEQ_32K, 1)
+        recs[f"phase {phase} decode_32k step"] = dry_cell(
+            cfg, "decode", SEQ_32K, batch, decode_pos=SEQ_32K - 1)
     return recs
 
 
 def check_dryrun(serve: dict, moe: dict, train: dict, moe_train: dict,
-                 int8_train: dict, family_train: dict, recs: dict) -> dict:
+                 int8_train: dict, family_train: dict, recs: dict,
+                 cells: dict = None) -> dict:
     """Phase H: the dry run's records (``dry_records``) held against what
     the earlier phases measured on the card.  (a) Phases 14, C, I and K:
     the dry run's FLOPs of the train step equal ``FlopCounterMode``'s
@@ -2301,11 +2684,14 @@ def check_dryrun(serve: dict, moe: dict, train: dict, moe_train: dict,
     peak (argument + temp + output - alias) is within ``PEAK_TOL`` of the
     phase's ``max_memory_allocated``.  (b) Phases 7 and 11: its kernel
     calls of a prefill call and of a decode step equal the launches those
-    phases counted per call and per engine step.  (c) Each step and call
-    that phases 7, 11, 14, C, G, I and K timed, as a share of its roofline
-    bound on the H100 (the largest of the compute, memory and collective
-    terms).  Phase J has no record (``dry_records``): it is reported as
-    skipped.  Prints its seconds; raises on a miss."""
+    phases counted per call and per engine step; likewise for each 32k
+    cell of ``cells`` (phase -> ``drive_cells``' result), its calls per
+    call or step times its runs.  (c) Each step and call that phases 7,
+    11, 14, C, G, I and K timed, and each 32k cell's call or step, as a
+    share of its roofline bound on the H100 (the largest of the compute,
+    memory and collective terms).  Phase J has no record
+    (``dry_records``): it is reported as skipped.  Prints its seconds;
+    raises on a miss."""
     t0 = time.perf_counter()
     out = {}
     runs = {"phase 14": train, "phase C": moe_train["run"],
@@ -2358,6 +2744,20 @@ def check_dryrun(serve: dict, moe: dict, train: dict, moe_train: dict,
                                  f"from the launches: {row}")
         timed[f"{name} prefill call"] = (run["prefill_ms_per_call"], prefill)
         timed[f"{name} engine step"] = (run["ms_per_engine_step"], step)
+    for phase, cell in (cells or {}).items():
+        for shape, what in (("prefill_32k", "call"), ("decode_32k", "step")):
+            name = f"phase {phase} {shape} {what}"
+            res, rec = cell[shape], recs[name]
+            row = {"calls": rec["kernel_calls"], "launches": res["launches"],
+                   "runs": res["runs"], "batch": res["batch"],
+                   "cuts": res["cuts"]}
+            out[name] = row
+            print(f"phase H, {name} kernel calls:", json.dumps(row))
+            if not calls_match(rec["kernel_calls"], res["launches"],
+                               res["runs"]):
+                raise AssertionError(f"{name}: dry-run kernel calls differ "
+                                     f"from the launches: {row}")
+            timed[name] = (res["ms"], rec)
     timed["phase G train step"] = (int8_train["run"]["ms_per_step"],
                                    recs["phase G train step"])
     for name, (ms, rec) in timed.items():
@@ -2438,22 +2838,27 @@ def run_phases(dry) -> int:
     drive_arena_bench(device)                                 # phase A
     done("A")
     attn_err = check_attention(device)                        # phase 6
+    for name, err in check_attention_32k(device).items():
+        attn_err[name] = max(attn_err[name], err)
     done("6")
     cfg = get_arch(ARCH)
-    serve, prompts = drive_serving(device, cfg)               # phase 7
+    serve, prompts = drive_serving(device, cfg, cells=dict(   # phase 7
+        decode_batch=DECODE_32K_BATCH["7"]))
     check_serving_launches(serve, cfg.n_layers, on_card=True)
     torch.cuda.empty_cache()
     check_f32_path(device, cfg.scaled(n_layers=CHECK_LAYERS,  # phase 8
                                       dtype="float32"), prompts)
     done("8")
+    free_card()
     attn_time = time_attention(device, kind)                  # phase 9
     free_card()
     gmm_err = check_gmm(device)                               # phase 10
     free_card()
     done("10")
-    moe_cfg = get_arch(MOE_ARCH).scaled(n_layers=MOE_LAYERS)
+    moe_cfg = serving_config("11")
     moe, moe_prompts = drive_serving(device, moe_cfg,         # phase 11
-                                     **MOE_SERVE)
+                                     **MOE_SERVE, cells=dict(
+                                         decode_batch=DECODE_32K_BATCH["11"]))
     check_serving_launches(moe, MOE_LAYERS, on_card=True)
     free_card()
     check_f32_path(device, moe_cfg.scaled(                    # phase 12
@@ -2475,6 +2880,18 @@ def run_phases(dry) -> int:
         families[phase] = drive_family(device, get_arch(arch),  # D-F
                                        serve_kw, check_kw)
         done(phase)
+    configs = {}
+    for phase, (_, _, check_kw) in CONFIG_PHASES.items():    # L-O
+        served_cfg = serving_config(phase)
+        print(f"phase {phase}: {served_cfg.name} at {served_cfg.n_layers} "
+              f"of {get_arch(served_cfg.name).n_layers} layers, decode_32k "
+              f"at a batch of {DECODE_32K_BATCH[phase]}")
+        configs[phase] = drive_family(
+            device, served_cfg, KIMI_SERVE, check_kw,
+            cells=dict(decode_batch=DECODE_32K_BATCH[phase]))
+        done(phase)
+    cells = {"7": serve["cells"], "11": moe["cells"],
+             **{p: c["run"]["cells"] for p, c in configs.items()}}
     train = drive_training(device, kind,                      # phase 14
                            cfg.scaled(remat=True))
     free_card()
@@ -2498,7 +2915,7 @@ def run_phases(dry) -> int:
     drive_multihost_scale()                                   # phase B
     done("B")
     check_dryrun(serve, moe, train, moe_train, int8_train,    # phase H
-                 family_train, dry.get())
+                 family_train, dry.get(), cells)
     done("H")
     f32 = timing["f32"]
     rows = {"crop_mirror_normalize": {
@@ -2506,8 +2923,11 @@ def run_phases(dry) -> int:
         "max_abs_err": checks["main_f32_max_abs_err"], "ms": f32["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": None}}
-    # Launches on the serving paths, each counted from 0 over its own run.
-    served = [serve, moe, kimi] + [f["run"] for f in families.values()]
+    # Launches on the serving paths and the 32k cells, each counted from 0
+    # over its own run.
+    served = [serve, moe, kimi] + [f["run"] for f in families.values()] \
+        + [c["run"] for c in configs.values()] \
+        + [res for cell in cells.values() for res in cell.values()]
     for name, key in (("flash_attention", "flash_attention torch.bfloat16"),
                       ("flash_decode", "flash_decode")):
         t = attn_time[key]

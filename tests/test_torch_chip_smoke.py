@@ -222,9 +222,11 @@ def test_moe_path_config_is_grok_at_full_width():
     E, C, d, f = chip_smoke.GMM_PREFILL
     assert C == serve["prefill_b"] * -(-512 * 2 * 1.25 // 8)
     # Every shape the path gives the kernel (gate/up and down, at decode
-    # and in a prefill chunk) is checked in bf16 and timed, beside
-    # Kimi-K2's (test_kimi_path_config_at_full_width).
-    shapes = {(E, rows, a, b) for rows in (serve["slots"], C)
+    # and in a prefill chunk, and in its prefill_32k and decode_32k cells:
+    # a one-row chunk and a step of DECODE_32K_BATCH slots) is checked in
+    # bf16 and timed, beside Kimi-K2's (test_kimi_path_config_at_full_width).
+    cells = (C // serve["prefill_b"], chip_smoke.DECODE_32K_BATCH["11"])
+    shapes = {(E, rows, a, b) for rows in (serve["slots"], C) + cells
               for a, b in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model))}
     assert {s for s, dtype in chip_smoke.GMM_PATH_CASES
             if dtype == torch.bfloat16} == shapes | _kimi_gmm_shapes()
@@ -1064,8 +1066,10 @@ def test_train_flops_by_family():
 
 def test_phase_h_records_every_counted_training_phase(monkeypatch):
     """Phase H's records: the train steps of phases 14, C, G, I and K at
-    their configs and sizes, none for J, and phases 7's and 11's prefill
-    calls and engine steps."""
+    their configs and sizes, none for J, phases 7's and 11's prefill
+    calls and engine steps, and the prefill_32k and decode_32k cells of
+    phases 7, 11 and L-O (``tests/test_torch_chip_smoke_cells.py`` holds
+    their sizes)."""
     calls = []
 
     def dry_cell(cfg, kind, seq, batch, **kw):
@@ -1077,7 +1081,9 @@ def test_phase_h_records_every_counted_training_phase(monkeypatch):
     assert set(recs) == {f"phase {p} train step"
                          for p in ("14", "C", "G", "I", "K")} | {
         f"phase {p} {what}" for p in ("7", "11")
-        for what in ("prefill call", "engine step")}
+        for what in ("prefill call", "engine step")} | {
+        f"phase {p} {what}" for p in chip_smoke.DECODE_32K_BATCH
+        for what in ("prefill_32k call", "decode_32k step")}
     assert ("hymba-1.5b", 16, "train", 4096, 2) in calls
     assert ("whisper-tiny", 4, "train", 4096, 2) in calls
     assert not any(name.startswith("xlstm") for name, *_ in calls)
