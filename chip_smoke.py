@@ -4,11 +4,14 @@ version, drives the image lane (and its arena bench), the dense Qwen3-4B
 serving path, the Grok-1 and Kimi-K2 MoE serving paths, the Hymba-1.5B,
 xLSTM-350M and Whisper-tiny serving paths, the Qwen3-14B, Yi-34B,
 StableLM-2-1.6B and InternVL2-2B serving paths, the reference's
-prefill_32k and decode_32k cells of six of them, the Qwen3-4B, Grok-1,
+prefill_32k and decode_32k cells of all ten and long_500k of Hymba-1.5B
+and xLSTM-350M, the Qwen3-4B, Grok-1,
 Hymba-1.5B, xLSTM-350M and Whisper-tiny training paths (Grok-1 also on
 int8 AdamW moments, with the state restored onto a device mesh) and the
 1000-host multi-host loader end to
 end, times the kernels, and holds the dry run's counts against the card.
+The f32 checks' CPU sides run in two worker processes beside the card's
+phases; each is collected when it is ready, and all before phase H.
 
     python3 chip_smoke.py
 
@@ -49,7 +52,12 @@ Phases, in order; any failure raises and exits non-zero:
      (G = 5, 7, 1 over 32 kv heads at D = 64, and 2); each 32k cell's
      attention (``FLASH_32K_CASES``), held one kv group at a time on the
      first and the last group, and its decode at its batch
-     (``DECODE_32K_CASES``) at lengths 1, T // 3, T and ragged);
+     (``DECODE_32K_CASES``) at lengths 1, T // 3, T and ragged); then the
+     other families' cells the same way (``FLASH_32K_FAMILY_CASES``:
+     Kimi-K2 at G = 8 and D = 112, its plain version in pieces of 4 query
+     heads, Hymba's window, Whisper's decoder and its cross-attention over
+     1500 frames; ``DECODE_32K_FAMILY_CASES``: Kimi-K2 and Whisper at 128
+     slots, Hymba's ring at 128 slots and at long_500k's one);
   7. the serving path at full width: Qwen3-4B (36 layers, bf16, seeded
      random weights), prompts fetched over the simulated WAN by
      ``build_stack``, a 4 x 2048 prefill and continuous-batching decode of
@@ -59,14 +67,18 @@ Phases, in order; any failure raises and exits non-zero:
      32,768 tokens at its batch of ``DECODE_32K_BATCH``, the last over
      every key), each with exact launches, its ms, peak memory and cuts;
   8. the same path in f32 at 2 layers on the card and on the CPU (the
-     kernels' plain versions): prefill and decode logits within 1e-3;
+     kernels' plain versions, in an f32 worker process, on the card's
+     weights shipped as numpy): prefill and decode logits within 1e-3;
   9. the attention kernels' times at every bf16 path shape (Qwen3-4B's,
      Grok-1's, Kimi-K2's, Hymba's and Whisper-tiny's, each with its mask)
      against their bounds, plain versions and
      ``scaled_dot_product_attention``; flash attention at three 32k shapes
      (Qwen3-4B's prefill_32k, G = 7, and D = 64 over 32 kv heads); flash
      decode also at the engine's live lengths and at each decode_32k
-     cell's shape, and beside the CUDA-core decode kernel in bf16; f32
+     cell's shape (the other families' too), and beside the CUDA-core
+     decode kernel in bf16; the other families' 32k attention
+     (``TIME_ATTENTION_32K_FAMILY``; SDPA takes Hymba's window as a mask
+     over repeated kv heads); f32
      flash decode at the dense serving shape beside SDPA in f32;
  10. grouped matmul == its plain version on the card: the reference's
      sweep, ragged and unaligned edges and strided views (f32 1e-4; bf16
@@ -74,7 +86,8 @@ Phases, in order; any failure raises and exits non-zero:
      MoE paths (Grok-1's prefill_32k chunk and decode_32k step among
      them), and a prefill chunk off them (bf16 within two ulps,
      2**-6 rtol / 1e-3 atol; f32 1e-4); two launches at Grok-1's and
-     Kimi-K2's decode down projections give the same bits;
+     Kimi-K2's decode down projections give the same bits; Kimi-K2's
+     cells' chunk of one row (C = 14) and step of 128 slots (C = 128);
  11. the MoE serving path at full width: Grok-1 (4 of its 64 layers, bf16,
      seeded random weights), prompts fetched over the simulated WAN, a
      2 x 2048 prefill and continuous-batching decode of 16 prompts, with
@@ -86,8 +99,10 @@ Phases, in order; any failure raises and exits non-zero:
  13. Kimi-K2 serving at full width (1 of its 61 layers, head dim 112, 384
      experts, bf16, seeded random weights; Grok-1's tensors freed first):
      a 2 x 2048 prefill and continuous-batching decode of 8 prompts, with
-     the kernels' launches counted, then the same path in f32 at d_ff 256
-     on the card and on the CPU (logits within 1e-3);
+     the kernels' launches counted, then its prefill_32k and decode_32k
+     cells as phase 7's (decode_32k at the reference's 128 slots: 36.4 GB
+     of weights and 15 GB of cache), then the same path in f32 at d_ff
+     256 on the card and on the CPU (logits within 1e-3);
   D. Hymba-1.5B serving at full width and depth (32 layers, 25 query heads
      over 5 kv heads, a 1024-token window, bf16, seeded random weights;
      Kimi-K2's tensors freed first): prompts over the simulated WAN, a
@@ -107,7 +122,15 @@ Phases, in order; any failure raises and exits non-zero:
      flash-attention launches per prefill call (4 encoder, 4 self, 4
      cross) and 8 flash-decode launches per engine step (4 self, 4 cross
      over the 1500 frames), and the f32 check of the whole model; each of
-     D, E and F prints its seconds;
+     D, E and F runs its cells on its weights before its f32 check
+     (``drive_cells``, ``cell_sizes``): prefill_32k (Hymba whole, xLSTM at
+     its first mLSTM/sLSTM pair, Whisper's decoder at 32,768 positions
+     over make_batch's (1, 1500, 384) frames), decode_32k at 128 slots
+     and, for Hymba and xLSTM, long_500k (one slot, 4 steps ending at
+     position 524,287); a recurrent state (Hymba's Mamba state, xLSTM's
+     states) is brought by ``WARM_STEPS`` serve steps before K and V are
+     drawn and the position set (``seed_cache``); each prints its
+     seconds;
   L, M, N, O. Qwen3-14B (whole: 40 layers, G = 5), Yi-34B (30 of its 60
      layers: whole, its bf16 weights leave no room for a 32k cache; G =
      7), StableLM-2-1.6B (whole, 32 kv heads at D = 64) and InternVL2-2B
@@ -191,7 +214,8 @@ Phases, in order; any failure raises and exits non-zero:
      then the f32 check of the whole model on 1 x 2080 tokens with frames;
      each of I, J and K prints its seconds;
  16. the grouped matmul's times at the Grok-1 and Kimi-K2 decode and
-     prefill shapes, Grok-1's 32k cells' shapes, and at the chunk off the
+     prefill shapes, Grok-1's and Kimi-K2's 32k cells' shapes, and at the
+     chunk off the
      path, against its bound, plain version and ``torch.bmm``; in f32 at
      Grok-1's decode and prefill chunk beside ``torch.bmm`` without TF32;
   B. the multi-host path on the card's host: ``bench_torch_multihost``'s
@@ -212,11 +236,14 @@ Phases, in order; any failure raises and exits non-zero:
      tensors, too slow for this run); its kernel calls per prefill
      call and per decode step, times the calls and steps, equal the
      launches phases 7 and 11 counted, and so do those of each 32k cell
-     at its depth and batch (decode_32k at pos 32767); each step and call
+     at its depth and batch (decode_32k at pos 32767, long_500k at pos
+     524,287; xLSTM's prefill_32k is not counted: its count walks 32,768
+     sLSTM steps a layer in Python); each step and call
      these phases timed, the 32k cells' too, is printed beside its
      roofline bound on the H100 (the largest of the compute, memory and
      collective terms, ``launch.mesh.HW``) and the share; it prints its
      seconds;
+     every f32 check is collected before it begins;
  17. one JSON line of kernels, then the result line.
 
 Needs a CUDA card; without one it exits non-zero and prints no result.
@@ -390,6 +417,35 @@ SEQ_32K = 32768
 PREFILL_32K_CALLS, DECODE_32K_STEPS = 2, 4
 CARD_GB, CARD_FREE = 80, 0.2
 DECODE_32K_BATCH = {"7": 8, "11": 32, "L": 4, "M": 4, "N": 8, "O": 16}
+# The other four configs' cells, on the weights of the phase that serves
+# them: Kimi-K2 at phase 13's 1 of 61 layers, Hymba-1.5B, xLSTM-350M and
+# Whisper-tiny whole (phases D, E and F).  decode_32k's batch is
+# decode_32k_batch's, from each family's own cache (``cache_specs``):
+# Kimi-K2's 36.4 GB of bf16 weights and 117 MB a slot, Hymba's ring of
+# 1024 slots and its Mamba state, xLSTM's states, Whisper's 32,768-token
+# self cache and 1500-frame cross cache leave the reference's 128 uncut.
+FAMILY_CELL_BATCH = {"13": 128, "D": 128, "E": 128, "F": 128}
+# long_500k (one row, a 524,288-token context) for the families that run
+# it (LONG_CONTEXT_FAMILIES): Hymba (its ring of 1024 slots) and xLSTM (no
+# position), 4 serve steps, the last at position 524,287.
+LONG_500K = SHAPES["long_500k"].seq_len
+LONG_CELL_PHASES = ("D", "E")
+# prefill_32k's depth where it is cut: xLSTM runs its first mLSTM/sLSTM
+# pair (2 of 24 layers), whose sLSTM walks 32,768 steps, one Python step
+# each, about 10 s a call (derived from 7.40 s for 2 x 2048 at 24 layers;
+# 24 layers would take about 2 minutes a call).
+CELL_PREFILL_LAYERS = {"E": 2}
+# Steps of make_serve_step from init_cache, on seeded tokens at the cell's
+# batch, that bring a recurrent state (Hymba's Mamba h and conv, xLSTM's
+# mLSTM and sLSTM states: its m is a log-space stabiliser and its n a
+# normaliser, which random values could overflow or bring near 0) to
+# values the model itself makes, before a decode cell draws its K and V and
+# sets its position.
+WARM_STEPS = 32
+# The cells that phase H does not count, with the reason.
+DRY_NOT_COUNTED = {
+    "phase E prefill_32k call": "its count walks 32,768 sLSTM steps a "
+    "layer in Python on meta tensors, as phase J's would"}
 # Kernel sweeps: the reference's (tests/test_kernels.py:17-62) with head
 # dim 112 added, and the serving paths' own shapes: Qwen3-4B's, Grok-1's
 # (48 query heads over 8 kv heads) and Kimi-K2's (64 over 8 at head dim
@@ -469,6 +525,30 @@ DECODE_PATH_CASES = [((SLOTS, 8, 4, MAX_SEQ, 128), torch.bfloat16),
 DECODE_32K_CASES = [(8, 8, 4, SEQ_32K, 128), (32, 8, 6, SEQ_32K, 128),
                     (4, 8, 5, SEQ_32K, 128), (4, 8, 7, SEQ_32K, 128),
                     (8, 32, 1, SEQ_32K, 64), (16, 8, 2, SEQ_32K, 128)]
+# The other families' cells' attention, bf16, as FLASH_MASK_PATH_CASES,
+# (B,H,K,S,T,D), causal, window: Kimi-K2's prefill_32k (64 query heads over
+# 8 at D = 112), Hymba's (25 over 5, its 1024-token window), Whisper-tiny's
+# decoder self-attention over 32,768 positions and its cross-attention of
+# 32,768 queries over 1500 frames.  Checked in phase 6 one kv group at a
+# time on the first and the last group, a group cut into pieces of query
+# heads where its f32 scores would pass PLAIN_SCORES_BYTES
+# (``grouped_reference``), and timed in phase 9.
+FLASH_32K_FAMILY_CASES = [((1, 64, 8, SEQ_32K, SEQ_32K, 112), True, 0),
+                          ((1, 25, 5, SEQ_32K, SEQ_32K, 64), True, 1024),
+                          ((1, 6, 6, SEQ_32K, SEQ_32K, 64), True, 0),
+                          ((1, 6, 6, SEQ_32K, 1500, 64), False, 0)]
+# The most f32 scores (bytes) one plain attention call of phase 6's 32k
+# checks holds: Yi-34B's G = 7 group (30.1 GB, about 60 GB with the
+# softmax's copies on the empty card) stays whole; Kimi-K2's G = 8 (34.4
+# GB) runs as two pieces of 4 heads.
+PLAIN_SCORES_BYTES = 32e9
+# Their decode (B,K,G,T,D), bf16, checked in phase 6 as DECODE_32K_CASES
+# and timed in phase 9: Kimi-K2's decode_32k at 128 slots, Hymba's ring of
+# 1024 slots at decode_32k's 128 slots and long_500k's one, Whisper-tiny's
+# self cache of 32,768 and cross cache of 1500 frames at 128 slots.
+DECODE_32K_FAMILY_CASES = [(128, 8, 8, SEQ_32K, 112), (128, 5, 5, 1024, 64),
+                           (1, 5, 5, 1024, 64), (128, 6, 1, SEQ_32K, 64),
+                           (128, 6, 1, 1500, 64)]
 # The other families' attention at their path shapes, where the mask is not
 # Qwen3-4B's causal S = T: (B,H,K,S,T,D), dtype, causal, window.  Hymba's
 # prefill (25 query heads over 5 kv heads, a 1024-token window, S past it)
@@ -514,6 +594,13 @@ TIME_ATTENTION = [("flash_attention", TIME_PREFILL),
 TIME_ATTENTION_32K = [("flash_attention 32k", FLASH_32K_CASES[0]),
                       ("flash_attention 32k yi", FLASH_32K_CASES[3]),
                       ("flash_attention 32k stablelm", FLASH_32K_CASES[4])]
+# Timed at the other families' 32k shapes, with their masks: (name,
+# (B,H,K,S,T,D), causal, window), FLASH_32K_FAMILY_CASES.
+TIME_ATTENTION_32K_FAMILY = [
+    (f"flash_attention 32k {name}", shape, causal, window)
+    for name, (shape, causal, window) in zip(
+        ("kimi", "hymba", "whisper self", "whisper cross"),
+        FLASH_32K_FAMILY_CASES)]
 TIME_DECODES = [("flash_decode", TIME_DECODE),
                 ("flash_decode serving", (SLOTS, 8, 4, MAX_SEQ, 128)),
                 ("flash_decode grok", (8, 8, 6, 1024, 128)),
@@ -527,7 +614,14 @@ TIME_DECODES = [("flash_decode", TIME_DECODE),
                 ("flash_decode internvl2", (8, 8, 2, 1024, 128))] + [
     (f"flash_decode 32k {name}", shape) for name, shape in zip(
         ("qwen3-4b", "grok", "qwen3-14b", "yi", "stablelm", "internvl2"),
-        DECODE_32K_CASES)]
+        DECODE_32K_CASES)] + [
+    (f"flash_decode {name}", shape) for name, shape in zip(
+        ("32k kimi", "32k hymba", "long_500k hymba", "32k whisper self",
+         "32k whisper cross"), DECODE_32K_FAMILY_CASES)]
+# A timed decode row whose K and V take more bytes than this runs 5 x 5
+# launches a measurement, not 20 x 20 (Kimi-K2's 15 GB cache, Whisper's
+# 6.4 GB).
+DECODE_TIME_BIG = 5e9
 # The f32 decode kernel at the dense serving path's shape, beside SDPA in
 # f32 (phase 9).
 TIME_DECODE_F32 = ("flash_decode serving f32", (SLOTS, 8, 4, MAX_SEQ, 128))
@@ -605,6 +699,13 @@ KIMI_GMM_DECODE = (384, 8, 7168, 2048)
 KIMI_GMM_DECODE_DOWN = (384, 8, 2048, 7168)
 KIMI_GMM_PREFILL = (384, 28, 7168, 2048)
 KIMI_GMM_PREFILL_DOWN = (384, 28, 2048, 7168)
+# Kimi-K2's cells (models/moe.py: C = ceil(S * top_k * 1.25 / 384) rows an
+# expert for each row of S tokens): a prefill_32k chunk of one row (S =
+# 512: C = 14) and a decode_32k step of 128 slots (S = 1: C = 1 a slot).
+KIMI_GMM_PREFILL_B1 = (384, 14, 7168, 2048)
+KIMI_GMM_PREFILL_B1_DOWN = (384, 14, 2048, 7168)
+KIMI_GMM_DECODE_32K = (384, FAMILY_CELL_BATCH["13"], 7168, 2048)
+KIMI_GMM_DECODE_32K_DOWN = (384, FAMILY_CELL_BATCH["13"], 2048, 7168)
 GMM_PATH_CASES = [(GMM_DECODE, torch.bfloat16),
                   (GMM_DECODE_DOWN, torch.bfloat16),
                   (GMM_PREFILL, torch.bfloat16),
@@ -618,7 +719,11 @@ GMM_PATH_CASES = [(GMM_DECODE, torch.bfloat16),
                   (GMM_PREFILL_B1, torch.bfloat16),
                   (GMM_PREFILL_B1_DOWN, torch.bfloat16),
                   (GMM_DECODE_32K, torch.bfloat16),
-                  (GMM_DECODE_32K_DOWN, torch.bfloat16)]
+                  (GMM_DECODE_32K_DOWN, torch.bfloat16),
+                  (KIMI_GMM_PREFILL_B1, torch.bfloat16),
+                  (KIMI_GMM_PREFILL_B1_DOWN, torch.bfloat16),
+                  (KIMI_GMM_DECODE_32K, torch.bfloat16),
+                  (KIMI_GMM_DECODE_32K_DOWN, torch.bfloat16)]
 # Timed: gate/up and down projections at decode and in a prefill chunk,
 # with (back-to-back launches, repeats) sized to keep the phase in seconds.
 TIME_GMM = [("decode", GMM_DECODE, 5, 5),
@@ -632,7 +737,11 @@ TIME_GMM = [("decode", GMM_DECODE, 5, 5),
             ("prefill b1", GMM_PREFILL_B1, 5, 5),
             ("prefill b1 down", GMM_PREFILL_B1_DOWN, 5, 5),
             ("decode 32k", GMM_DECODE_32K, 5, 5),
-            ("decode 32k down", GMM_DECODE_32K_DOWN, 5, 5)]
+            ("decode 32k down", GMM_DECODE_32K_DOWN, 5, 5),
+            ("kimi prefill b1", KIMI_GMM_PREFILL_B1, 3, 3),
+            ("kimi prefill b1 down", KIMI_GMM_PREFILL_B1_DOWN, 3, 3),
+            ("kimi decode 32k", KIMI_GMM_DECODE_32K, 3, 3),
+            ("kimi decode 32k down", KIMI_GMM_DECODE_32K_DOWN, 3, 3)]
 # A prefill chunk of a batch size the paths do not run, where the bf16
 # kernel takes a tile of its own (grouped_matmul.plan): Kimi-K2 at four
 # rows (C = 4 x 14 = 56, the 64-row mma.sync tile).  Checked in bf16
@@ -735,6 +844,10 @@ FAMILY_TRAIN = {
     "K": ("whisper_tiny", dict(steps=8), dict(seq=2080)),
 }
 FAMILY_TRAIN_LAYERS = {"hymba_1_5b": 16, "xlstm_350m": 4}
+# CPU sides outstanding (running or queued) in one f32 worker before a new
+# one waits: each holds its weights in shared memory until its result is
+# back; the training checks' seven are submitted at once.
+F32_QUEUED = 8
 # Phase H: the dry run's predicted peak (argument + temp + output - alias)
 # against the training phases' max_memory_allocated.
 PEAK_TOL = 0.2
@@ -1110,17 +1223,30 @@ def flash_blocks(q, k, v, *, causal: bool = True, window: int = 0) -> list:
 
 
 def grouped_reference(q, k, v, groups, *, causal: bool = True,
-                      window: int = 0):
+                      window: int = 0, heads: int = None):
     """The plain version one kv group at a time: for each g of
     ``groups``, (g, ``ref.mha_reference`` of query heads g*G..(g+1)*G-1
     against kv head g), which is that group's slice of the whole plain
     version's output, with G times the (S,T) f32 scores of one head where
-    the whole takes H times."""
+    the whole takes H times.  With ``heads`` (a divisor of G), a group
+    runs as pieces of that many query heads, side by side."""
     G = q.shape[1] // k.shape[1]
+    step = heads or G
     for g in groups:
-        yield g, ref.mha_reference(q[:, g * G:(g + 1) * G], k[:, g:g + 1],
-                                   v[:, g:g + 1], causal=causal,
-                                   window=window)
+        kg, vg = k[:, g:g + 1], v[:, g:g + 1]
+        pieces = [ref.mha_reference(q[:, h:h + step], kg, vg, causal=causal,
+                                    window=window)
+                  for h in range(g * G, (g + 1) * G, step)]
+        yield g, pieces[0] if len(pieces) == 1 else torch.cat(pieces, 1)
+
+
+def plain_heads(G: int, S: int, T: int) -> int:
+    """Query heads a piece of ``grouped_reference`` at (S, T) takes: the
+    largest divisor of G whose (S, T) f32 scores stay within
+    ``PLAIN_SCORES_BYTES`` (at least one)."""
+    return max([h for h in range(1, G + 1)
+                if G % h == 0 and h * S * T * 4 <= PLAIN_SCORES_BYTES],
+               default=1)
 
 
 def check_attention(device) -> dict:
@@ -1256,13 +1382,17 @@ def check_decode_runs(name: str, q, k, v, runs: list) -> float:
     return err
 
 
-def check_attention_32k(device) -> dict:
+def check_attention_32k(device, attention: list = None,
+                        decode: list = None) -> dict:
     """Phase 6 at the 32k cells' shapes, in bf16 within ``path_tol``,
-    in the model's layouts: flash attention at each of
-    ``FLASH_32K_CASES``, its output held one kv group at a time on the
-    first and the last group (``grouped_reference``), and flash decode at
-    each of ``DECODE_32K_CASES`` at lengths 1, T // 3 and T and at
-    ``ragged_lengths``.  Returns the largest max|diff| of each kernel."""
+    in the model's layouts: flash attention at each of ``attention``
+    (((B,H,K,S,T,D), causal, window), as ``FLASH_32K_FAMILY_CASES``; by
+    default ``FLASH_32K_CASES``, causal), its output held one kv group at
+    a time on the first and the last group (``grouped_reference``, in
+    pieces of ``plain_heads`` query heads), and flash decode at each of
+    ``decode`` (by default ``DECODE_32K_CASES``) at lengths 1, T // 3 and
+    T and at ``ragged_lengths``.  Returns the largest max|diff| of each
+    kernel."""
     gen = torch.Generator(device).manual_seed(8)
     dtype = torch.bfloat16
 
@@ -1270,19 +1400,28 @@ def check_attention_32k(device) -> dict:
         return torch.randn(shape, generator=gen, dtype=dtype, device=device)
 
     path = {"flash_attention": 0.0, "flash_decode": 0.0}
-    for B, H, K, S, D in FLASH_32K_CASES:
+    if attention is None:
+        attention = [((B, H, K, S, S, D), True, 0)
+                     for B, H, K, S, D in FLASH_32K_CASES]
+    for (B, H, K, S, T, D), causal, window in attention:
         q = randn((B, S, H, D)).transpose(1, 2)
-        k, v = (randn((B, S, K, D)).transpose(1, 2) for _ in "kv")
-        got = ops.flash_attention(q, k, v)
+        k, v = (randn((B, T, K, D)).transpose(1, 2) for _ in "kv")
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
         G = H // K
-        for g, want in grouped_reference(q, k, v, sorted({0, K - 1})):
-            err = compare(f"flash 32k {dtype} {(B, H, K, S, D)} kv group {g}",
+        shape = (B, H, K, S, D) if (S, causal, window) == (T, True, 0) \
+            else (B, H, K, S, T, D)
+        mask = "" if (causal, window) == (True, 0) else \
+            f" causal {causal} window {window}"
+        for g, want in grouped_reference(
+                q, k, v, sorted({0, K - 1}), causal=causal, window=window,
+                heads=plain_heads(G, S, T)):
+            err = compare(f"flash 32k {dtype} {shape}{mask} kv group {g}",
                           got[:, g * G:(g + 1) * G], want, dtype,
                           path_tol(want, dtype))
             path["flash_attention"] = max(path["flash_attention"], err)
             del want
         del q, k, v, got
-    for B, K, G, T, D in DECODE_32K_CASES:
+    for B, K, G, T, D in DECODE_32K_CASES if decode is None else decode:
         q = randn((B, K, G, D))
         k, v = (randn((B, T, K, D)).transpose(1, 2) for _ in "kv")
         runs = [(f"length {n}", [n] * B) for n in (1, T // 3, T)]
@@ -1402,25 +1541,32 @@ def drive_serving(device, cfg, *, n_prompts: int = N_PROMPTS,
 
 def drive_cells(model, params: dict, *, decode_batch: int,
                 seq: int = SEQ_32K, prefill_calls: int = PREFILL_32K_CALLS,
-                decode_steps: int = DECODE_32K_STEPS) -> dict:
-    """The prefill_32k and decode_32k cells on ``params``: prefill_32k,
-    ``prefill_calls`` calls of ``make_prefill_step`` on one row of ``seq``
-    seeded tokens (``make_batch``, with a VLM's patch embeddings), the
-    last timed; decode_32k, ``decode_steps`` steps of ``make_serve_step``
-    from a cache of ``init_cache(decode_batch, seq)`` whose K and V are
-    drawn from a seeded generator and whose pos starts ``decode_steps``
-    short of ``seq``, so that the last step reads all ``seq`` keys, each
-    step's argmax the next token, the steps after the first timed.  Each
-    cell's logits must be f32, finite and of its shape, and its launches
-    ``cell_launches`` per call or step on the card (none on the CPU).
-    Returns each cell's ms, runs, launches, peak memory and cuts."""
+                decode_steps: int = DECODE_32K_STEPS, long_seq: int = None,
+                prefill_layers: int = None,
+                warm_steps: int = WARM_STEPS) -> dict:
+    """The prefill_32k and decode_32k cells on ``params`` (and long_500k
+    with ``long_seq``): prefill_32k, ``prefill_calls`` calls of
+    ``make_prefill_step`` on one row of ``seq`` seeded tokens
+    (``make_batch``, with a VLM's patch embeddings or Whisper's frames),
+    the last timed, on the first ``prefill_layers`` layers where given
+    (``cut_depth``); decode_32k, ``decode_steps`` steps of
+    ``make_serve_step`` from a cache that ``seed_cache`` makes for
+    ``decode_batch`` slots of ``seq``, so that the last step is at
+    position ``seq - 1``, each step's argmax the next token, the steps
+    after the first timed; long_500k the same at one slot of
+    ``long_seq``.  Each cell's logits must be f32, finite and of its
+    shape, its launches ``cell_launches`` per call or step on the card
+    (none on the CPU), and a decode cell must end at its family's own
+    position ``seq`` (``cache_positions``; xLSTM has none) with a finite
+    recurrent state.  Returns each cell's ms, runs, launches, peak memory
+    and cuts."""
     cfg, device = model.cfg, model.device
     on_card = device.type == "cuda"
     gen = torch.Generator(device).manual_seed(32)
-    depth = f"{cfg.n_layers} of {get_arch(cfg.name).n_layers} layers"
+    full = get_arch(cfg.name).n_layers
     out = {}
 
-    def run(kind, shape, fn, runs):
+    def run(kind, shape, fn, runs, run_cfg, length):
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
         reset_launches()
@@ -1434,7 +1580,8 @@ def drive_cells(model, params: dict, *, decode_batch: int,
             times.append((time.perf_counter() - t0) * 1e3)
         launches = launch_counts()
         want = {k: n * runs for k, n in
-                cell_launches(cfg, kind, seq).items()} if on_card else {}
+                cell_launches(run_cfg, kind, length).items()} \
+            if on_card else {}
         if tuple(logits.shape) != shape or logits.dtype != torch.float32 \
                 or not all_finite(logits):
             raise AssertionError(f"{kind} cell: bad logits "
@@ -1446,43 +1593,130 @@ def drive_cells(model, params: dict, *, decode_batch: int,
                 "peak_GB": (torch.cuda.max_memory_allocated(device) / 1e9
                             if on_card else None)}
 
-    batch = model.make_batch(gen, ShapeConfig("prefill_32k", "prefill",
-                                              seq, 1))
-    prefill = make_prefill_step(model)
+    pmodel, pparams = (cut_depth(model, params, prefill_layers)
+                       if prefill_layers else (model, params))
+    batch = pmodel.make_batch(gen, ShapeConfig("prefill_32k", "prefill",
+                                               seq, 1))
+    prefill = make_prefill_step(pmodel)
     res = run("prefill", (1, seq, cfg.vocab),
-              lambda: prefill(params, batch), prefill_calls)
+              lambda: prefill(pparams, batch), prefill_calls, pmodel.cfg,
+              seq)
     res.update(batch=1, seq=seq, ms=res["ms_all"][-1],
                cuts={"batch": f"{SHAPES['prefill_32k'].global_batch} -> 1",
-                     "layers": depth})
+                     "layers": f"{pmodel.cfg.n_layers} of {full} layers"})
     out["prefill_32k"] = res
-    del batch
-    cache = model.init_cache(decode_batch, seq)
-    for name in ("k", "v"):
-        cache[name].normal_(generator=gen)
-    cache["pos"] = seq - decode_steps
-    state = {"cache": cache, "tokens": torch.randint(
-        0, cfg.vocab, (decode_batch, 1), generator=gen, device=device,
-        dtype=torch.int32)}
+    del batch, pmodel, pparams
     step = make_serve_step(model)
+    cells = [("decode_32k", decode_batch, seq)]
+    if long_seq:
+        cells.append(("long_500k", 1, long_seq))
+    for name, b, length in cells:
+        state = {"cache": seed_cache(model, params, b, length, decode_steps,
+                                     warm_steps, gen),
+                 "tokens": torch.randint(0, cfg.vocab, (b, 1), generator=gen,
+                                         device=device, dtype=torch.int32)}
 
-    def one_step():
-        logits, state["cache"] = step(params, state["cache"], state["tokens"])
-        state["tokens"] = logits[:, -1].argmax(-1, keepdim=True).int()
-        return logits
+        def one_step(state=state):
+            logits, state["cache"] = step(params, state["cache"],
+                                          state["tokens"])
+            state["tokens"] = logits[:, -1].argmax(-1, keepdim=True).int()
+            return logits
 
-    res = run("decode", (decode_batch, 1, cfg.vocab), one_step, decode_steps)
-    if state["cache"]["pos"] != seq:
-        raise AssertionError(f"decode cell ended at pos "
-                             f"{state['cache']['pos']}, not {seq}")
-    res.update(batch=decode_batch, seq=seq, first_pos=seq - decode_steps,
-               ms=statistics.median(res["ms_all"][1:] or res["ms_all"]),
-               cuts={"batch": f"{SHAPES['decode_32k'].global_batch} -> "
-                              f"{decode_batch}", "layers": depth})
-    out["decode_32k"] = res
-    del state, cache
+        res = run("decode", (b, 1, cfg.vocab), one_step, decode_steps, cfg,
+                  length)
+        positions = cache_positions(state["cache"])
+        if any(p != length for p in positions):
+            raise AssertionError(f"{name} cell ended at pos {positions}, "
+                                 f"not {length}")
+        if not all(all_finite(t) for t in recurrent_state(state["cache"])):
+            raise AssertionError(f"{name} cell: its recurrent state is not "
+                                 f"finite")
+        shape = SHAPES[name]
+        cuts = {"layers": f"{cfg.n_layers} of {full} layers"}
+        if b != shape.global_batch:
+            cuts["batch"] = f"{shape.global_batch} -> {b}"
+        res.update(batch=b, seq=length, first_pos=length - decode_steps,
+                   position=positions[0] if positions else None,
+                   ms=statistics.median(res["ms_all"][1:] or res["ms_all"]),
+                   cuts=cuts)
+        out[name] = res
+        del state
     for name, res in out.items():
         print(f"{name} cell, {cfg.name}:", json.dumps(res))
     return out
+
+
+def seed_cache(model, params: dict, batch: int, seq: int, steps: int,
+               warm_steps: int, gen) -> dict:
+    """A decode cell's cache for ``batch`` slots of ``seq`` whose next
+    ``steps`` steps end at position ``seq - 1``: ``init_cache``; where the
+    family carries a recurrent state (``recurrent_state``: Hymba's Mamba h
+    and conv, xLSTM's mLSTM and sLSTM states), ``warm_steps`` steps of
+    ``make_serve_step`` on seeded tokens, so that the model itself makes
+    it; then every K and V (a dense cache, Hymba's ring, Whisper's self
+    and cross caches) drawn from ``gen`` and each position set to
+    ``seq - steps``."""
+    cache = model.init_cache(batch, seq)
+    if recurrent_state(cache):
+        step = make_serve_step(model)
+        tokens = torch.randint(0, model.cfg.vocab, (batch, warm_steps),
+                               generator=gen, device=model.device,
+                               dtype=torch.int32)
+        for i in range(warm_steps):
+            _, cache = step(params, cache, tokens[:, i:i + 1])
+    for kv in kv_caches(cache):
+        for name in ("k", "v"):
+            kv[name].normal_(generator=gen)
+    for holder in _walk(cache):
+        if "pos" in holder:
+            holder["pos"] = seq - steps
+    return cache
+
+
+def _walk(tree):
+    """Every dict in a cache tree, the tree's own first."""
+    if isinstance(tree, dict):
+        yield tree
+        for v in tree.values():
+            yield from _walk(v)
+
+
+def kv_caches(cache: dict) -> list:
+    """The dicts of a cache tree that hold K and V tensors."""
+    return [d for d in _walk(cache) if "k" in d and "v" in d]
+
+
+def cache_positions(cache: dict) -> list:
+    """Every position a cache tree holds (one for a dense cache, Hymba's
+    ring and Whisper's self cache; none for xLSTM's states)."""
+    return [d["pos"] for d in _walk(cache) if "pos" in d]
+
+
+def recurrent_state(cache: dict) -> list:
+    """The tensors of a cache tree that are neither K and V nor a
+    position: Hymba's Mamba h and conv, xLSTM's states."""
+    held = {id(d[n]) for d in kv_caches(cache) for n in ("k", "v")}
+    return [v for d in _walk(cache) for v in d.values()
+            if isinstance(v, torch.Tensor) and id(v) not in held]
+
+
+def cut_depth(model, params: dict, n_layers: int):
+    """(model, parameters) of ``model`` cut to its first ``n_layers``
+    layers: a model of ``cfg.scaled(n_layers=...)`` and views of the
+    stacked leaves' first layers (``param_specs`` says which)."""
+    cut = build_model(model.cfg.scaled(n_layers=n_layers),
+                      device=model.device)
+
+    def take(p, spec):
+        return p[:spec.shape[0]] if tuple(p.shape) != tuple(spec.shape) \
+            else p
+
+    return cut, _map2(take, params, cut.param_specs())
+
+
+def _map2(fn, a, b):
+    return ({k: _map2(fn, a[k], b[k]) for k in a} if isinstance(a, dict)
+            else fn(a, b))
 
 
 def all_finite(t: torch.Tensor, rows: int = 4096) -> bool:
@@ -1497,11 +1731,15 @@ def all_finite(t: torch.Tensor, rows: int = 4096) -> bool:
 def cell_launches(cfg, kind: str, seq: int) -> dict:
     """Kernel launches of one ``make_prefill_step`` call (``kind``
     "prefill", ``seq`` tokens a row) or one ``make_serve_step`` step
-    ("decode") of a dense, MoE or VLM decoder of ``cfg``: a flash attention
-    or a flash decode a layer, and for MoE three grouped matmuls a layer
-    and MoE chunk (``n_chunks(seq)`` in the prefill, one in a step)."""
+    ("decode") of ``cfg``'s model: ``launches_per_call``'s flash
+    attentions a prefill call or flash decodes a step (none for xLSTM),
+    and for MoE three grouped matmuls a layer and MoE chunk
+    (``n_chunks(seq)`` in the prefill, one in a step)."""
     L = cfg.n_layers
-    out = {"flash_attention" if kind == "prefill" else "flash_decode": L}
+    attn, decode = launches_per_call(cfg)
+    n = attn if kind == "prefill" else decode
+    out = {"flash_attention" if kind == "prefill" else "flash_decode": n} \
+        if n else {}
     if cfg.n_experts:
         out["grouped_matmul"] = 3 * L * (n_chunks(seq) if kind == "prefill"
                                          else 1)
@@ -1510,30 +1748,57 @@ def cell_launches(cfg, kind: str, seq: int) -> dict:
 
 def serving_config(phase: str) -> ArchConfig:
     """The config of a serving phase that runs the 32k cells: Qwen3-4B
-    whole (phase 7), Grok-1 at ``MOE_LAYERS`` (11), and each of
-    ``CONFIG_PHASES`` at its depth."""
+    whole (phase 7), Grok-1 at ``MOE_LAYERS`` (11), Kimi-K2 at
+    ``KIMI_LAYERS`` (13), Hymba, xLSTM and Whisper whole (D, E, F), and
+    each of ``CONFIG_PHASES`` at its depth."""
     if phase == "7":
         return get_arch(ARCH)
     if phase == "11":
         return get_arch(MOE_ARCH).scaled(n_layers=MOE_LAYERS)
+    if phase == "13":
+        return get_arch(KIMI_ARCH).scaled(n_layers=KIMI_LAYERS)
+    if phase in FAMILY_PHASES:
+        return get_arch(FAMILY_PHASES[phase][0])
     arch, layers, _ = CONFIG_PHASES[phase]
     cfg = get_arch(arch)
     return cfg.scaled(n_layers=layers or cfg.n_layers)
 
 
+def cell_sizes(phase: str) -> dict:
+    """``drive_cells``' sizes for a serving phase: its decode_32k batch
+    (``DECODE_32K_BATCH`` or ``FAMILY_CELL_BATCH``), long_500k's context
+    where it runs that cell, prefill_32k's depth where it is cut."""
+    sizes = {"decode_batch": {**DECODE_32K_BATCH,
+                              **FAMILY_CELL_BATCH}[phase]}
+    if phase in LONG_CELL_PHASES:
+        sizes["long_seq"] = LONG_500K
+    if phase in CELL_PREFILL_LAYERS:
+        sizes["prefill_layers"] = CELL_PREFILL_LAYERS[phase]
+    return sizes
+
+
 def decode_32k_batch(cfg) -> int:
     """decode_32k's batch on the card for ``cfg`` at its depth run: the
-    reference's 128, halved until the bf16 weights and each slot's
-    32,768-token cache (k and v, every layer) leave ``CARD_FREE`` of
-    ``CARD_GB`` free (derived from the shapes)."""
-    weights = 2 * count_params(build_model(cfg, device="cpu").param_specs())
-    slot = 2 * 2 * cfg.n_layers * SEQ_32K * cfg.n_kv_heads \
-        * cfg.resolved_head_dim
+    reference's 128, halved until the bf16 weights and each slot's cache
+    for a 32,768-token context (the model's own ``cache_specs``: a dense
+    model's k and v over 32,768 tokens, Hymba's ring and Mamba state,
+    xLSTM's states, Whisper's self and cross caches) leave ``CARD_FREE``
+    of ``CARD_GB`` free (derived from the shapes)."""
+    model = build_model(cfg, device="cpu")
+    weights = 2 * count_params(model.param_specs())
+    slot = cache_bytes(model.cache_specs(1, SEQ_32K))
     budget = (1 - CARD_FREE) * CARD_GB * 1e9
     batch = SHAPES["decode_32k"].global_batch
     while batch > 1 and weights + batch * slot > budget:
         batch //= 2
     return batch
+
+
+def cache_bytes(specs: dict) -> int:
+    """Bytes of a cache spec's tensors but its positions."""
+    return sum(t.numel() * t.element_size() for d in _walk(specs)
+               for k, t in d.items()
+               if k != "pos" and isinstance(t, torch.Tensor))
 
 
 def batch_extras(model, batch: int, seq: int, seed: int = 1) -> dict:
@@ -1583,15 +1848,71 @@ def check_serving_launches(run: dict, n_layers: int, on_card: bool,
                              f"engine; want {want_prefill} and {want}")
 
 
+class Pending:
+    """An f32 check whose CPU side runs in the f32 worker while the card
+    goes on: ``ready`` says whether the worker has answered; ``collect``
+    re-raises the worker's exception, or finishes the check on the CPU
+    side's result (``finish``, which raises on a miss), once, and returns
+    its result."""
+
+    def __init__(self, name: str, future, finish) -> None:
+        self.name, self.future, self.finish = name, future, finish
+        self.result = None
+
+    def ready(self) -> bool:
+        return self.future.done()
+
+    def collect(self):
+        if self.result is None:
+            self.result = self.finish(self.future.result())
+        return self.result
+
+
+def submit(pool, fn, *args) -> concurrent.futures.Future:
+    """``fn(*args)`` in ``pool`` (the f32 workers), or in line, done,
+    where ``pool`` is None.  A pool holds each call's arguments (a
+    model's f32 weights, up to 13 GB) until its result is back, so a
+    call waits while ``F32_QUEUED`` are outstanding."""
+    if pool is None:
+        done = concurrent.futures.Future()
+        done.set_result(fn(*args))
+        return done
+    outstanding = [f for f in _SUBMITTED.setdefault(id(pool), [])
+                   if not f.done()]
+    if len(outstanding) >= F32_QUEUED:
+        t0 = time.perf_counter()
+        concurrent.futures.wait(outstanding,
+                                return_when=concurrent.futures.FIRST_COMPLETED)
+        print(f"f32 workers: waited {time.perf_counter() - t0!r} s for a "
+              f"place in the queue")
+    future = pool.submit(fn, *args)
+    _SUBMITTED[id(pool)] = outstanding + [future]
+    return future
+
+
+_SUBMITTED = {}
+
+
+def pending(name: str, future, finish, pool):
+    """A ``Pending`` check, or with no pool its result at once."""
+    check = Pending(name, future, finish)
+    return check if pool is not None else check.collect()
+
+
 def check_f32_path(device, cfg, prompts, *, prefill_len: int = CHECK_PREFILL,
                    n_steps: int = CHECK_STEPS, slots: int = SLOTS,
                    max_seq: int = CHECK_MAX_SEQ,
-                   new_tokens: int = NEW_TOKENS) -> dict:
+                   new_tokens: int = NEW_TOKENS, pool=None):
     """Phase 8: the serving path in f32 on the same weights, once on
     ``device`` and once through the port on the CPU (the kernels' plain
     versions): logits of a 1 x prefill_len prefill (with the
     ``batch_extras`` the family takes, made once) and of the first
-    ``n_steps`` engine steps.  TF32 is off."""
+    ``n_steps`` engine steps (``f32_path_side``).  The weights are drawn
+    on ``device`` and cross to the CPU side in shared memory
+    (``shared``).  With ``pool`` (the f32 workers) the CPU side runs there
+    (``f32_path_cpu``) while the card goes on, and a ``Pending`` is
+    returned; without, the check runs in line and returns its result.
+    TF32 is off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     params = build_model(cfg, device=device).init(
@@ -1601,55 +1922,101 @@ def check_f32_path(device, cfg, prompts, *, prefill_len: int = CHECK_PREFILL,
                                 prefill_len),
                  tokens=torch.from_numpy(
                      np.concatenate(prompts)[:prefill_len][None]))
-    runs = []
-    for dev, p in ((device, params),
-                   (cpu, tree_map(lambda t: t.to(cpu), params))):
-        reset_launches()
-        model = build_model(cfg, device=dev)
-        logits = make_prefill_step(model)(
-            p, {k: v.to(dev) for k, v in batch.items()})
-        engine = ServingEngine(model, p, ServeConfig(
-            batch_slots=slots, max_seq=max_seq, max_new_tokens=new_tokens))
-        for prompt in prompts:
-            engine.submit(prompt)
-        steps = []
-        for _ in range(n_steps):
-            engine.step()
-            steps.append(engine.last_logits.to(cpu))
-        runs.append((logits.to(cpu), torch.stack(steps), launch_counts()))
-    (card_prefill, card_steps, card_launches), (cpu_prefill, cpu_steps, _) \
-        = runs
-    out = {"prefill_max_abs_diff":
-           float((card_prefill - cpu_prefill).abs().max()),
-           "decode_max_abs_diff": float((card_steps - cpu_steps).abs().max())}
-    print("f32 path launches on the card:", json.dumps(card_launches))
-    print("f32 path, card vs CPU:", json.dumps(out))
-    if not max(out.values()) <= CHECK_TOL:
-        raise AssertionError(f"the card's f32 logits differ from the CPU "
-                             f"port's by more than {CHECK_TOL}: {out}")
-    return out
+    sizes = dict(n_steps=n_steps, slots=slots, max_seq=max_seq,
+                 new_tokens=new_tokens)
+    cpu_side = submit(pool, f32_path_cpu, cfg, shared(params, pool), batch,
+                      prompts, sizes)
+    card_prefill, card_steps, card_launches = f32_path_side(
+        device, cfg, params, batch, prompts, **sizes)
+    del params
+    print(f"f32 path of {cfg.name}, launches on the card:",
+          json.dumps(card_launches))
+
+    def finish(cpu_run: dict) -> dict:
+        out = {"prefill_max_abs_diff":
+               float((card_prefill - cpu_run["prefill"]).abs().max()),
+               "decode_max_abs_diff":
+               float((card_steps - cpu_run["steps"]).abs().max())}
+        print(f"f32 path of {cfg.name}, card vs CPU (its CPU side "
+              f"{cpu_run['seconds']!r} s):", json.dumps(out))
+        if not max(out.values()) <= CHECK_TOL:
+            raise AssertionError(f"the card's f32 logits differ from the CPU "
+                                 f"port's by more than {CHECK_TOL}: {out}")
+        return out
+
+    return pending(f"f32 path of {cfg.name}", cpu_side, finish, pool)
+
+
+def f32_path_side(device, cfg, params, batch: dict, prompts, *,
+                  n_steps: int, slots: int, max_seq: int,
+                  new_tokens: int) -> tuple:
+    """One side of ``check_f32_path`` on ``device``: the prefill's logits
+    and the first ``n_steps`` engine steps' logits (on the CPU) and the
+    kernels' launches."""
+    reset_launches()
+    model = build_model(cfg, device=device)
+    logits = make_prefill_step(model)(
+        params, {k: v.to(device) for k, v in batch.items()})
+    engine = ServingEngine(model, params, ServeConfig(
+        batch_slots=slots, max_seq=max_seq, max_new_tokens=new_tokens))
+    for prompt in prompts:
+        engine.submit(prompt)
+    steps = []
+    for _ in range(n_steps):
+        engine.step()
+        steps.append(engine.last_logits.cpu())
+    return logits.cpu(), torch.stack(steps), launch_counts()
+
+
+def f32_path_cpu(cfg, params: dict, batch: dict, prompts,
+                 sizes: dict) -> dict:
+    """``check_f32_path``'s CPU side (in an f32 worker): the port on the
+    CPU on ``params`` and ``batch`` (CPU tensors).  Returns its logits and
+    its seconds."""
+    t0 = time.perf_counter()
+    prefill, steps, _ = f32_path_side(torch.device("cpu"), cfg, params,
+                                      batch, prompts, **sizes)
+    return {"prefill": prefill, "steps": steps,
+            "seconds": time.perf_counter() - t0}
+
+
+def shared(tree: dict, pool) -> dict:
+    """A tree of tensors for an f32 check's CPU side: with a pool, a copy
+    on the CPU in shared memory, which crosses to a worker as a handle
+    (a pipe would carry its bytes under the GIL, a chunk at a time,
+    while the card's phases hold it); without, a copy on the CPU (the
+    card side may update its own in place)."""
+    def leaf(t):
+        out = torch.empty(t.shape, dtype=t.dtype)
+        if pool is not None:
+            out.share_memory_()
+        return out.copy_(t)
+
+    return tree_map(leaf, tree)
 
 
 def drive_family(device, cfg, serve: dict, check: dict,
-                 cells: dict = None) -> dict:
-    """Phases D, E, F and L-O: a family's serving path through
+                 cells: dict = None, pool=None) -> dict:
+    """Phases 13, D, E, F and L-O: a family's serving path through
     ``drive_serving`` (with the 32k cells where ``cells`` gives their
     sizes) with ``launches_per_call``'s exact launch counts (none on the
     CPU), then ``check_f32_path`` on ``cfg`` in f32 with ``check``'s cuts
-    and sizes (``n_layers``, and ``prompt``: one prompt of that many of the
-    served prompts' tokens); the card is freed after each.  Prints and
-    returns the phase's seconds with both results."""
+    and sizes (``n_layers``, ``d_ff``, and ``prompt``: one prompt of that
+    many of the served prompts' tokens), its CPU side in ``pool`` where
+    given (``"f32"`` is then a ``Pending``); the card is freed after each.
+    Prints and returns the phase's seconds on the card with both
+    results."""
     t0 = time.perf_counter()
     run, prompts = drive_serving(device, cfg, **serve, cells=cells)
     check_serving_launches(run, cfg.n_layers, device.type == "cuda",
                            launches_per_call(cfg))
     free_card()
     sizes = dict(check)
-    cut = {"n_layers": sizes.pop("n_layers")} if "n_layers" in sizes else {}
+    cut = {k: sizes.pop(k) for k in ("n_layers", "d_ff") if k in sizes}
     if "prompt" in sizes:
         prompts = [np.concatenate(prompts)[:sizes.pop("prompt")]]
     f32 = check_f32_path(device, cfg.scaled(dtype="float32", **cut),
-                         prompts, **sizes)
+                         prompts, **sizes, pool=pool)
     free_card()
     out = {"run": run, "f32": f32, "seconds": time.perf_counter() - t0}
     print(f"phase {cfg.name}: {out['seconds']!r} s")
@@ -1683,7 +2050,9 @@ def time_attention(device, kind: str) -> dict:
     ``TIME_ATTENTION`` in bf16, ``TIME_ATTENTION_32K`` in bf16 (the plain
     version one kv group at a time over every group, timed once; SDPA on
     any backend but the math one), ``TIME_MASKED_ATTENTION`` in bf16 and
-    ``TIME_ATTENTION_F32`` in f32 with their masks (SDPA given the same
+    ``TIME_ATTENTION_32K_FAMILY`` in bf16 as ``TIME_ATTENTION_32K`` with
+    their masks (SDPA given Hymba's window as a boolean mask over repeated
+    kv heads), ``TIME_ATTENTION_F32`` in f32 with their masks (SDPA given the same
     mask as a boolean ``attn_mask``, or ``is_causal`` for a causal S = T
     without a window), ``TIME_DECODES`` in bf16, at
     the full cache and at ``DECODE_LIVE``'s live lengths, and
@@ -1722,36 +2091,55 @@ def time_attention(device, kind: str) -> dict:
             "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
             "bound_by": bound_by}
         del q, k, v
-    for label, (B, H, K, S, D) in TIME_ATTENTION_32K:
+    rows_32k = [(label, (B, H, K, S, S, D), True, 0)
+                for label, (B, H, K, S, D) in TIME_ATTENTION_32K]
+    for label, (B, H, K, S, T, D), causal, window in \
+            rows_32k + TIME_ATTENTION_32K_FAMILY:
         q = randn((B, S, H, D), dtype).transpose(1, 2)
-        k, v = (randn((B, S, K, D), dtype).transpose(1, 2) for _ in "kv")
+        k, v = (randn((B, T, K, D), dtype).transpose(1, 2) for _ in "kv")
+        mask = k_h = v_h = None
+        if window:
+            keep = (torch.arange(S, device=device)[:, None]
+                    - torch.arange(T, device=device)[None, :])
+            mask = (keep >= 0) & (keep < window)
+            del keep
+            # the memory-efficient and cuDNN backends take a mask but not
+            # GQA: the kv heads repeated beforehand, outside the timing
+            k_h, v_h = (t.repeat_interleave(H // K, 1) for t in (k, v))
 
-        def kernel(q=q, k=k, v=v):
-            return ops.flash_attention(q, k, v)
+        def kernel(q=q, k=k, v=v, causal=causal, window=window):
+            return ops.flash_attention(q, k, v, causal=causal, window=window)
 
-        def plain(q=q, k=k, v=v, K=K):
-            for _ in grouped_reference(q, k, v, range(K)):
+        def plain(q=q, k=k, v=v, K=K, causal=causal, window=window,
+                  heads=plain_heads(H // K, S, T)):
+            for _ in grouped_reference(q, k, v, range(K), causal=causal,
+                                       window=window, heads=heads):
                 pass
 
-        def sdpa(q=q, k=k, v=v):
-            # Not the math backend, whose (B,H,S,S) scores do not fit.
+        def sdpa(q=q, k=k, v=v, causal=causal, mask=mask, k_h=k_h,
+                 v_h=v_h):
+            # Not the math backend, whose (B,H,S,T) scores do not fit.
             with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
                               SDPBackend.CUDNN_ATTENTION,
                               SDPBackend.EFFICIENT_ATTENTION]):
+                if mask is not None:
+                    return F.scaled_dot_product_attention(
+                        q, k_h, v_h, attn_mask=mask)
                 return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True)
+                    q, k, v, is_causal=causal, enable_gqa=True)
 
         nbytes, flops, bound_ms, bound_by = attention_bound(
-            kind, B, H, K, S, S, D, q.element_size())
-        out[label] = {
-            "shape": [B, H, K, S, D],
-            "ms": median_event_ms(kernel, n=2, repeats=5),
-            "host_ms_per_call": median_host_ms(kernel, n=2, repeats=3),
-            "plain_ms": median_event_ms(plain, n=1, repeats=1, warmup=0),
-            "library_ms": median_event_ms(sdpa, n=2, repeats=5),
-            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
-            "bound_by": bound_by}
-        del q, k, v
+            kind, B, H, K, S, T, D, 2, causal, window)
+        row = {"shape": [B, H, K, S, D]} if (T, causal, window) == (
+            S, True, 0) else {"shape": [B, H, K, S, T, D], "causal": causal,
+                              "window": window}
+        out[label] = dict(
+            row, ms=median_event_ms(kernel, n=2, repeats=5),
+            host_ms_per_call=median_host_ms(kernel, n=2, repeats=3),
+            plain_ms=median_event_ms(plain, n=1, repeats=1, warmup=0),
+            library_ms=median_event_ms(sdpa, n=2, repeats=5),
+            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, mask, k_h, v_h, kernel, plain, sdpa
     for label, (B, H, K, S, T, D), causal, window in TIME_MASKED_ATTENTION:
         q = randn((B, S, H, D), dtype).transpose(1, 2)
         k, v = (randn((B, T, K, D), dtype).transpose(1, 2) for _ in "kv")
@@ -1841,18 +2229,20 @@ def time_attention(device, kind: str) -> dict:
         nbytes, flops, bound_ms, bound_by = decode_bound(
             kind, [n] * b, K, G, D, q.element_size())
         split = decode_attention.plan(b, K, G, t, D, dtype).split
+        reps = dict(n=5, repeats=5) \
+            if 2 * k.numel() * k.element_size() > DECODE_TIME_BIG else {}
         out[name] = {
             "shape": [b, K, G, t, D], "length": n,
-            "ms": median_event_ms(kernel),
-            "graph_ms": median_graph_ms(kernel),
-            "host_ms_per_call": median_host_ms(kernel),
-            "cuda_core_ms": median_event_ms(cuda_core),
-            "cuda_core_graph_ms": median_graph_ms(cuda_core),
+            "ms": median_event_ms(kernel, **reps),
+            "graph_ms": median_graph_ms(kernel, **reps),
+            "host_ms_per_call": median_host_ms(kernel, **reps),
+            "cuda_core_ms": median_event_ms(cuda_core, **reps),
+            "cuda_core_graph_ms": median_graph_ms(cuda_core, **reps),
             "plain_ms": median_event_ms(
                 lambda: ref.decode_reference(q.reshape(b, K * G, D), k, v,
                                              lengths), n=3, repeats=5),
-            "library_ms": median_event_ms(sdpa),
-            "library_graph_ms": median_graph_ms(sdpa),
+            "library_ms": median_event_ms(sdpa, **reps),
+            "library_graph_ms": median_graph_ms(sdpa, **reps),
             "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
             "bound_by": bound_by, "split": split,
             "clusters_held": decode_attention.max_active_clusters(D, split),
@@ -2267,13 +2657,15 @@ def check_f32_training(device, cfg, *, batch: int = TRAIN_CHECK_B,
                        seq: int = TRAIN_CHECK_S,
                        steps: int = TRAIN_CHECK_STEPS,
                        restart: bool = True, serving: bool = False,
-                       state_dtype: str = "float32",
-                       keep: bool = False) -> dict:
+                       state_dtype: str = "float32", keep: dict = None,
+                       pool=None):
     """Phases 15, C, G, I, J and K: the train step in f32 on one state,
     once on ``device`` and once through the port on the CPU (with the
     ``batch_extras`` the family takes, Whisper's frames): the first step's
     gradients (each leaf within ``CHECK_TOL`` of its max |g|) and the loss
-    of each of ``steps`` steps (within ``CHECK_TOL``).  With quantized
+    of each of ``steps`` steps (within ``CHECK_TOL``), ``f32_train_side``
+    on each.  The state is drawn on ``device`` and crosses to the CPU side
+    in shared memory (``shared``).  With quantized
     moments (``state_dtype``), the moments after the first update too,
     where the two sides differ only by the gradients' last bits: each
     dequantized int8 value within one quantization step of its row plus
@@ -2286,89 +2678,205 @@ def check_f32_training(device, cfg, *, batch: int = TRAIN_CHECK_B,
     With ``serving``, the card's trained model then goes through
     ``check_train_vs_serving``.  With ``restart``, a restart on the card:
     ``run_training`` to a checkpoint and on from it gives the loss curve
-    of the run without a stop.  With ``keep``, the result also holds the
-    card's final state and both sides' first-step gradients (as CPU
-    tensors), under ``"state"`` and ``"grads"``.  TF32 is off."""
+    of the run without a stop.  With ``keep`` (a dict), the card's final
+    state and its first-step gradients (as CPU tensors) are put there,
+    under ``"state"`` and ``"grads"``.  With ``pool`` (the f32 workers) the
+    CPU side runs there (``f32_train_cpu``) while the card goes on, and a
+    ``Pending`` is returned; without, the check runs in line and returns
+    its result.  A CPU side that ``submit_f32_training`` submitted ahead
+    for the same config and sizes is taken instead, once the state drawn
+    here is shown to be the one it shipped.  TF32 is off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    key = (cfg, batch, seq, steps, state_dtype)
+    opt_cfg, state, inputs = f32_train_inputs(device, *key)
+    ahead = _AHEAD.pop(key, None) if pool is not None else None
+    if ahead is None:
+        cpu_side = submit(pool, f32_train_cpu, cfg, shared(state, pool),
+                          inputs, opt_cfg, steps)
+    else:
+        cpu_side, drawn = ahead
+        if not all(torch.equal(a, b) for a, b in
+                   zip(fingerprint(state), drawn)):
+            raise AssertionError(f"{cfg.name}: the f32 check's state is not "
+                                 f"the one its CPU side was given")
+    card = f32_train_side(device, cfg, state, inputs, opt_cfg, steps)
+    del state
+    if serving:
+        served = check_train_vs_serving(card["model"], card["state"]["params"],
+                                        card["tokens"])
+    if keep is not None:
+        keep.update(state=card["state"], grads=card["grads"])
+    card_s = card["seconds"]
+    card = {k: card[k] for k in ("losses", "grads", "first_opt", "opt")}
+    rest = {}
+    if restart:
+        with tempfile.TemporaryDirectory() as tmp:
+            rest["restart"] = check_restart(device, tmp)
+        if rest["restart"]["max_abs_diff"] > CHECK_TOL:
+            raise AssertionError(f"restart from a checkpoint changed the "
+                                 f"loss curve: {rest['restart']}")
+    if serving:
+        rest["serving"] = served
+    card_done_s = time.perf_counter() - t0
+
+    def finish(cpu_run: dict) -> dict:
+        grad_err = max(float((a - b).abs().max()
+                             / b.abs().max().clamp_min(1e-30))
+                       for a, b in zip(card["grads"], cpu_run["grads"]))
+        out = {"card_losses": card["losses"],
+               "cpu_losses": cpu_run["losses"],
+               "loss_max_abs_diff": max(abs(a - b) for a, b in
+                                        zip(card["losses"],
+                                            cpu_run["losses"])),
+               "grad_max_rel_diff": grad_err,
+               "seconds": card_done_s, "card_s": card_s,
+               "cpu_s": cpu_run["seconds"]}
+        if state_dtype != "float32":
+            out["state_dtype"] = state_dtype
+            out["moment_err"] = moment_err(card["first_opt"],
+                                           cpu_run["first_opt"])
+            out["moment_err_last"] = moment_err(card["opt"], cpu_run["opt"])
+        out.update(rest)
+        print(f"f32 training of {cfg.name} at {cfg.n_layers} layers, d_ff "
+              f"{cfg.d_ff}, {batch} x {seq}, card vs CPU:", json.dumps(out))
+        if not (out["loss_max_abs_diff"] <= CHECK_TOL
+                and grad_err <= CHECK_TOL):
+            raise AssertionError(f"the card's f32 train step differs from "
+                                 f"the CPU port's by more than {CHECK_TOL}: "
+                                 f"{out}")
+        err = out.get("moment_err")
+        if err and not (err["int8_excess"] <= CHECK_TOL
+                        and err["f32_rel"] <= CHECK_TOL):
+            raise AssertionError(f"the card's {state_dtype} moments differ "
+                                 f"from the CPU port's: {out['moment_err']}")
+        return out
+
+    return pending(f"f32 training of {cfg.name} ({state_dtype})", cpu_side,
+                   finish, pool)
+
+
+def f32_train_inputs(device, cfg, batch: int, seq: int, steps: int,
+                     state_dtype: str) -> tuple:
+    """An f32 train check's AdamW config, its state drawn on ``device``
+    from seed 0 and its inputs on the CPU (tokens over the simulated WAN,
+    the family's ``batch_extras``), each the same at every call."""
     opt_cfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
                               total_steps=steps, state_dtype=state_dtype)
     state = init_state(build_model(cfg, device=device), opt_cfg,
                        torch.Generator(device).manual_seed(0))
     tokens, _ = fetch_tokens(4 * batch, seq, cfg.vocab, batch, device,
                              seed=3)
+    extras = batch_extras(build_model(cfg, device=torch.device("cpu")),
+                          batch, seq, seed=3)
+    return opt_cfg, state, dict(extras, tokens=tokens.cpu())
+
+
+def f32_train_checks() -> list:
+    """(config, sizes) of every f32 train check the card's phases run, as
+    their phases derive them: phase 15's (Qwen3-4B at
+    ``CHECK_LAYERS``), C's, G's for each of ``INT8_CHECK_STATES``, and
+    I-K's."""
+    checks = [(get_arch(ARCH).scaled(n_layers=CHECK_LAYERS,
+                                     dtype="float32"), {}),
+              (moe_check_config(moe_train_config()),
+               dict(batch=MOE_TRAIN_CHECK_B, seq=MOE_TRAIN_CHECK_S))]
+    checks += [(moe_check_config(int8_train_config()),
+                dict(batch=MOE_TRAIN_CHECK_B, seq=INT8_CHECK_S,
+                     state_dtype=sd)) for sd in INT8_CHECK_STATES]
+    for arch, _, check in FAMILY_TRAIN.values():
+        cut = dict(check)
+        seq = cut.pop("seq")
+        checks.append((family_train_config(arch).scaled(dtype="float32",
+                                                        **cut),
+                       dict(batch=1, seq=seq)))
+    return checks
+
+
+def submit_f32_training(device, pool) -> None:
+    """Submit the CPU side of each of ``f32_train_checks`` to ``pool`` at
+    once, so that the workers run them while the card serves; each state
+    is drawn on ``device``, shipped and freed, and ``check_f32_training``
+    draws it again (the same seed) for its card side and takes the CPU
+    side submitted here."""
+    t0 = time.perf_counter()
+    for cfg, sizes in f32_train_checks():
+        key = (cfg, sizes.get("batch", TRAIN_CHECK_B),
+               sizes.get("seq", TRAIN_CHECK_S), TRAIN_CHECK_STEPS,
+               sizes.get("state_dtype", "float32"))
+        opt_cfg, state, inputs = f32_train_inputs(device, *key)
+        _AHEAD[key] = (submit(pool, f32_train_cpu, cfg, shared(state, pool),
+                              inputs, opt_cfg, TRAIN_CHECK_STEPS),
+                       fingerprint(state))
+        del state
+    free_card()
+    print(f"f32 training checks: {len(_AHEAD)} CPU sides submitted in "
+          f"{time.perf_counter() - t0!r} s")
+
+
+_AHEAD = {}
+
+
+def fingerprint(tree: dict) -> list:
+    """Some 64 elements of each leaf of a tree of tensors, on the CPU:
+    two draws of one state from one seed on one device give equal
+    ones."""
+    return [t.detach().reshape(-1)[::max(1, t.numel() // 64)].cpu()
+            for t in tree_leaves(tree)]
+
+
+def f32_train_side(device, cfg, state: dict, inputs: dict, opt_cfg,
+                   steps: int) -> dict:
+    """One side of ``check_f32_training`` on ``device`` from ``state``
+    (updated in place) and ``inputs`` (tokens and extras on the CPU): the
+    first step as ``make_train_step`` takes it (``train_loss``, autograd,
+    AdamW) with its gradients kept, the rest through ``make_train_step``.
+    Returns the losses, the first step's gradients and the moments after
+    the first update and after the last (on the CPU), the final state,
+    the model, the tokens on ``device`` and its seconds."""
+    t0 = time.perf_counter()
     cpu = torch.device("cpu")
-    extras = batch_extras(build_model(cfg, device=cpu), batch, seq, seed=3)
-    runs, side_s = [], []
-    for dev, st in ((device, state),
-                    (cpu, tree_map(lambda t: t.to(cpu, copy=True), state))):
-        t_side = time.perf_counter()
-        model = build_model(cfg, device=dev)
-        b = {"tokens": tokens.to(dev),
-             "loss_mask": torch.ones(tokens.shape, device=dev),
-             **{k: v.to(dev) for k, v in extras.items()}}
-        leaves = tree_leaves(st["params"])
-        for leaf in leaves:
-            leaf.requires_grad_(True)
-        # The first step as make_train_step takes it (train_loss, autograd,
-        # AdamW), its gradients kept; the rest through make_train_step.
-        loss = model.train_loss(st["params"], b)[0]
-        grads = torch.autograd.grad(loss, leaves)
-        losses = [float(loss.detach())]
-        st["params"], st["opt"], _ = adamw_update(
-            tree_unflatten(st["params"], list(grads)), st["opt"],
-            st["params"], opt_cfg)
-        first_opt = tree_map(lambda t: t.to(cpu, copy=True), st["opt"])
-        grads = [g.to(cpu) for g in grads]
-        step = make_train_step(model, opt_cfg)
-        for _ in range(steps - 1):
-            st, metrics = step(st, b)
-            losses.append(float(metrics["loss"]))
-        runs.append((losses, grads, first_opt,
-                     tree_map(lambda t: t.to(cpu), st["opt"])))
-        if serving and dev == device:
-            served = check_train_vs_serving(model, st["params"], b["tokens"])
-        if keep and dev == device:
-            kept = st
-        del st, leaves
-        side_s.append(time.perf_counter() - t_side)
-    (card_losses, card_grads, card_first, card_opt), \
-        (cpu_losses, cpu_grads, cpu_first, cpu_opt) = runs
-    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                   for a, b in zip(card_grads, cpu_grads))
-    out = {"card_losses": card_losses, "cpu_losses": cpu_losses,
-           "loss_max_abs_diff": max(abs(a - b) for a, b in
-                                    zip(card_losses, cpu_losses)),
-           "grad_max_rel_diff": grad_err,
-           "seconds": time.perf_counter() - t0,
-           "card_s": side_s[0], "cpu_s": side_s[1]}
-    if state_dtype != "float32":
-        out["state_dtype"] = state_dtype
-        out["moment_err"] = moment_err(card_first, cpu_first)
-        out["moment_err_last"] = moment_err(card_opt, cpu_opt)
-    if restart:
-        with tempfile.TemporaryDirectory() as tmp:
-            out["restart"] = check_restart(device, tmp)
-    print(f"f32 training of {cfg.name} at {cfg.n_layers} layers, d_ff "
-          f"{cfg.d_ff}, {batch} x {seq}, card vs CPU:", json.dumps(out))
-    if not (out["loss_max_abs_diff"] <= CHECK_TOL
-            and grad_err <= CHECK_TOL):
-        raise AssertionError(f"the card's f32 train step differs from the "
-                             f"CPU port's by more than {CHECK_TOL}: {out}")
-    if restart and out["restart"]["max_abs_diff"] > CHECK_TOL:
-        raise AssertionError(f"restart from a checkpoint changed the loss "
-                             f"curve: {out['restart']}")
-    err = out.get("moment_err")
-    if err and not (err["int8_excess"] <= CHECK_TOL
-                    and err["f32_rel"] <= CHECK_TOL):
-        raise AssertionError(f"the card's {state_dtype} moments differ from "
-                             f"the CPU port's: {out['moment_err']}")
-    if serving:
-        out["serving"] = served
-    if keep:
-        out.update(state=kept, grads=(card_grads, cpu_grads))
-    return out
+    model = build_model(cfg, device=device)
+    b = {k: v.to(device) for k, v in inputs.items()}
+    tokens = b["tokens"]
+    b["loss_mask"] = torch.ones(tokens.shape, device=device)
+    leaves = tree_leaves(state["params"])
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss = model.train_loss(state["params"], b)[0]
+    grads = torch.autograd.grad(loss, leaves)
+    losses = [float(loss.detach())]
+    state["params"], state["opt"], _ = adamw_update(
+        tree_unflatten(state["params"], list(grads)), state["opt"],
+        state["params"], opt_cfg)
+    first_opt = tree_map(lambda t: t.to(cpu, copy=True), state["opt"])
+    grads = [g.to(cpu) for g in grads]
+    step = make_train_step(model, opt_cfg)
+    for _ in range(steps - 1):
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+    return {"losses": losses, "grads": grads, "first_opt": first_opt,
+            "opt": tree_map(lambda t: t.to(cpu), state["opt"]),
+            "state": state, "model": model, "tokens": tokens,
+            "seconds": time.perf_counter() - t0}
+
+
+def f32_train_cpu(cfg, state: dict, inputs: dict, opt_cfg,
+                  steps: int) -> dict:
+    """``check_f32_training``'s CPU side (in an f32 worker): the port on
+    the CPU from ``state`` (CPU tensors, updated in place).  Returns the
+    losses, the first step's gradients and, for quantized moments, the
+    moments after the first update and after the last, and its
+    seconds."""
+    t0 = time.perf_counter()
+    side = f32_train_side(torch.device("cpu"), cfg, state, inputs, opt_cfg,
+                          steps)
+    quantized = opt_cfg.state_dtype != "float32"
+    return {"losses": side["losses"], "grads": side["grads"],
+            "first_opt": side["first_opt"] if quantized else None,
+            "opt": side["opt"] if quantized else None,
+            "seconds": time.perf_counter() - t0}
 
 
 def moment_err(a: dict, b: dict) -> dict:
@@ -2401,21 +2909,26 @@ def moment_err(a: dict, b: dict) -> dict:
     return err
 
 
-def drive_moe_training(device, kind: str) -> dict:
+def drive_moe_training(device, kind: str, pool=None) -> dict:
     """Phase C: Grok-1 at full width (``MOE_TRAIN_LAYERS`` of its layers)
     trained through ``drive_training``, then its f32 check at
     ``MOE_TRAIN_CHECK_D_FF`` and ``MOE_TRAIN_CHECK_VOCAB`` with the
-    training forward held against the serving forward."""
-    cfg = get_arch(MOE_ARCH).scaled(n_layers=MOE_TRAIN_LAYERS, remat=True)
+    training forward held against the serving forward (its CPU side in
+    ``pool`` where given)."""
+    cfg = moe_train_config()
     run = drive_training(device, kind, cfg, batch=MOE_TRAIN_B,
                          seq=MOE_TRAIN_S)
     free_card()
     check = check_f32_training(
-        device, cfg.scaled(d_ff=MOE_TRAIN_CHECK_D_FF,
-                           vocab=MOE_TRAIN_CHECK_VOCAB, dtype="float32"),
-        batch=MOE_TRAIN_CHECK_B, seq=MOE_TRAIN_CHECK_S, restart=False,
-        serving=True)
+        device, moe_check_config(cfg), batch=MOE_TRAIN_CHECK_B,
+        seq=MOE_TRAIN_CHECK_S, restart=False, serving=True, pool=pool)
     return {"run": run, "check": check}
+
+
+def moe_train_config() -> ArchConfig:
+    """Phase C's model: Grok-1 at full width, ``MOE_TRAIN_LAYERS`` of its
+    layers, with remat."""
+    return get_arch(MOE_ARCH).scaled(n_layers=MOE_TRAIN_LAYERS, remat=True)
 
 
 def family_train_config(arch: str) -> ArchConfig:
@@ -2427,14 +2940,15 @@ def family_train_config(arch: str) -> ArchConfig:
 
 
 def drive_family_training(device, kind: str, cfg, sizes: dict,
-                          check: dict) -> dict:
+                          check: dict, pool=None) -> dict:
     """Phases I, J and K: ``cfg`` trained through ``drive_training`` with
     ``sizes``; for xLSTM also the derived ms per sLSTM step and layer (ms
     per step over seq x pairs: an upper bound, as it holds the rest of
     the step too); the card freed; then ``check_f32_training`` on ``cfg``
     in f32 with ``check``'s cut (``n_layers``) on one row of ``check``'s
-    ``seq`` tokens, without the restart.  Prints and returns the phase's
-    seconds with both results."""
+    ``seq`` tokens, without the restart, its CPU side in ``pool`` where
+    given.  Prints and returns the phase's seconds on the card with both
+    results."""
     t0 = time.perf_counter()
     run = drive_training(device, kind, cfg, **sizes)
     if cfg.family == "ssm":
@@ -2446,7 +2960,7 @@ def drive_family_training(device, kind: str, cfg, sizes: dict,
     cut = dict(check)
     seq = cut.pop("seq")
     f32 = check_f32_training(device, cfg.scaled(dtype="float32", **cut),
-                             batch=1, seq=seq, restart=False)
+                             batch=1, seq=seq, restart=False, pool=pool)
     free_card()
     out = {"run": run, "check": f32, "seconds": time.perf_counter() - t0}
     print(f"phase {cfg.name} training: {out['seconds']!r} s")
@@ -2459,37 +2973,43 @@ def int8_train_config() -> ArchConfig:
     return get_arch(MOE_ARCH).scaled(n_layers=INT8_TRAIN_LAYERS, remat=True)
 
 
+def moe_check_config(cfg) -> ArchConfig:
+    """Phases C's and G's f32 check model: ``cfg`` at 1 layer,
+    ``MOE_TRAIN_CHECK_D_FF`` and ``MOE_TRAIN_CHECK_VOCAB``, in f32."""
+    return cfg.scaled(n_layers=1, d_ff=MOE_TRAIN_CHECK_D_FF,
+                      vocab=MOE_TRAIN_CHECK_VOCAB, dtype="float32")
+
+
 def drive_int8_training(device, kind: str, cfg, *,
                         batch: int = MOE_TRAIN_B, seq: int = MOE_TRAIN_S,
                         steps: int = TRAIN_STEPS, check_cfg=None,
                         check_batch: int = MOE_TRAIN_CHECK_B,
-                        check_seq: int = INT8_CHECK_S) -> dict:
+                        check_seq: int = INT8_CHECK_S, pool=None) -> dict:
     """Phase G: ``cfg`` (``int8_train_config()``) trained through
     ``drive_training`` on ``INT8_STATE`` moments; then, for each of
     ``INT8_CHECK_STATES``, the f32 check of phase C (``check_cfg``: 1
     layer at ``MOE_TRAIN_CHECK_D_FF`` and ``MOE_TRAIN_CHECK_VOCAB`` by
-    default) on ``check_seq`` tokens with the moments held too; then
-    ``check_mesh_state`` on the
-    int8 check's state and gradients.  No kernel may launch in any of
-    it."""
+    default) on ``check_seq`` tokens with the moments held too (their CPU
+    sides in ``pool`` where given); then ``check_mesh_state`` on the
+    card's int8 check's state and gradients.  No kernel may launch in any
+    of it."""
     t0 = time.perf_counter()
     run = drive_training(device, kind, cfg, batch=batch, seq=seq,
                          steps=steps, state_dtype=INT8_STATE)
     free_card()
-    check_cfg = check_cfg or cfg.scaled(
-        n_layers=1, d_ff=MOE_TRAIN_CHECK_D_FF, vocab=MOE_TRAIN_CHECK_VOCAB,
-        dtype="float32")
+    check_cfg = check_cfg or moe_check_config(cfg)
     reset_launches()
+    kept = {}
     checks = {sd: check_f32_training(device, check_cfg, batch=check_batch,
                                      seq=check_seq, restart=False,
-                                     state_dtype=sd, keep=sd == "int8")
+                                     state_dtype=sd,
+                                     keep=kept if sd == "int8" else None,
+                                     pool=pool)
               for sd in INT8_CHECK_STATES}
-    kept = checks["int8"]
-    state, grads = kept.pop("state"), kept.pop("grads")
     free_card()
     with tempfile.TemporaryDirectory() as tmp:
         mesh = check_mesh_state(device, build_model(check_cfg, device=device),
-                                state, grads[0], tmp)
+                                kept.pop("state"), kept.pop("grads"), tmp)
     launches = launch_counts()
     out = {"run": run, "checks": checks, "mesh": mesh, "launches": launches,
            "seconds": time.perf_counter() - t0}
@@ -2640,9 +3160,8 @@ def dry_records() -> dict:
     train = {
         "phase 14": (get_arch(ARCH).scaled(remat=True), TRAIN_B, TRAIN_S,
                      "float32"),
-        "phase C": (get_arch(MOE_ARCH).scaled(n_layers=MOE_TRAIN_LAYERS,
-                                              remat=True),
-                    MOE_TRAIN_B, MOE_TRAIN_S, "float32"),
+        "phase C": (moe_train_config(), MOE_TRAIN_B, MOE_TRAIN_S,
+                    "float32"),
         "phase G": (int8_train_config(), MOE_TRAIN_B, MOE_TRAIN_S,
                     INT8_STATE)}
     for phase, (arch, sizes, _) in FAMILY_TRAIN.items():
@@ -2674,6 +3193,31 @@ def dry_records() -> dict:
     return recs
 
 
+def dry_family_cells() -> dict:
+    """Phase H's dry-run records (``dry_cell``) of the cells of phases
+    13, D, E and F, at the depth and batch the card runs them
+    (``cell_sizes``): prefill_32k at one row (not xLSTM's:
+    ``DRY_NOT_COUNTED``), decode_32k at pos 32767 and long_500k at pos
+    524,287, each its last step's.  Host work only, run in the counts'
+    process after ``dry_records``; Hymba's prefill_32k count walks its
+    Mamba scan's 128 chunks a layer on ``meta`` tensors."""
+    recs = {}
+    for phase in FAMILY_CELL_BATCH:
+        cfg, sizes = serving_config(phase), cell_sizes(phase)
+        name = f"phase {phase} prefill_32k call"
+        if name not in DRY_NOT_COUNTED:
+            recs[name] = dry_cell(cfg.scaled(n_layers=sizes.get(
+                "prefill_layers", cfg.n_layers)), "prefill", SEQ_32K, 1)
+        recs[f"phase {phase} decode_32k step"] = dry_cell(
+            cfg, "decode", SEQ_32K, sizes["decode_batch"],
+            decode_pos=SEQ_32K - 1)
+        if "long_seq" in sizes:
+            recs[f"phase {phase} long_500k step"] = dry_cell(
+                cfg, "decode", sizes["long_seq"], 1,
+                decode_pos=sizes["long_seq"] - 1)
+    return recs
+
+
 def check_dryrun(serve: dict, moe: dict, train: dict, moe_train: dict,
                  int8_train: dict, family_train: dict, recs: dict,
                  cells: dict = None) -> dict:
@@ -2686,7 +3230,8 @@ def check_dryrun(serve: dict, moe: dict, train: dict, moe_train: dict,
     calls of a prefill call and of a decode step equal the launches those
     phases counted per call and per engine step; likewise for each 32k
     cell of ``cells`` (phase -> ``drive_cells``' result), its calls per
-    call or step times its runs.  (c) Each step and call that phases 7,
+    call or step times its runs (but those of ``DRY_NOT_COUNTED``, which
+    are reported as not counted).  (c) Each step and call that phases 7,
     11, 14, C, G, I and K timed, and each 32k cell's call or step, as a
     share of its roofline bound on the H100 (the largest of the compute,
     memory and collective terms).  Phase J has no record
@@ -2745,12 +3290,19 @@ def check_dryrun(serve: dict, moe: dict, train: dict, moe_train: dict,
         timed[f"{name} prefill call"] = (run["prefill_ms_per_call"], prefill)
         timed[f"{name} engine step"] = (run["ms_per_engine_step"], step)
     for phase, cell in (cells or {}).items():
-        for shape, what in (("prefill_32k", "call"), ("decode_32k", "step")):
+        for shape, res in cell.items():
+            what = "call" if shape.startswith("prefill") else "step"
             name = f"phase {phase} {shape} {what}"
-            res, rec = cell[shape], recs[name]
+            if name in DRY_NOT_COUNTED:
+                out[name] = "not counted"
+                print(f"phase H, {name}: not counted: "
+                      f"{DRY_NOT_COUNTED[name]}")
+                continue
+            rec = recs[name]
             row = {"calls": rec["kernel_calls"], "launches": res["launches"],
                    "runs": res["runs"], "batch": res["batch"],
-                   "cuts": res["cuts"]}
+                   "seq": res.get("seq"), "cuts": res["cuts"],
+                   "count_s": rec["lower_s"] + rec["compile_s"]}
             out[name] = row
             print(f"phase H, {name} kernel calls:", json.dumps(row))
             if not calls_match(rec["kernel_calls"], res["launches"],
@@ -2789,12 +3341,38 @@ def nvidia_smi() -> str:
         check=True, timeout=60).stdout.strip()
 
 
-def host_only() -> None:
-    """A worker process for host work (phase H's counts): it hides the
-    card from itself, before anything there initialises CUDA, so that it
-    takes none of the card's memory, and runs one thread."""
+def host_only(threads: int = 1) -> None:
+    """A worker process for host work (phase H's counts, the f32 checks'
+    CPU sides): it hides the card from itself, before anything there
+    initialises CUDA, so that it takes none of the card's memory, and runs
+    ``threads`` threads."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
-    torch.set_num_threads(1)
+    torch.set_num_threads(threads)
+
+
+def f32_threads() -> tuple:
+    """Threads of the two f32 workers, (the serving checks', the training
+    checks'): the host's cores but one for the card's phases and one for
+    phase H's counts, a third of them to the serving checks (short ones,
+    each arriving with its phase) and the rest to the training checks
+    (submitted at the start, most of the work)."""
+    spare = max(2, (os.cpu_count() or 1) - 2)
+    return max(1, spare // 3), spare - max(1, spare // 3)
+
+
+def worker(threads: int) -> concurrent.futures.ProcessPoolExecutor:
+    """One spawned ``host_only`` process of ``threads`` threads; a worker
+    that dies fails its pending results (``BrokenProcessPool``)."""
+    return concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=host_only, initargs=(threads,))
+
+
+def stop(pool) -> None:
+    """End ``pool``'s process at once, whatever it is running."""
+    for proc in list((pool._processes or {}).values()):
+        proc.terminate()
+    pool.shutdown(wait=True, cancel_futures=True)
 
 
 def main() -> int:
@@ -2809,136 +3387,158 @@ def main() -> int:
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     # Phase H's counts (minutes of Python on meta tensors) run in a process
-    # of their own beside the card's phases; leaving the block ends it.
-    with multiprocessing.get_context("spawn").Pool(
-            1, initializer=host_only) as pool:
-        return run_phases(pool.apply_async(dry_records))
+    # of their own beside the card's phases, and so do the f32 checks' CPU
+    # sides; both end with the run.
+    serve_threads, train_threads = f32_threads()
+    pools = worker(1), worker(serve_threads), worker(train_threads)
+    try:
+        return run_phases([pools[0].submit(dry_records),
+                           pools[0].submit(dry_family_cells)], *pools[1:])
+    finally:
+        for pool in pools:
+            stop(pool)
 
 
-def run_phases(dry) -> int:
-    """Phases 1-17 in order; ``dry`` is the pending result of
-    ``dry_records``, which phase H takes.  After each phase it prints the
-    seconds since the first."""
+def run_phases(dry: list, serve_pool, train_pool) -> int:
+    """Phases 1-17 in order; ``dry`` the pending results of
+    ``dry_records`` and ``dry_family_cells``, which phase H takes;
+    ``serve_pool`` and ``train_pool`` the f32 workers, where the serving
+    and the training f32 checks' CPU sides run (the training ones
+    submitted after phase 2: ``submit_f32_training``): each is collected
+    at the end of the first phase by which it is ready, and every one
+    before phase H.  After each phase it prints the seconds since the
+    first."""
     t_start = time.perf_counter()
+    checks = []
+
+    def track(*results) -> None:
+        checks.extend(r for r in results if isinstance(r, Pending))
 
     def done(phase: str) -> None:
+        for check in checks:
+            if check.ready():
+                check.collect()
         print(f"[{time.perf_counter() - t_start:.1f} s] phase {phase} done",
               flush=True)
 
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     print(nvidia_smi())                                       # phase 1
+    print(f"f32 workers: {f32_threads()} threads (serving checks, "
+          f"training checks) of the host's {os.cpu_count()} cores")
     for name, secs in build_kernels().items():                # phase 2
         print(f"built {name} in {secs:.1f} s")
+    submit_f32_training(device, train_pool)
     done("2")
-    checks = check_kernel(device)                             # phase 3
+    checks_crop = check_kernel(device)                        # phase 3
     run = drive_main_path(device)                             # phase 4
     check_main_path(run)
     timing = time_kernel(device, kind)                        # phase 5
     drive_arena_bench(device)                                 # phase A
     done("A")
     attn_err = check_attention(device)                        # phase 6
-    for name, err in check_attention_32k(device).items():
-        attn_err[name] = max(attn_err[name], err)
+    for cases in ((), (FLASH_32K_FAMILY_CASES, DECODE_32K_FAMILY_CASES)):
+        for name, err in check_attention_32k(device, *cases).items():
+            attn_err[name] = max(attn_err[name], err)
     done("6")
     cfg = get_arch(ARCH)
-    serve, prompts = drive_serving(device, cfg, cells=dict(   # phase 7
-        decode_batch=DECODE_32K_BATCH["7"]))
-    check_serving_launches(serve, cfg.n_layers, on_card=True)
-    torch.cuda.empty_cache()
-    check_f32_path(device, cfg.scaled(n_layers=CHECK_LAYERS,  # phase 8
-                                      dtype="float32"), prompts)
+    served = {}
+    served["7"] = drive_family(device, cfg, {},               # phases 7, 8
+                               dict(n_layers=CHECK_LAYERS),
+                               cells=cell_sizes("7"), pool=serve_pool)
     done("8")
-    free_card()
     attn_time = time_attention(device, kind)                  # phase 9
     free_card()
     gmm_err = check_gmm(device)                               # phase 10
     free_card()
     done("10")
-    moe_cfg = serving_config("11")
-    moe, moe_prompts = drive_serving(device, moe_cfg,         # phase 11
-                                     **MOE_SERVE, cells=dict(
-                                         decode_batch=DECODE_32K_BATCH["11"]))
-    check_serving_launches(moe, MOE_LAYERS, on_card=True)
-    free_card()
-    check_f32_path(device, moe_cfg.scaled(                    # phase 12
-        n_layers=CHECK_LAYERS, d_ff=MOE_CHECK_D_FF, dtype="float32"),
-        moe_prompts)
-    free_card()
+    served["11"] = drive_family(                              # 11, 12
+        device, serving_config("11"), MOE_SERVE,
+        dict(n_layers=CHECK_LAYERS, d_ff=MOE_CHECK_D_FF),
+        cells=cell_sizes("11"), pool=serve_pool)
     done("12")
-    kimi_cfg = get_arch(KIMI_ARCH).scaled(n_layers=KIMI_LAYERS)
-    kimi, kimi_prompts = drive_serving(device, kimi_cfg,      # phase 13
-                                       **KIMI_SERVE)
-    check_serving_launches(kimi, KIMI_LAYERS, on_card=True)
-    free_card()
-    check_f32_path(device, kimi_cfg.scaled(
-        d_ff=KIMI_CHECK_D_FF, dtype="float32"), kimi_prompts)
-    free_card()
+    served["13"] = drive_family(                              # phase 13
+        device, serving_config("13"), KIMI_SERVE,
+        dict(d_ff=KIMI_CHECK_D_FF), cells=cell_sizes("13"),
+        pool=serve_pool)
     done("13")
-    families = {}
-    for phase, (arch, serve_kw, check_kw) in FAMILY_PHASES.items():
-        families[phase] = drive_family(device, get_arch(arch),  # D-F
-                                       serve_kw, check_kw)
+    for phase, (_, serve_kw, check_kw) in FAMILY_PHASES.items():  # D-F
+        served[phase] = drive_family(device, serving_config(phase),
+                                     serve_kw, check_kw,
+                                     cells=cell_sizes(phase),
+                                     pool=serve_pool)
         done(phase)
-    configs = {}
     for phase, (_, _, check_kw) in CONFIG_PHASES.items():    # L-O
         served_cfg = serving_config(phase)
         print(f"phase {phase}: {served_cfg.name} at {served_cfg.n_layers} "
               f"of {get_arch(served_cfg.name).n_layers} layers, decode_32k "
               f"at a batch of {DECODE_32K_BATCH[phase]}")
-        configs[phase] = drive_family(
-            device, served_cfg, KIMI_SERVE, check_kw,
-            cells=dict(decode_batch=DECODE_32K_BATCH[phase]))
+        served[phase] = drive_family(device, served_cfg, KIMI_SERVE,
+                                     check_kw, cells=cell_sizes(phase),
+                                     pool=serve_pool)
         done(phase)
-    cells = {"7": serve["cells"], "11": moe["cells"],
-             **{p: c["run"]["cells"] for p, c in configs.items()}}
+    track(*(s["f32"] for s in served.values()))
+    cells = {p: s["run"]["cells"] for p, s in served.items()}
     train = drive_training(device, kind,                      # phase 14
                            cfg.scaled(remat=True))
     free_card()
-    check_f32_training(device, cfg.scaled(                    # phase 15
-        n_layers=CHECK_LAYERS, dtype="float32"))
+    track(check_f32_training(device, cfg.scaled(              # phase 15
+        n_layers=CHECK_LAYERS, dtype="float32"), pool=train_pool))
     free_card()
     done("15")
-    moe_train = drive_moe_training(device, kind)              # phase C
+    moe_train = drive_moe_training(device, kind, train_pool)  # phase C
+    track(moe_train["check"])
     free_card()
     done("C")
     int8_train = drive_int8_training(device, kind,            # phase G
-                                     int8_train_config())
+                                     int8_train_config(),
+                                     pool=train_pool)
+    track(*int8_train["checks"].values())
     free_card()
     done("G")
     family_train = {}
     for phase, (arch, sizes, check) in FAMILY_TRAIN.items():  # I-K
         family_train[phase] = drive_family_training(
-            device, kind, family_train_config(arch), sizes, check)
+            device, kind, family_train_config(arch), sizes, check,
+            train_pool)
+        track(family_train[phase]["check"])
         done(phase)
     gmm_time = time_gmm(device, kind)                         # phase 16
     drive_multihost_scale()                                   # phase B
     done("B")
-    check_dryrun(serve, moe, train, moe_train, int8_train,    # phase H
-                 family_train, dry.get(), cells)
+    t0 = time.perf_counter()
+    for check in checks:
+        check.collect()
+    print(f"f32 checks: all {len(checks)} collected, waited "
+          f"{time.perf_counter() - t0!r} s for the last", flush=True)
+    if _AHEAD:
+        raise AssertionError(f"f32 checks submitted ahead and never run: "
+                             f"{[cfg.name for cfg, *_ in _AHEAD]}")
+    recs = {k: v for d in dry for k, v in d.result().items()}
+    check_dryrun(served["7"]["run"], served["11"]["run"],     # phase H
+                 train, moe_train, int8_train, family_train, recs, cells)
     done("H")
     f32 = timing["f32"]
     rows = {"crop_mirror_normalize": {
         "launches": run["launches"],
-        "max_abs_err": checks["main_f32_max_abs_err"], "ms": f32["ms"],
+        "max_abs_err": checks_crop["main_f32_max_abs_err"], "ms": f32["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": None}}
     # Launches on the serving paths and the 32k cells, each counted from 0
     # over its own run.
-    served = [serve, moe, kimi] + [f["run"] for f in families.values()] \
-        + [c["run"] for c in configs.values()] \
+    runs = [s["run"] for s in served.values()] \
         + [res for cell in cells.values() for res in cell.values()]
     for name, key in (("flash_attention", "flash_attention torch.bfloat16"),
                       ("flash_decode", "flash_decode")):
         t = attn_time[key]
-        rows[name] = {"launches": sum(r["launches"][name] for r in served),
+        rows[name] = {"launches": sum(r["launches"][name] for r in runs),
                       "max_abs_err": attn_err[name], "ms": t["ms"],
                       "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                       "bound_by": t["bound_by"],
                       "library_ms": t["library_ms"]}
     t = gmm_time["decode"]
     rows["grouped_matmul"] = {
-        "launches": sum(r["launches"]["grouped_matmul"] for r in served),
+        "launches": sum(r["launches"]["grouped_matmul"] for r in runs),
         "max_abs_err": gmm_err[GMM_DECODE, torch.bfloat16], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}

@@ -23,3 +23,31 @@ def narrow(cfg):
     arch = cfg.name.replace("-", "_").replace(".", "_")
     return cfg.scaled(n_layers=2, d_model=128, d_ff=256, vocab=512,
                       dtype="float32", remat=False, **NARROW[arch])
+
+
+# The four configs whose cells chip phases 13, D, E and F run (Kimi-K2,
+# Hymba-1.5B, xLSTM-350M, Whisper-tiny), shared by
+# ``tests/test_torch_family_cells.py`` and
+# ``tests/test_torch_chip_smoke_family_cells.py``.  Each keeps its family's
+# layout at 2 layers, a vocabulary of 512, in f32: Kimi-K2 16:2 (G = 8) at
+# head dim 112, 32 experts top-8 (four MoE chunks in a 2048-token row);
+# Hymba 10:2 (G = 5) at head dim 16 with a 32-token window and a Mamba
+# state of 16; xLSTM one mLSTM/sLSTM pair of 4 heads; Whisper 6:6 at head
+# dim 16 with 2 + 2 layers over its 1500 frames.
+FAMILY_NARROW = {
+    "kimi_k2_1t_a32b": dict(d_model=128, n_heads=16, n_kv_heads=2,
+                            head_dim=112, d_ff=64, n_experts=32, top_k=8),
+    "hymba_1_5b": dict(d_model=160, n_heads=10, n_kv_heads=2, head_dim=16,
+                       d_ff=256, window=32, ssm_state=16),
+    "xlstm_350m": dict(d_model=128, n_heads=4, n_kv_heads=4, head_dim=32),
+    "whisper_tiny": dict(d_model=96, n_heads=6, n_kv_heads=6, head_dim=16,
+                         d_ff=192, enc_layers=2),
+}
+
+
+def narrow_family(cfg):
+    """``cfg`` (either package's ``ArchConfig`` of a ``FAMILY_NARROW``
+    config) cut to its narrow twin."""
+    arch = cfg.name.replace("-", "_").replace(".", "_")
+    return cfg.scaled(n_layers=2, vocab=512, dtype="float32", remat=False,
+                      **FAMILY_NARROW[arch])

@@ -92,27 +92,6 @@ def test_bf16_ulps():
     assert chip_smoke.bf16_ulps(a, b) == 1
 
 
-@pytest.fixture
-def small_attention(monkeypatch):
-    monkeypatch.setattr(chip_smoke, "FLASH_PATH_CASES", [
-        ((2, 4, 2, 64, 16), torch.bfloat16), ((1, 4, 2, 40, 16),
-                                              torch.float32)])
-    monkeypatch.setattr(chip_smoke, "DECODE_PATH_CASES", [
-        ((4, 2, 2, 48, 16), torch.bfloat16), ((4, 2, 2, 33, 16),
-                                              torch.float32)])
-    monkeypatch.setattr(chip_smoke, "DECODE_LIVE", {(4, 2, 2, 48, 16): 20})
-    monkeypatch.setattr(chip_smoke, "FLASH_MASK_PATH_CASES", [
-        ((2, 10, 2, 70, 70, 16), torch.bfloat16, True, 24),
-        ((1, 6, 6, 30, 50, 16), torch.float32, False, 0)])
-
-
-def test_attention_checks_rehearse_on_cpu(small_attention):
-    """Phase 6 on the CPU: the plain version against itself, through the
-    same dispatch and the same layouts."""
-    assert chip_smoke.check_attention(torch.device("cpu")) == {
-        "flash_attention": 0.0, "flash_decode": 0.0}
-
-
 def test_compare_raises_on_disagreement():
     a = torch.zeros(4)
     assert chip_smoke.compare("same", a, a, torch.float32) == 0.0
@@ -224,14 +203,16 @@ def test_moe_path_config_is_grok_at_full_width():
     # Every shape the path gives the kernel (gate/up and down, at decode
     # and in a prefill chunk, and in its prefill_32k and decode_32k cells:
     # a one-row chunk and a step of DECODE_32K_BATCH slots) is checked in
-    # bf16 and timed, beside Kimi-K2's (test_kimi_path_config_at_full_width).
+    # bf16 and timed, beside Kimi-K2's (test_kimi_path_config_at_full_width)
+    # and those of Kimi-K2's cells (test_kimi_cells_gmm_shapes_are_derived
+    # in tests/test_torch_chip_smoke_family_cells.py).
     cells = (C // serve["prefill_b"], chip_smoke.DECODE_32K_BATCH["11"])
     shapes = {(E, rows, a, b) for rows in (serve["slots"], C) + cells
               for a, b in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model))}
+    kimi = _kimi_gmm_shapes() | _kimi_gmm_shapes(cells=True)
     assert {s for s, dtype in chip_smoke.GMM_PATH_CASES
-            if dtype == torch.bfloat16} == shapes | _kimi_gmm_shapes()
-    assert {s for _, s, _, _ in chip_smoke.TIME_GMM} == \
-        shapes | _kimi_gmm_shapes()
+            if dtype == torch.bfloat16} == shapes | kimi
+    assert {s for _, s, _, _ in chip_smoke.TIME_GMM} == shapes | kimi
     # Its attention shapes (G = 6) are checked and timed in bf16 too.
     prefill = (serve["prefill_b"], cfg.n_heads, cfg.n_kv_heads,
                serve["prefill_s"], cfg.resolved_head_dim)
@@ -243,15 +224,20 @@ def test_moe_path_config_is_grok_at_full_width():
     assert decode in dict(chip_smoke.TIME_DECODES).values()
 
 
-def _kimi_gmm_shapes():
+def _kimi_gmm_shapes(cells=False):
     """Kimi-K2's four grouped-matmul shapes on its serving path, from its
     config and the phase's sizes: C = ceil(S * top_k * 1.25 / E) per row
-    (1 at decode, 14 in a 512-token chunk) times the rows."""
+    (1 at decode, 14 in a 512-token chunk) times the rows; with ``cells``
+    those of its prefill_32k (one row) and decode_32k (its batch of
+    slots) cells."""
     cfg = chip_smoke.get_arch(chip_smoke.KIMI_ARCH)
     serve = chip_smoke.KIMI_SERVE
+    slots, rows = serve["slots"], serve["prefill_b"]
+    if cells:
+        slots, rows = chip_smoke.FAMILY_CELL_BATCH["13"], 1
     E = cfg.n_experts
-    decode = serve["slots"] * -(-cfg.top_k * 1.25 // E)
-    chunk = serve["prefill_b"] * -(-512 * cfg.top_k * 1.25 // E)
+    decode = slots * -(-cfg.top_k * 1.25 // E)
+    chunk = rows * -(-512 * cfg.top_k * 1.25 // E)
     return {(E, int(rows), a, b) for rows in (decode, chunk)
             for a, b in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model))}
 
@@ -640,30 +626,6 @@ def test_moe_training_config_is_grok_at_full_width():
     assert chip_smoke.n_chunks(chip_smoke.MOE_TRAIN_CHECK_S) == 2
 
 
-def test_moe_training_phase_rehearses_on_cpu():
-    """Phase C on the CPU at Grok-1's smoke config: run_training over the
-    loader with the MoE metrics, the probes (router, an expert) moved, no
-    kernel launched; the f32 check (CPU against CPU) at zero, and the
-    training forward against the serving forward (plain versions)."""
-    cpu = torch.device("cpu")
-    cfg = chip_smoke.get_arch(chip_smoke.MOE_ARCH).smoke_config().scaled(
-        n_layers=1, remat=True)
-    run = chip_smoke.drive_training(cpu, "cpu", cfg, batch=2, seq=1024,
-                                    steps=3)
-    assert run["steps"] == 3 and len(run["moe_aux_loss"]) == 3
-    assert set(run["changed"]) == {"embedding", "wq layer 0",
-                                   "router last layer",
-                                   "w_down expert 0 last layer"}
-    experts = 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
-    assert run["active_params"] == run["params"] - experts + experts // 2
-    out = chip_smoke.check_f32_training(
-        cpu, cfg, batch=1, seq=1024, restart=False, serving=True)
-    assert out["loss_max_abs_diff"] == 0.0 and out["grad_max_rel_diff"] == 0
-    assert out["serving"]["chunks"] == 2
-    assert out["serving"]["max_abs_diff"] <= chip_smoke.CHECK_TOL
-    assert "restart" not in out
-
-
 # ---- phases D, E and F: the hybrid, ssm and audio families --------------
 
 FAMILY_SMOKE = {
@@ -854,37 +816,6 @@ def test_int8_training_config_is_grok_at_full_width():
     assert vocab * cfg.d_model > CHUNK_ELEMS
 
 
-def test_int8_training_phase_rehearses_on_cpu():
-    """Phase G on the CPU at Grok-1's smoke config: run_training on int8
-    moments with the probes moved and no kernel launched; the f32 check
-    (CPU against CPU) at zero for both quantized state dtypes, moments
-    included; the int8 state restored onto a 1 x 1 mesh over a one-rank
-    gloo group bit for bit, and compressed_psum_grads equal to itself."""
-    cpu = torch.device("cpu")
-    cfg = chip_smoke.get_arch(chip_smoke.MOE_ARCH).smoke_config().scaled(
-        n_layers=2, remat=True)
-    out = chip_smoke.drive_int8_training(
-        cpu, "cpu", cfg, batch=2, seq=1024, steps=3,
-        check_cfg=cfg.scaled(n_layers=1, dtype="float32"), check_seq=1024)
-    run = out["run"]
-    assert run["steps"] == 3 and run["state_dtype"] == "int8"
-    assert run["layers"] == 2 and len(run["moe_aux_loss"]) == 3
-    assert all(v > 0 for v in run["changed"].values())
-    for sd in chip_smoke.INT8_CHECK_STATES:
-        check = out["checks"][sd]
-        assert check["state_dtype"] == sd
-        assert check["loss_max_abs_diff"] == 0.0
-        assert check["grad_max_rel_diff"] == 0
-        zero = {"int8_codes": 0, "int8_excess": 0.0, "f32_rel": 0.0}
-        assert check["moment_err"] == check["moment_err_last"] == zero
-        assert "state" not in check and "grads" not in check
-    mesh = out["mesh"]
-    assert mesh["backend"] == "gloo" and mesh["restore_bit_exact"]
-    assert mesh["compress_max_abs_diff"] == 0.0 and mesh["step"] == 3
-    assert not any(out["launches"].values())
-    assert not torch.distributed.is_initialized()
-
-
 def test_moment_err_counts_quantization_steps():
     a = {"m": {"w": {"q": torch.tensor([[3, -2]], dtype=torch.int8),
                      "scale": torch.tensor([[0.4]])}},
@@ -933,57 +864,6 @@ def test_phase_h_roofline_is_the_twins_terms():
 
 
 # ---- phases I, J and K: training the hybrid, ssm and audio families -----
-
-FAMILY_TRAIN_SMOKE = {"I": ("hymba_1_5b", 40), "J": ("xlstm_350m", 300),
-                      "K": ("whisper_tiny", 40)}
-
-
-@pytest.mark.parametrize("phase", sorted(FAMILY_TRAIN_SMOKE))
-def test_family_training_phases_rehearse_on_cpu(phase):
-    """Phases I, J and K on the CPU at each family's smoke config with
-    remat: 3 steps at 2 x 64 tokens (xLSTM 1, timed; Whisper's
-    through its own loop with make_batch's frames), finite losses and
-    norms, every probe of the
-    family's tree moved, no kernel launched; the last step's flop count
-    equal to the dry run's (phase H) for I and K, none taken for J; then
-    the f32 check (CPU against CPU) at zero, xLSTM's over two mLSTM
-    chunks, where the reference's gradient is NaN."""
-    arch, check_seq = FAMILY_TRAIN_SMOKE[phase]
-    assert chip_smoke.FAMILY_TRAIN[phase][0] == arch
-    sizes, check = chip_smoke.FAMILY_TRAIN[phase][1:]
-    cfg = chip_smoke.get_arch(arch).smoke_config().scaled(remat=True)
-    steps = min(sizes["steps"], 3)
-    out = chip_smoke.drive_family_training(
-        torch.device("cpu"), "cpu", cfg, dict(sizes, batch=2, seq=64,
-                                              steps=steps),
-        dict(check, seq=check_seq))
-    run = out["run"]
-    assert run["steps"] == steps == len(run["losses"])
-    assert all(np.isfinite(run["losses"] + run["grad_norms"]))
-    assert not any(run["launches"].values())
-    want = {"I": {"embedding", "wq layer 0", "w_down last layer",
-                  "mamba w_in layer 0"},
-            "J": {"embedding", "mlstm wq pair 0", "slstm r_gates last pair"},
-            "K": {"embedding", "encoder wq layer 0", "cross wq last layer",
-                  "mlp w_out last layer"}}[phase]
-    assert set(run["changed"]) == want
-    assert all(v > 0 for v in run["changed"].values())
-    if phase == "J":
-        assert run["step_flops"] is None
-        assert run["ms_per_step"] == run["ms_per_step_all"][0]
-        assert run["ms_per_slstm_step_layer_derived"] == pytest.approx(
-            run["ms_per_step"] / 64)
-    else:
-        rec = chip_smoke.dry_cell(cfg, "train", 64, 2, microbatches=1,
-                                  opt_cfg=chip_smoke.OptimizerConfig(
-                                      total_steps=steps,
-                                      **chip_smoke.TRAIN_OPT))
-        assert int(rec["flops_per_device"]) == run["step_flops"] > 0
-    assert ("stall_frac" in run) == (phase != "K")
-    assert out["check"]["loss_max_abs_diff"] == 0.0
-    assert out["check"]["grad_max_rel_diff"] == 0.0
-    assert out["seconds"] > 0
-
 
 def test_family_training_phases_run_each_config_at_full_width_and_depth():
     """Phase K trains its config file's model whole (as phase F serves

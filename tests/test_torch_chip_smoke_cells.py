@@ -246,7 +246,8 @@ def test_new_path_shapes_are_checked_and_timed():
 
 def test_existing_phases_and_tolerances_are_unchanged():
     """The tolerances, sizes and case lists phases 1-17 and A-K had before
-    phases L-O and the 32k cells: the new cases only add to them."""
+    phases L-O and the 32k cells, and those the six cells had before the
+    cells of phases 13, D, E and F: the new cases only add to them."""
     c = chip_smoke
     assert c.TOL == {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     assert c.FLASH_PATH_TOL == (2 ** -6, 2 ** -5)
@@ -312,6 +313,41 @@ def test_existing_phases_and_tolerances_are_unchanged():
         "flash_decode kimi", "flash_decode hymba",
         "flash_decode whisper self", "flash_decode whisper cross"]
     assert len(c.TIME_ATTENTION_F32) == 8
+    # The cells of phases 13, D, E and F, their shapes and the f32 workers
+    # add only to what the six cells had.
+    assert c.DECODE_32K_BATCH == {"7": 8, "11": 32, "L": 4, "M": 4, "N": 8,
+                                  "O": 16}
+    assert (c.SEQ_32K, c.PREFILL_32K_CALLS, c.DECODE_32K_STEPS, c.CARD_GB,
+            c.CARD_FREE) == (32768, 2, 4, 80, 0.2)
+    assert c.FAMILY_CELL_BATCH == {"13": 128, "D": 128, "E": 128, "F": 128}
+    assert (c.LONG_500K, c.LONG_CELL_PHASES, c.CELL_PREFILL_LAYERS,
+            c.WARM_STEPS) == (524288, ("D", "E"), {"E": 2}, 32)
+    assert (c.PLAIN_SCORES_BYTES, c.DECODE_TIME_BIG, c.F32_QUEUED) == (
+        32e9, 5e9, 8)
+    assert len(c.FLASH_32K_CASES) == len(c.DECODE_32K_CASES) == 6
+    assert (len(c.FLASH_32K_FAMILY_CASES),
+            len(c.DECODE_32K_FAMILY_CASES)) == (4, 5)
+    assert [s for s, _ in c.GMM_PATH_CASES[11:15]] == [
+        c.GMM_PREFILL_B1, c.GMM_PREFILL_B1_DOWN, c.GMM_DECODE_32K,
+        c.GMM_DECODE_32K_DOWN]
+    assert [s for s, _ in c.GMM_PATH_CASES[15:]] == [
+        c.KIMI_GMM_PREFILL_B1, c.KIMI_GMM_PREFILL_B1_DOWN,
+        c.KIMI_GMM_DECODE_32K, c.KIMI_GMM_DECODE_32K_DOWN]
+    assert [name for name, *_ in c.TIME_GMM[8:]] == [
+        "prefill b1", "prefill b1 down", "decode 32k", "decode 32k down",
+        "kimi prefill b1", "kimi prefill b1 down", "kimi decode 32k",
+        "kimi decode 32k down"]
+    assert [name for name, _ in c.TIME_DECODES[7:]] == [
+        "flash_decode qwen3-14b", "flash_decode yi", "flash_decode stablelm",
+        "flash_decode internvl2"] + [
+        f"flash_decode 32k {n}" for n in ("qwen3-4b", "grok", "qwen3-14b",
+                                          "yi", "stablelm", "internvl2",
+                                          "kimi", "hymba")] + [
+        "flash_decode long_500k hymba", "flash_decode 32k whisper self",
+        "flash_decode 32k whisper cross"]
+    assert [name for name, _ in c.TIME_ATTENTION_32K] == [
+        "flash_attention 32k", "flash_attention 32k yi",
+        "flash_attention 32k stablelm"]
 
 
 def test_phase_h_records_the_cells(monkeypatch):
