@@ -1,0 +1,10 @@
+"""device_idle_share.serve: the share of the profiled slice of a serving
+window in which no kernel, copy or fill ran on the card."""
+
+
+def read(layer):
+    if layer.get("kind") != "serve" or not layer.get("window_s"):
+        return None
+    if layer["device_kind"] == "cpu":
+        return None
+    return 100.0 * (1.0 - layer["busy_s"] / layer["window_s"])
