@@ -359,7 +359,6 @@ class InOrderPrefetcher(_PrefetcherBase):
             seq = self._next_issue
             self._next_issue += 1
             self._outstanding += 1
-            self.stats.on_issue(seq, len(uuids))
             BatchRequest(seq, ep, uuids, self.pool, self.assembler, self._on_ready)
 
     def _on_ready(self, batch: AssembledBatch) -> None:
@@ -479,7 +478,6 @@ class OutOfOrderPrefetcher(_PrefetcherBase):
     def _on_sample(self, res: FetchResult) -> None:
         self._samples_inflight -= 1
         self._pool_arrived.append(res)
-        self.stats.on_sample(res)
         self._maybe_assemble()
 
     def _maybe_assemble(self) -> None:
@@ -489,7 +487,6 @@ class OutOfOrderPrefetcher(_PrefetcherBase):
             seq = self._next_seq
             self._next_seq += 1
             self._assembling += 1
-            self.stats.on_issue(seq, B)
             self.assembler.assemble(seq, self._cur_epoch, samples, self._on_ready)
 
     def _on_ready(self, batch: AssembledBatch) -> None:

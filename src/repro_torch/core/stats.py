@@ -51,17 +51,9 @@ class LoaderStats:
         self.batch_consume_t: List[float] = []
         self.batch_nbytes: List[int] = []
         self.batch_wait: List[float] = []      # consumer-visible wait per batch
-        self.sample_arrive_t: List[float] = []
-        self.issues: List[tuple] = []
         self._last_consume: Optional[float] = None
 
     # -- hooks -------------------------------------------------------------
-    def on_issue(self, seq: int, n: int) -> None:
-        self.issues.append((self._clock.now(), seq, n))
-
-    def on_sample(self, res) -> None:
-        self.sample_arrive_t.append(res.t_done)
-
     def on_batch_ready(self, batch) -> None:
         self.batch_ready_t.append(batch.t_ready)
 

@@ -7,7 +7,9 @@ to tensors on one device:
     crop/mirror/normalize kernel on the device;
   * both keep a device-side prefetch queue of depth 2 (double buffering) —
     the on-device mirror of the paper's host-side prefetching — and report
-    per-step waits to ``StepStats`` on the loader's clock.
+    per-step waits to ``StepStats`` on the loader's clock;
+  * with ``core.spans`` on, each ``__next__`` is the span ``feed.next``,
+    over ``feed.wait`` (the loader's ``next_batch``) and ``feed.form``.
 
 ``device`` defaults to ``"cuda"`` and raises without a card; ``"cpu"``
 runs the kernels' plain versions.  ``DeviceFeed`` also lays batches out
@@ -28,6 +30,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.core.loader import CassandraLoader
+from repro_torch.core.spans import span
 from repro_torch.core.stats import StepStats
 from repro_torch.data.datasets import decode_token_record
 from repro_torch.kernels import ops as kernel_ops
@@ -101,9 +104,12 @@ class _DoubleBufferedFeed:
         hit = self.loader.ready_batches > 0
         clk = self.loader.clock
         t0 = clk.now()
-        batch = self.loader.next_batch()
+        with span("feed.wait"):
+            batch = self.loader.next_batch()
         wait = clk.now() - t0
-        self._queue.append((self._form(batch), batch))
+        with span("feed.form"):
+            formed = self._form(batch)
+        self._queue.append((formed, batch))
         return wait, hit
 
     def state(self) -> dict:
@@ -115,19 +121,20 @@ class _DoubleBufferedFeed:
         return self
 
     def __next__(self):
-        wait, hit = 0.0, True
-        if not self._started:
-            if not self.loader.started:
-                self.loader.start()
-            self._started = True
-            for _ in range(self.prefetch):
-                w, h = self._pull_one()
-                wait += w
-                hit = hit and h
-        dev_batch, meta = self._queue.popleft()
-        w, h = self._pull_one()              # refill behind the consumer
-        self.step_stats.on_wait(wait + w, blocked=not (hit and h))
-        return dev_batch, meta
+        with span("feed.next"):
+            wait, hit = 0.0, True
+            if not self._started:
+                if not self.loader.started:
+                    self.loader.start()
+                self._started = True
+                for _ in range(self.prefetch):
+                    w, h = self._pull_one()
+                    wait += w
+                    hit = hit and h
+            dev_batch, meta = self._queue.popleft()
+            w, h = self._pull_one()          # refill behind the consumer
+            self.step_stats.on_wait(wait + w, blocked=not (hit and h))
+            return dev_batch, meta
 
 
 class DeviceFeed(_DoubleBufferedFeed):

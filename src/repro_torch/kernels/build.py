@@ -16,10 +16,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Callable, Dict
 
 import torch
+
+from repro_torch.core.spans import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -27,24 +30,36 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _libs: Dict[Path, ctypes.CDLL] = {}
+# libraries this process compiled, and found built already
+counts = {"compiled": 0, "cached": 0}
+_count_lock = threading.Lock()
 
 
 def build(source: Path) -> Path:
     """Compile ``source`` unless this source and these flags were built
-    already; return the shared library's path."""
+    already; return the shared library's path.  The ``nvcc`` run is the
+    span ``kernels.build`` (``core.spans``)."""
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(source.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{source.stem}-{key}.so"
     if lib.exists():
+        _count("cached")
         return lib
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                   check=True)
+    with span("kernels.build"):
+        subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                       check=True)
     os.replace(tmp, lib)
+    _count("compiled")
     return lib
+
+
+def _count(key: str) -> None:
+    with _count_lock:           # chip_smoke.py builds in parallel threads
+        counts[key] += 1
 
 
 def load(source: Path, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
@@ -78,5 +93,5 @@ def check(lib: ctypes.CDLL, err: int, name: str) -> None:
                            f"({lib.cuda_error_string(err).decode()})")
 
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load",
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "counts", "build", "load",
            "require_card", "check"]

@@ -10,6 +10,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.spans import span
+
 from .params import P
 
 
@@ -124,8 +126,10 @@ def embed(params: Dict, tokens: torch.Tensor,
 
 
 def unembed(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Logits in f32 against the tied embedding, for a stable softmax."""
-    return x.float() @ params["embedding"].float().t()
+    """Logits in f32 against the tied embedding, for a stable softmax
+    (the span ``unembed`` with ``core.spans`` on)."""
+    with span("unembed"):
+        return x.float() @ params["embedding"].float().t()
 
 
 def output_head_spec(d: int, vocab: int) -> Dict:
@@ -133,7 +137,8 @@ def output_head_spec(d: int, vocab: int) -> Dict:
 
 
 def output_head(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    return x.float() @ params["w_out"].float()
+    with span("unembed"):
+        return x.float() @ params["w_out"].float()
 
 
 def logz_and_target(logits: torch.Tensor, targets: torch.Tensor):

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.spans import span
 from repro_torch.kernels import ops
 
 from .params import P
@@ -72,10 +73,14 @@ def moe_apply(params: Dict, x: torch.Tensor, *, top_k: int,
     ``train`` picks the expert products: the einsums (differentiable,
     each chunk checkpointed when there are several and gradients are on)
     or the grouped-matmul kernel.  ``constrain`` (optional) is applied to
-    the dispatch and expert buffers, as in the reference."""
-    return _moe_chunks(params, x, top_k=top_k,
-                       capacity_factor=capacity_factor, seq_chunk=seq_chunk,
-                       train=train, constrain=constrain)
+    the dispatch and expert buffers, as in the reference.  With
+    ``core.spans`` on, the call is the span ``moe`` and each chunk's
+    expert products ``moe.experts``: the dispatch is the rest."""
+    with span("moe"):
+        return _moe_chunks(params, x, top_k=top_k,
+                           capacity_factor=capacity_factor,
+                           seq_chunk=seq_chunk, train=train,
+                           constrain=constrain)
 
 
 def _moe_chunks(params: Dict, x: torch.Tensor, *, top_k: int,
@@ -203,7 +208,8 @@ def _moe_chunk(params: Dict, x: torch.Tensor, *, top_k: int,
     h = cst(x.reshape(B * S, d)[token].view(Ew, B * C, d) * mask.to(x.dtype))
 
     experts = _experts_einsum if train else _experts_kernel
-    y = experts(h, params, cst)                                # (Ew, B*C, d)
+    with span("moe.experts"):
+        y = experts(h, params, cst)                            # (Ew, B*C, d)
 
     weight = (expert_major(gate_slot)[held].reshape(Ew, B * C, 1) * mask)
     updates = (y * weight.to(x.dtype)).reshape(Ew * B * C, d)

@@ -9,6 +9,15 @@ linear cache's writes clamp to its last slot once ``pos`` passes its
 length.  The one host sync per step is the greedy ``argmax`` read back to
 the host.  Decoding is greedy; ``ServeConfig.greedy`` and ``seed`` are
 taken and select nothing, as in the reference (whose RNG is never drawn).
+
+Beside ``steps`` the engine counts ``slot_steps`` (every slot of every
+step), ``prompt_tokens_fed`` (slot-steps that fed a prompt token) and
+``tokens_out`` (tokens served; the step that feeds a prompt's last token
+serves its first).  With ``core.spans`` on, a step is the span
+``engine.step`` over ``engine.admit``, ``engine.upload`` (the tokens to
+the device), ``engine.forward`` (issuing the step function),
+``engine.readback`` (the argmax back to the host, waiting on the device)
+and ``engine.emit`` (the slots' bookkeeping).
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.train.step import make_serve_step
 
 
@@ -55,6 +65,9 @@ class ServingEngine:
                                                range(cfg.batch_slots)]
         self._next_token = np.zeros((cfg.batch_slots, 1), np.int32)
         self.steps = 0
+        self.slot_steps = 0
+        self.prompt_tokens_fed = 0
+        self.tokens_out = 0
         self.last_logits: Optional[torch.Tensor] = None   # (slots, 1, V)
 
     # -- request management --------------------------------------------------
@@ -76,26 +89,44 @@ class ServingEngine:
 
     # -- stepping ---------------------------------------------------------
     def step(self) -> None:
-        self._admit()
-        tokens = torch.from_numpy(self._next_token).to(self.model.device)
-        logits, self.cache = self.step_fn(self.params, self.cache, tokens)
-        self.last_logits = logits
-        self.steps += 1
-        next_ids = logits[:, -1, :].argmax(dim=-1).cpu().numpy()
+        with span("engine.step"):
+            with span("engine.admit"):
+                self._admit()
+            with span("engine.upload"):
+                tokens = torch.from_numpy(self._next_token).to(
+                    self.model.device)
+            with span("engine.forward"):
+                logits, self.cache = self.step_fn(self.params, self.cache,
+                                                  tokens)
+            self.last_logits = logits
+            self.steps += 1
+            self.slot_steps += self.cfg.batch_slots
+            with span("engine.readback"):
+                next_ids = logits[:, -1, :].argmax(dim=-1).cpu().numpy()
+            with span("engine.emit"):
+                self._emit(next_ids)
+
+    def _emit(self, next_ids: np.ndarray) -> None:
+        fed = out = 0
         for i, req in enumerate(self.slots):
             if req is None:
                 continue
+            if not req.out_tokens:
+                fed += 1                 # this step fed a prompt token
             if self._slot_pending[i]:
                 # still consuming the prompt: feed next prompt token
                 self._next_token[i, 0] = self._slot_pending[i].pop(0)
                 continue
             tok = int(next_ids[i])
             req.out_tokens.append(tok)
+            out += 1
             self._next_token[i, 0] = tok
             if (tok == self.cfg.eos_id
                     or len(req.out_tokens) >= self.cfg.max_new_tokens):
                 req.done = True
                 self.slots[i] = None     # slot freed -> continuous batching
+        self.prompt_tokens_fed += fed
+        self.tokens_out += out
 
     def run(self, requests: List[np.ndarray]) -> List[Request]:
         """Serve a list of prompts to completion."""

@@ -17,6 +17,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.core import KVStore, LoaderConfig, VirtualClock, build_stack
+from repro_torch.core.spans import span
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.step import init_state, make_train_step
@@ -105,11 +106,12 @@ def run_training(model, store: KVStore, uuids, loader_cfg: LoaderConfig,
         dev_batch, _meta = next(feed)
         batch = {"tokens": dev_batch["tokens"],
                  "loss_mask": dev_batch["loss_mask"]}
-        c0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        compute = time.perf_counter() - c0
+        with span("train.step"):         # the interval ``compute`` times
+            c0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            compute = time.perf_counter() - c0
         if loop_cfg.charge_step_time is not None:
             compute = loop_cfg.charge_step_time
         if virtual:

@@ -15,6 +15,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.models.params import tree_leaves, tree_unflatten
 
 from .optimizer import (OptimizerConfig, abstract_opt_state, adamw_init,
@@ -30,12 +31,18 @@ def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1,
     dim 0, each part's gradients are added in ``accum_dtype`` divided by
     the count, and the metrics are averaged.  Metrics are detached 0-d
     tensors: ``loss``, ``xent``, ``grad_norm`` and ``lr``.
+
+    With ``core.spans`` on, each ``train_loss`` is the span
+    ``train.forward``, each ``autograd.grad`` (the remat recompute with
+    the backward) ``train.backward`` and the update ``train.optimizer``.
     """
 
     def grads_of(leaves: list, params: Dict, batch: Dict
                  ) -> Tuple[list, Dict[str, torch.Tensor]]:
-        loss, metrics = model.train_loss(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        with span("train.forward"):
+            loss, metrics = model.train_loss(params, batch)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
         return list(grads), {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
@@ -58,8 +65,9 @@ def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1,
                 per_mb.append(m)
             metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
                        for k in per_mb[0]}
-        new_params, new_opt, stats = adamw_update(
-            tree_unflatten(params, grads), state["opt"], params, opt_cfg)
+        with span("train.optimizer"):
+            new_params, new_opt, stats = adamw_update(
+                tree_unflatten(params, grads), state["opt"], params, opt_cfg)
         metrics.update(stats)
         return {"params": new_params, "opt": new_opt}, metrics
 

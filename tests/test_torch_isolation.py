@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch``, its benches and ``chip_smoke``
 import neither JAX nor ``repro``, its entry points refuse a CUDA device when
 there is no card, and the modules it copied from ``repro`` are the originals
-with only their imports rewritten."""
+with only their imports rewritten, less the loader hooks the port dropped
+(``DROPPED``)."""
 
 import ast
 import json
@@ -35,6 +36,11 @@ COPIED = ["core/stats.py", "core/netsim.py", "core/kvstore.py",
               str(p.relative_to(REF)) for p in (REF / "configs").glob("*.py"))
 # The one string a copy may change: get_arch imports the port's configs.
 RENAMED = {"repro.configs.{arch_id}": "repro_torch.configs.{arch_id}"}
+# The loader hooks the port left out, as nothing read them: in each copy,
+# how many of the original's methods, ``self.`` attributes set and
+# ``self.stats.`` calls of these names it drops, and nothing else.
+DROPPED_NAMES = ("on_issue", "on_sample", "issues", "sample_arrive_t")
+DROPPED = {"core/stats.py": 4, "core/prefetcher.py": 3}
 # Copies outside the package: (the port's file, the original), from the root.
 COPIED_PAIRS = [("benchmarks/torch_common.py", "benchmarks/common.py"),
                 ("benchmarks/bench_torch_tightloop.py",
@@ -236,7 +242,36 @@ def test_copied_module_equals_original(port_path, ref_path):
     port = ast.parse(port_path.read_text())
     renamed = RENAMED if ref_path.is_relative_to(REF) else TWIN_RENAMED
     ref = ast.parse(_renamed(ref_path.read_text(), renamed))
+    rel = str(ref_path.relative_to(REF)) if ref_path.is_relative_to(REF) \
+        else None
+    assert _drop_hooks(port) == 0
+    assert _drop_hooks(ref) == DROPPED.get(rel, 0)
     assert _strip_imports(port) == _strip_imports(ref)
+
+
+def _drop_hooks(tree: ast.AST) -> int:
+    """Remove from ``tree`` the methods named in ``DROPPED_NAMES``, the
+    statements that set ``self.<name>`` and those that call
+    ``self.stats.<name>(...)``; return how many it removed."""
+    def hook(node) -> bool:
+        if isinstance(node, ast.FunctionDef):
+            return node.name in DROPPED_NAMES
+        target = (node.target if isinstance(node, ast.AnnAssign) else
+                  node.targets[0] if isinstance(node, ast.Assign) else
+                  node.value.func if isinstance(node, ast.Expr)
+                  and isinstance(node.value, ast.Call) else None)
+        return (isinstance(target, ast.Attribute)
+                and target.attr in DROPPED_NAMES)
+
+    removed = 0
+    for node in ast.walk(tree):
+        for field in ("body", "orelse", "finalbody"):
+            stmts = getattr(node, field, None)
+            if isinstance(stmts, list):
+                kept = [n for n in stmts if not hook(n)]
+                removed += len(stmts) - len(kept)
+                setattr(node, field, kept)
+    return removed
 
 
 def _top_level(path: Path, renamed=None) -> dict:

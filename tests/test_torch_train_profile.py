@@ -1,7 +1,8 @@
 """``tools/torch_train_profile.py`` on the CPU: it refuses to run without a
 card, and its split of a step by where the work was launched
 (``scope_times``) finds Hymba's Mamba scan in the forward, in remat's
-recompute and in the backward, and AdamW whole, on a CPU profile of the
+recompute and in the backward, and AdamW whole (the port's
+``train.optimizer`` span), on a CPU profile of the
 smoke config's train step (CPU time standing in for the card's kernel
 time)."""
 
@@ -16,7 +17,6 @@ import torch
 
 from repro_torch.configs.base import get_arch
 from repro_torch.models import build_model, ssm
-from repro_torch.train import step as train_step
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.step import init_state, make_train_step
 
@@ -46,24 +46,23 @@ def test_scope_times_split_a_hymba_step():
                                      dtype=torch.int32)}
     step = make_train_step(model, opt)
     with mock.patch.object(ssm, "_ssm_scan_chunked", tool.annotated(
-            "mamba_scan", ssm._ssm_scan_chunked)), \
-            mock.patch.object(train_step, "adamw_update", tool.annotated(
-                "adamw", train_step.adamw_update)), \
+            "mamba_scan", ssm._ssm_scan_chunked)), tool.spans_on(), \
             torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         step(state, batch)
     events = prof.events()
-    got = tool.scope_times(events, ("mamba_scan", "adamw"),
+    got = tool.scope_times(events, tool.SCOPES,
                            lambda e: e.self_cpu_time_total)
     scans = [e for e in events if e.name == "mamba_scan"]
-    adamw = [e for e in events if e.name == "adamw"]
+    adamw = [e for e in events if e.name == "train.optimizer"]
     # each layer's scan runs in the forward and again in remat's recompute
     assert len(scans) == 2 * cfg.n_layers and len(adamw) == 1
     # AdamW runs no autograd: exactly the time under its annotation
-    assert got["adamw"] == pytest.approx(adamw[0].cpu_time_total, rel=1e-9)
+    assert got["train.optimizer"] == pytest.approx(adamw[0].cpu_time_total,
+                                                   rel=1e-9)
     # the scan's backward adds to the time under its annotations, and the
     # rest of the step (attention, the MLP, their recompute) stays out
     under = sum(e.cpu_time_total for e in scans)
     total = sum(e.self_cpu_time_total for e in events
                 if e.device_type == torch.autograd.DeviceType.CPU)
-    assert under < got["mamba_scan"] < total - got["adamw"]
+    assert under < got["mamba_scan"] < total - got["train.optimizer"]

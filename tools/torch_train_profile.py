@@ -19,7 +19,8 @@ batch, then:
   share of an unprofiled step is also given, derived as 1 - busy time
   / ``step_ms``;
 * splits the profiled step's kernel time by where it was launched
-  (``scope_times``): AdamW, and for Hymba the Mamba scan
+  (``scope_times``): AdamW (the port's ``train.optimizer`` span, with
+  ``core.spans`` on for the profiled step), and for Hymba the Mamba scan
   (``ssm._ssm_scan_chunked``: its forward, remat's recompute of it and
   the backward autograd runs for it).
 
@@ -36,6 +37,7 @@ JSON line of results last.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -49,19 +51,21 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.configs.base import get_arch  # noqa: E402
+from repro_torch.core import spans  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.params import (tree_leaves,  # noqa: E402
                                       tree_unflatten)
 from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
                                          adamw_update)
-from repro_torch.train import step as train_step  # noqa: E402
 from repro_torch.train.step import init_state, make_train_step  # noqa: E402
 
 
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "nvjet")
 # Profiler markers that carry device timestamps but are not kernels.
 NOT_KERNELS = ("Command Buffer Full",)
+# the annotations whose work ``scope_times`` splits out
+SCOPES = ("mamba_scan", "train.optimizer")
 
 
 def _kernels(prof) -> list:
@@ -79,6 +83,18 @@ def annotated(label: str, fn):
         with torch.profiler.record_function(label):
             return fn(*args, **kwargs)
     return run
+
+
+@contextlib.contextmanager
+def spans_on():
+    """The port's spans on within the block (so that a profiler running
+    there sees them as annotations), off and cleared after."""
+    spans.enable()
+    try:
+        yield
+    finally:
+        spans.disable()
+        spans.take()
 
 
 def scope_times(events, labels, time_of) -> dict:
@@ -187,9 +203,7 @@ def main(argv=None) -> int:
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with mock.patch.object(ssm, "_ssm_scan_chunked", annotated(
-            "mamba_scan", ssm._ssm_scan_chunked)), \
-            mock.patch.object(train_step, "adamw_update", annotated(
-                "adamw", train_step.adamw_update)), \
+            "mamba_scan", ssm._ssm_scan_chunked)), spans_on(), \
             torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         state, _ = step(state, batch)
@@ -206,7 +220,7 @@ def main(argv=None) -> int:
     kernel_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
     scopes = {k: us / 1e3 for k, us in scope_times(
-        prof.events(), ("mamba_scan", "adamw"),
+        prof.events(), SCOPES,
         lambda e: e.self_device_time_total).items()}
     print(f"{'kernel':72s} {'calls':>7s} {'device ms':>11s} {'share':>7s}")
     for name, (ms, n) in top:
